@@ -1,0 +1,404 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (`onpolicy_torch`) on one GPU.
+
+    python3 chip_smoke.py            # from the root of the repository
+
+Phases, each of which fails the run (non-zero exit) if it fails:
+  1. card:    name and power limit (nvidia-smi); TF32 off for matmuls.
+  2. build:   nvcc of onpolicy_torch/csrc/gru_seq.cu for sm_90a.
+  3. kernels: both GRU kernels against their plain PyTorch versions on
+              the card, in f32, at the flagship, bench, ragged, T=1,
+              masked, recurrent_N=2 and H=256 shapes; dW determinism.
+  4. times:   kernel, plain version and cuDNN's nn.GRU (yardstick only)
+              at the flagship and bench shapes, with CUDA events.
+  5. train:   one flagship-width episode at 8 rollout threads on the
+              card against the CPU path from the same state; then the
+              port's `scripts/train_mpe.main` with the flagship rMAPPO
+              simple_spread flags for 10 episodes: every logged metric
+              finite, each kernel launched 20 times an episode.
+The line before the last is one JSON object with a row per kernel; the
+last line is the result line `{"ok": true, "device": {...}}`.
+Exits non-zero with no result line when no CUDA device is present or
+the port's package is not beside this script.
+"""
+from __future__ import annotations
+
+import json
+import math
+import os
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 non-tensor-core flop/s
+HBM_BYTES_S = 3.35e12
+F32_FLOP_S = 67e12
+
+FLAGSHIP = dict(T=10, B=960, H=64)       # 25*128*3/10 chunks of L=10
+BENCH = dict(T=10, B=122880, H=64)       # 16384 rollout threads
+TRAIN_ARGV = [
+    "--env_name", "MPE", "--algorithm_name", "rmappo",
+    "--experiment_name", "chip_smoke", "--scenario_name", "simple_spread",
+    "--num_agents", "3", "--num_landmarks", "3", "--seed", "1",
+    "--n_rollout_threads", "128", "--num_mini_batch", "1",
+    "--episode_length", "25", "--num_env_steps", "32000",
+    "--ppo_epoch", "10", "--use_ReLU", "false", "--gain", "0.01",
+    "--lr", "7e-4", "--critic_lr", "7e-4", "--log_interval", "1",
+    "--device", "cuda",
+]
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+
+
+# ---------------------------------------------------------------------------
+# inputs and comparisons
+# ---------------------------------------------------------------------------
+
+def make_inputs(torch, T, B, H, seed, mask_mode="sprinkled"):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dev = "cuda"
+    rn = lambda *s, scale=1.0: torch.randn(*s, generator=g, device=dev) * scale
+    x = dict(gir=rn(T, B, H), giz=rn(T, B, H), gin=rn(T, B, H),
+             h0=rn(B, H, scale=0.5), w_hh=rn(H, 3 * H, scale=H ** -0.5),
+             b_hh=rn(3 * H, scale=0.1))
+    if mask_mode == "ones":
+        m = torch.ones(T, B, 1, device=dev)
+    else:
+        m = (torch.rand(T, B, 1, generator=g, device=dev) > 0.1).float()
+        m[0] = 0.0                      # every row starts an episode at t=0
+    x["masks"] = m
+    x["douts"] = rn(T, B, H, scale=0.1)
+    x["dhT"] = rn(B, H, scale=0.1)
+    return x
+
+
+def max_err(a, b, scale=1.0):
+    return float((a - b).abs().max()) / scale
+
+
+def assert_close(torch, name, a, b, rtol, atol, scale=1.0):
+    ok = torch.allclose(a / scale, b / scale, rtol=rtol, atol=atol)
+    if not ok:
+        raise AssertionError(
+            f"{name}: max abs err {max_err(a, b, scale):.3e} "
+            f"(scale {scale:.3g}, rtol {rtol}, atol {atol})")
+
+
+def check_layer(torch, cg, case, T, B, H, mask_mode="sprinkled",
+                bench_scale=False):
+    """Kernel vs plain version for one layer; returns (fwd_err, bwd_err)."""
+    x = make_inputs(torch, T, B, H, seed=T * 7919 + B * 31 + H,
+                    mask_mode=mask_mode)
+    args = (x["gir"], x["giz"], x["gin"], x["h0"], x["masks"], x["w_hh"],
+            x["b_hh"])
+    outs, hT = cg.gru_layer_fwd(*args)
+    r_outs, r_hT = cg.gru_layer_fwd_ref(*args)
+    torch.cuda.synchronize()
+    assert_close(torch, f"{case} outs", outs, r_outs, 1e-5, 1e-5)
+    assert_close(torch, f"{case} hT", hT, r_hT, 1e-5, 1e-5)
+    fwd_err = max(max_err(outs, r_outs), max_err(hT, r_hT))
+
+    bargs = (x["gir"], x["giz"], x["gin"], r_outs, x["h0"], x["masks"],
+             x["douts"], x["dhT"], x["w_hh"], x["b_hh"])
+    got = cg.gru_layer_bwd(*bargs)
+    ref = cg.gru_layer_bwd_ref(*bargs)
+    torch.cuda.synchronize()
+    names = ("dgir", "dgiz", "dgin", "dh0", "dw_hh", "db_hh")
+    bwd_err = 0.0
+    for n, a, b in zip(names, got, ref):
+        # a sum of T*B products per entry reorders between the two
+        # versions; at bench scale (1.2M terms) compare relative to |ref|
+        scale = max(1.0, float(b.abs().max())) \
+            if (bench_scale and n in ("dw_hh", "db_hh")) else 1.0
+        assert_close(torch, f"{case} {n}", a, b, 2e-4, 2e-5, scale)
+        bwd_err = max(bwd_err, max_err(a, b, scale))
+    if bench_scale:
+        again = cg.gru_layer_bwd(*bargs)
+        torch.cuda.synchronize()
+        for n, a, b in zip(names, got, again):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{case} {n}: backward not deterministic")
+    log(f"  {case:<34} T={T:<3} B={B:<7} H={H:<4} "
+        f"fwd err {fwd_err:.2e}  bwd err {bwd_err:.2e}  ok")
+    return fwd_err, bwd_err
+
+
+def check_sequence_layers(torch, cg):
+    """recurrent_N=2 through the autograd path (kernels, both layers)
+    against the plain scan on the same card, outputs and every grad."""
+    from onpolicy_torch.models import gru as gru_mod
+    T, B, D, H, N = 10, 300, 24, 64, 2
+    g = torch.Generator(device="cuda").manual_seed(5)
+    rn = lambda *s, scale=1.0: torch.randn(*s, generator=g, device="cuda") * scale
+    layers = []
+    d_in = D
+    for _ in range(N):
+        layers.append({"w_ih": rn(d_in, 3 * H, scale=d_in ** -0.5),
+                       "w_hh": rn(H, 3 * H, scale=H ** -0.5),
+                       "b_ih": rn(3 * H, scale=0.1), "b_hh": rn(3 * H, scale=0.1)})
+        d_in = H
+    params = {"layers": layers, "norm": {"scale": 1.0 + rn(H, scale=0.1),
+                                         "bias": rn(H, scale=0.1)}}
+    xs, hxs = rn(T, B, D), rn(B, N, H, scale=0.5)
+    masks = (torch.rand(T, B, 1, generator=g, device="cuda") > 0.2).float()
+    masks[0] = 0.0
+    w_out = rn(H, 3, scale=H ** -0.5)   # keeps the loss's gradients O(1)
+
+    def grads(fn):
+        leaves = [xs, hxs] + [v for l in layers for v in l.values()] \
+            + list(params["norm"].values())
+        leaves = [v.detach().requires_grad_() for v in leaves]
+        x_, h_ = leaves[0], leaves[1]
+        it = iter(leaves[2:])
+        p = {"layers": [{k: next(it) for k in l} for l in layers],
+             "norm": {k: next(it) for k in params["norm"]}}
+        outs, hT = fn(p, x_, h_, masks)
+        loss = ((outs @ w_out) ** 2).sum() + (hT * hT).sum()
+        return (outs, hT), torch.autograd.grad(loss, leaves)
+
+    (o1, h1), g1 = grads(cg.sequence)
+    (o2, h2), g2 = grads(gru_mod.scan_sequence)
+    torch.cuda.synchronize()
+    assert_close(torch, "layers=2 outs", o1, o2, 1e-5, 1e-5)
+    assert_close(torch, "layers=2 hT", h1, h2, 1e-5, 1e-5)
+    for i, (a, b) in enumerate(zip(g1, g2)):
+        assert_close(torch, f"layers=2 grad {i}", a, b, 2e-4, 2e-5)
+    log(f"  {'recurrent_N=2 autograd':<34} T={T:<3} B={B:<7} H={H:<4} ok")
+
+
+# ---------------------------------------------------------------------------
+# timing
+# ---------------------------------------------------------------------------
+
+def time_ms(torch, fn, iters=20, warmup=3):
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bounds(T, B, H):
+    """(fwd, bwd) least times in ms and what bounds them: each input read
+    once and each output written once over HBM rate; the three hidden
+    products (2*3*H^2*B*T flops forward, three times that backward) over
+    the f32 CUDA-core peak. Gate elementwise math is not counted."""
+    seq, st, w = T * B * H * 4, B * H * 4, (3 * H * H + 3 * H) * 4
+    m = T * B * 4
+    fwd_bytes = 3 * seq + m + st + w + seq + st
+    bwd_bytes = 5 * seq + m + 2 * st + w + 3 * seq + st + w
+    fwd_flops = 6.0 * H * H * B * T
+    out = []
+    for nbytes, flops in ((fwd_bytes, fwd_flops), (bwd_bytes, 3 * fwd_flops)):
+        tb, tf = nbytes / HBM_BYTES_S * 1e3, flops / F32_FLOP_S * 1e3
+        out.append((max(tb, tf), "bytes" if tb >= tf else "operations"))
+    return out
+
+
+def time_shape(torch, cg, shape, card):
+    T, B, H = shape["T"], shape["B"], shape["H"]
+    x = make_inputs(torch, T, B, H, seed=11, mask_mode="ones")
+    fargs = (x["gir"], x["giz"], x["gin"], x["h0"], x["masks"], x["w_hh"],
+             x["b_hh"])
+    outs, _ = cg.gru_layer_fwd_ref(*fargs)
+    bargs = (x["gir"], x["giz"], x["gin"], outs, x["h0"], x["masks"],
+             x["douts"], x["dhT"], x["w_hh"], x["b_hh"])
+    res = {
+        "fwd_ms": time_ms(torch, lambda: cg.gru_layer_fwd(*fargs)),
+        "bwd_ms": time_ms(torch, lambda: cg.gru_layer_bwd(*bargs)),
+        "fwd_plain_ms": time_ms(torch, lambda: cg.gru_layer_fwd_ref(*fargs),
+                                iters=5),
+        "bwd_plain_ms": time_ms(torch, lambda: cg.gru_layer_bwd_ref(*bargs),
+                                iters=5),
+    }
+    # yardstick only, never called by the port: cuDNN's GRU on all-ones
+    # masks computes the same recurrence, plus the input projection
+    gru = torch.nn.GRU(H, H).cuda()
+    xin = torch.randn(T, B, H, device="cuda", requires_grad=True)
+    h0 = x["h0"][None].clone()
+    with torch.no_grad():
+        res["fwd_library_ms"] = time_ms(torch, lambda: gru(xin, h0))
+    y, _ = gru(xin, h0)
+    dy = torch.randn_like(y)
+    res["bwd_library_ms"] = time_ms(
+        torch, lambda: torch.autograd.grad(y, [xin] + list(gru.parameters()),
+                                           dy, retain_graph=True))
+    (res["fwd_bound_ms"], res["fwd_bound_by"]), \
+        (res["bwd_bound_ms"], res["bwd_bound_by"]) = bounds(T, B, H)
+    log(f"  times T={T} B={B} H={H} [{card}]: " + json.dumps(res))
+    return res
+
+
+# ---------------------------------------------------------------------------
+# main path
+# ---------------------------------------------------------------------------
+
+def check_small_against_cpu(torch):
+    """One flagship-width episode at 8 rollout threads, on the card
+    (kernels) and on the CPU (plain versions) from the same parameters,
+    carry and actions: rollout buffers and the trained state must agree.
+    f32 sums reorder between cuBLAS/the kernels and the CPU, and the
+    differences pass through 25 env steps and 2 PPO epochs of Adam, hence
+    atol 1e-4 / rtol 1e-3 on the buffer and 1e-4 / 1e-3 on parameters."""
+    from onpolicy_torch.config import Config, canonicalize_algorithm
+    from onpolicy_torch.envs.mpe.world import WorldState
+    from onpolicy_torch.runner.shared_runner import SharedRunner
+    from onpolicy_torch.utils.tree import tree_leaves, tree_map
+    base = canonicalize_algorithm(Config(
+        algorithm_name="rmappo", n_rollout_threads=8, episode_length=25,
+        num_env_steps=200, ppo_epoch=2, use_ReLU=False, lr=7e-4,
+        critic_lr=7e-4))
+    gpu = SharedRunner(base.replace(device="cuda"))
+    cpu = SharedRunner(base.replace(device="cpu"))
+    ts_g, carry_g = gpu.init()
+    ts_c, _ = cpu.init()
+    to_cpu = lambda c: {**tree_map(lambda t: t.cpu(), {
+        k: v for k, v in c.items() if k != "env_states"}),
+        "env_states": WorldState.from_tensors(
+            tree_map(lambda t: t.cpu(), c["env_states"].tensors()))}
+    carry_c = to_cpu(carry_g)
+    after_g, buf_g = gpu.rollout(ts_g, carry_g)
+    T = base.episode_length
+    inject = [{"actions": buf_g.actions[t].cpu()} for t in range(T)]
+    inject[-1]["reset_states"] = to_cpu(after_g)["env_states"]
+    _, buf_c = cpu.rollout(ts_c, carry_c, inject)
+    err = 0.0
+    for k in ("obs", "rewards", "action_log_probs", "value_preds",
+              "rnn_states", "returns", "advantages"):
+        a, b = getattr(buf_g, k).cpu(), getattr(buf_c, k)
+        assert_close(torch, f"small rollout {k}", a, b, 1e-3, 1e-4)
+        err = max(err, max_err(a, b))
+    new_g, _ = gpu.algo.train(ts_g, buf_g, gpu.generator)
+    new_c, _ = cpu.algo.train(ts_c, buf_c, cpu.generator)
+    torch.cuda.synchronize()
+    for part in ("actor_params", "critic_params"):
+        for i, (a, b) in enumerate(zip(tree_leaves(getattr(new_g, part)),
+                                       tree_leaves(getattr(new_c, part)))):
+            assert_close(torch, f"small train {part}[{i}]", a.cpu(), b,
+                         1e-3, 1e-4)
+            err = max(err, max_err(a.cpu(), b))
+    log(f"  card vs CPU, 1 episode at N=8: max abs err {err:.2e}  ok")
+
+
+def train_main_path(torch, cg):
+    from onpolicy_torch.scripts import train_mpe
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["ONPOLICY_TORCH_RESULTS"] = tmp
+        cg.FWD_LAUNCHES = 0
+        cg.BWD_LAUNCHES = 0
+        t0 = time.perf_counter()
+        _, history = train_mpe.main(TRAIN_ARGV)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        fwd, bwd = cg.FWD_LAUNCHES, cg.BWD_LAUNCHES
+    episodes = len([r for r in history if "value_loss" in r])
+    if episodes < 10:
+        raise AssertionError(f"only {episodes} episodes logged")
+    for r in history:
+        for k, v in r.items():
+            if isinstance(v, float) and not math.isfinite(v):
+                raise AssertionError(f"episode {r['episode']}: {k}={v}")
+    want = 20 * episodes   # ppo_epoch 10 x (actor + critic) x recurrent_N 1
+    if fwd != want or bwd != want:
+        raise AssertionError(f"launches fwd={fwd} bwd={bwd}, want {want}")
+    last = history[-1]
+    mean_rew = sum(r["average_episode_rewards"] for r in history) / episodes
+    log(f"  episodes {episodes}, wall {wall:.2f} s, launches fwd {fwd} "
+        f"bwd {bwd}")
+    log(f"env_steps_per_s {last['fps']:.1f}")
+    log(f"mean_episode_reward {mean_rew:.4f}")
+    return fwd, bwd
+
+
+def main() -> int:
+    if not (ROOT / "onpolicy_torch" / "csrc" / "gru_seq.cu").exists():
+        print("chip_smoke.py: the onpolicy_torch package is not beside this "
+              "script; run it from the root of the repository",
+              file=sys.stderr)
+        return 2
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    from onpolicy_torch.ops import cuda_gru as cg
+
+    log("== 1. card")
+    card = card_line()
+    log(card)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"device {torch.cuda.get_device_name(0)}")
+
+    log("== 2. build")
+    t0 = time.perf_counter()
+    lib = cg.build()
+    log(f"built {lib.relative_to(ROOT)} in {time.perf_counter() - t0:.1f} s")
+    log(lib.with_suffix(".ptxas.txt").read_text().strip())
+
+    log("== 3. kernels against their plain versions (f32)")
+    f_err, b_err = check_layer(torch, cg, "flagship", **FLAGSHIP)
+    check_layer(torch, cg, "bench (16384 threads)", **BENCH, bench_scale=True)
+    check_layer(torch, cg, "B=37 (ragged single tile)", 10, 37, 64)
+    check_layer(torch, cg, "B=5003 (tiles, ragged edge)", 10, 5003, 64)
+    check_layer(torch, cg, "T=1", 1, 960, 64)
+    check_layer(torch, cg, "all-ones masks", 10, 960, 64, mask_mode="ones")
+    check_layer(torch, cg, "H=256 (weights in L2)", 10, 960, 256)
+    check_layer(torch, cg, "H=128 (backward weights in L2)", 5, 333, 128)
+    check_sequence_layers(torch, cg)
+
+    log("== 4. times (CUDA events)")
+    t_flag = time_shape(torch, cg, FLAGSHIP, card)
+    time_shape(torch, cg, BENCH, card)
+
+    log("== 5. main path: train_mpe, flagship rMAPPO simple_spread")
+    check_small_against_cpu(torch)
+    fwd_n, bwd_n = train_main_path(torch, cg)
+
+    src = "onpolicy_torch/csrc/gru_seq.cu"
+    kernels = [
+        {"name": "gru_seq_fwd", "route": "cuda", "source": src,
+         "replaces": "onpolicy_tpu/ops/pallas_gru.py:122",
+         "launches": fwd_n, "max_abs_err": f_err,
+         "ms": t_flag["fwd_ms"], "plain_ms": t_flag["fwd_plain_ms"],
+         "bound_ms": t_flag["fwd_bound_ms"],
+         "bound_by": t_flag["fwd_bound_by"],
+         "library_ms": t_flag["fwd_library_ms"]},
+        {"name": "gru_seq_bwd", "route": "cuda", "source": src,
+         "replaces": "onpolicy_tpu/ops/pallas_gru.py:219",
+         "launches": bwd_n, "max_abs_err": b_err,
+         "ms": t_flag["bwd_ms"], "plain_ms": t_flag["bwd_plain_ms"],
+         "bound_ms": t_flag["bwd_bound_ms"],
+         "bound_by": t_flag["bwd_bound_by"],
+         "library_ms": t_flag["bwd_library_ms"]},
+    ]
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,48 @@
+"""Scenario protocol for the batched MPE engine.
+
+Port of `onpolicy_tpu/envs/mpe/scenario.py`. A scenario is a module
+providing functions over (spec, batched state):
+
+  make_spec(args) -> WorldSpec
+  reset(spec, n, generator, device, dtype) -> WorldState   # N fresh worlds
+  observation(spec, state) -> tuple of per-agent [N, D_i] tensors
+  reward(spec, state) -> [N, M] per-agent rewards
+  shared_reward: bool
+"""
+from __future__ import annotations
+
+import torch
+
+from onpolicy_torch.envs.mpe.world import WorldSpec, WorldState
+
+
+def uniform_positions(n_envs: int, n: int, generator, device, dtype,
+                      scale: float = 1.0) -> torch.Tensor:
+    u = torch.empty(n_envs, n, 2, device=device, dtype=dtype)
+    return scale * u.uniform_(-1.0, 1.0, generator=generator)
+
+
+def base_state(spec: WorldSpec, agent_pos, landmark_pos,
+               extras=None) -> WorldState:
+    N, M, K, C = agent_pos.shape[0], spec.n_agents, spec.n_landmarks, spec.dim_c
+    z = lambda *s: torch.zeros(*s, dtype=agent_pos.dtype, device=agent_pos.device)
+    return WorldState(
+        agent_pos=agent_pos, agent_vel=z(N, M, 2),
+        agent_comm=z(N, M, max(C, 1)),
+        landmark_pos=landmark_pos, landmark_vel=z(N, K, 2),
+        t=torch.zeros(N, dtype=torch.int32, device=agent_pos.device),
+        extras=extras or {})
+
+
+def pairwise_dist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a: [N, P, 2], b: [N, K, 2] → [N, P, K] euclidean distances."""
+    d = a[:, :, None, :] - b[:, None, :, :]
+    return torch.sqrt(torch.clamp_min(d.square().sum(-1), 1e-12))
+
+
+def others_concat(values: torch.Tensor, agent_idx: int) -> torch.Tensor:
+    """Rows of `values` [N, M, D] other than agent_idx, in order, flattened
+    to [N, (M-1)·D] (the reference's `if other is agent: continue`)."""
+    M = values.shape[1]
+    keep = [j for j in range(M) if j != agent_idx]
+    return values[:, keep].reshape(values.shape[0], -1)

@@ -1,0 +1,108 @@
+"""Recurrent actor and critic networks (R_Actor / R_Critic).
+
+Port of `onpolicy_tpu/models/actor_critic.py`: `Actor`/`Critic` hold the
+config and spaces and expose init/apply functions over explicit parameter
+trees (nested dicts of tensors in the JAX layout). Two layouts:
+  * flat batch `[B, ...]` — rollout steps (`forward`);
+  * sequence `[L, B, ...]` — chunked-BPTT training through
+    `gru.sequence` (the CUDA kernels on the card).
+Image observations (`models/cnn.py`) come with Slice B (ROADMAP.md).
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from onpolicy_torch.models import act as act_layer
+from onpolicy_torch.models import common, gru, mlp
+from onpolicy_torch.utils import spaces as sp
+
+
+def _flat_obs_shape(space):
+    shape = sp.obs_shape(space)
+    if len(shape) != 1:
+        raise NotImplementedError(
+            "image observations (cnn base) are not ported yet "
+            "(ROADMAP.md, Queue 1 item 9)")
+    return shape
+
+
+class Actor:
+    def __init__(self, cfg, obs_space, action_space):
+        self.cfg = cfg
+        self.obs_space = obs_space
+        self.action_space = action_space
+        self.obs_shape = _flat_obs_shape(obs_space)
+
+    def init(self, generator: torch.Generator, device):
+        cfg = self.cfg
+        params = {"base": mlp.init(cfg, self.obs_shape[0], generator, device),
+                  "act": act_layer.init(cfg, self.action_space,
+                                        cfg.hidden_size, generator, device)}
+        if cfg.is_recurrent:
+            params["rnn"] = gru.init(cfg, cfg.hidden_size, generator, device)
+        return params
+
+    def forward(self, params, obs, rnn_states, masks, generator,
+                available_actions=None, actions=None
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """obs [B, ...] → (actions, log_probs, new_rnn_states). Given
+        `actions`, they are taken instead of a draw."""
+        x = mlp.apply(self.cfg, params["base"], obs)
+        if self.cfg.is_recurrent:
+            x, rnn_states = gru.step(self.cfg, params["rnn"], x, rnn_states,
+                                     masks)
+        actions, log_probs = act_layer.sample(
+            self.cfg, params["act"], self.action_space, x, generator,
+            available_actions, actions)
+        return actions, log_probs, rnn_states
+
+    def evaluate_seq(self, params, obs, rnn_states, action, masks,
+                     available_actions=None, active_masks=None):
+        """obs/action/masks [L, B, ...], rnn_states [B, N, H] at the chunk
+        start. Returns ([L, B, 1] log-probs, scalar entropy)."""
+        L, B = obs.shape[0], obs.shape[1]
+        x = mlp.apply(self.cfg, params["base"], obs.reshape(L * B, -1))
+        x = x.reshape(L, B, -1)
+        if self.cfg.is_recurrent:
+            x, _ = gru.sequence(self.cfg, params["rnn"], x, rnn_states, masks)
+        flat = lambda a: None if a is None else a.reshape(L * B, *a.shape[2:])
+        lp, ent = act_layer.evaluate(
+            self.cfg, params["act"], self.action_space, x.reshape(L * B, -1),
+            flat(action), flat(available_actions), flat(active_masks))
+        return lp.reshape(L, B, -1), ent
+
+
+class Critic:
+    def __init__(self, cfg, cent_obs_space):
+        self.cfg = cfg
+        self.obs_shape = _flat_obs_shape(cent_obs_space)
+
+    def init(self, generator: torch.Generator, device):
+        cfg = self.cfg
+        params = {"base": mlp.init(cfg, self.obs_shape[0], generator, device),
+                  "v_out": common.linear_init(
+                      cfg.hidden_size, 1, gain=1.0,
+                      use_orthogonal=cfg.use_orthogonal,
+                      generator=generator, device=device)}
+        if cfg.is_recurrent:
+            params["rnn"] = gru.init(cfg, cfg.hidden_size, generator, device)
+        return params
+
+    def forward(self, params, cent_obs, rnn_states, masks):
+        """[B, ...] → (values [B, 1], new_rnn_states). Value head in f32."""
+        x = mlp.apply(self.cfg, params["base"], cent_obs)
+        if self.cfg.is_recurrent:
+            x, rnn_states = gru.step(self.cfg, params["rnn"], x, rnn_states,
+                                     masks)
+        return common.linear_apply(params["v_out"], x.float()), rnn_states
+
+    def forward_seq(self, params, cent_obs, rnn_states, masks):
+        """[L, B, ...] → values [L, B, 1]."""
+        L, B = cent_obs.shape[0], cent_obs.shape[1]
+        x = mlp.apply(self.cfg, params["base"], cent_obs.reshape(L * B, -1))
+        x = x.reshape(L, B, -1)
+        if self.cfg.is_recurrent:
+            x, _ = gru.sequence(self.cfg, params["rnn"], x, rnn_states, masks)
+        return common.linear_apply(params["v_out"], x.float())

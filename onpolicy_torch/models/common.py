@@ -1,0 +1,68 @@
+"""Shared layer primitives: initializers, linear, layer-norm.
+
+Port of `onpolicy_tpu/models/common.py`. Parameters are plain nested
+dicts of tensors with the JAX package's layout: a linear weight is
+stored `[in, out]` and applied as `x @ w + b` (not `nn.Linear`'s
+`[out, in]`), so a JAX parameter tree carries across leaf for leaf
+(`utils/params.py`).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+LN_EPS = 1e-5  # torch nn.LayerNorm default
+
+
+def calculate_gain(activation: str) -> float:
+    if activation == "relu":
+        return math.sqrt(2.0)
+    if activation == "tanh":
+        return 5.0 / 3.0
+    if activation in ("linear", "sigmoid"):
+        return 1.0
+    raise ValueError(activation)
+
+
+def orthogonal(shape, gain, generator, device):
+    w = torch.empty(shape, dtype=torch.float32)
+    torch.nn.init.orthogonal_(w, gain=gain, generator=generator)
+    return w.to(device)
+
+
+def xavier_uniform(shape, gain, generator, device):
+    fan_in, fan_out = shape[0], shape[1]
+    a = gain * math.sqrt(6.0 / (fan_in + fan_out))
+    w = torch.empty(shape, dtype=torch.float32).uniform_(-a, a,
+                                                         generator=generator)
+    return w.to(device)
+
+
+def linear_init(in_dim: int, out_dim: int, *, gain: float, use_orthogonal: bool,
+                generator: torch.Generator, device):
+    """Weight stored [in, out]; drawn on the host generator, then moved."""
+    init_fn = orthogonal if use_orthogonal else xavier_uniform
+    return {"w": init_fn((in_dim, out_dim), gain, generator, device),
+            "b": torch.zeros(out_dim, device=device)}
+
+
+def linear_apply(p, x):
+    return x @ p["w"] + p["b"]
+
+
+def layer_norm_init(dim: int, device):
+    return {"scale": torch.ones(dim, device=device),
+            "bias": torch.zeros(dim, device=device)}
+
+
+def layer_norm_apply(p, x):
+    """Biased variance, as `jnp.var` (`common.py:57-61`)."""
+    mean = x.mean(-1, keepdim=True)
+    var = (x - mean).square().mean(-1, keepdim=True)
+    y = (x - mean) * torch.rsqrt(var + LN_EPS)
+    return y * p["scale"] + p["bias"]
+
+
+def activation_fn(use_relu: bool):
+    return torch.relu if use_relu else torch.tanh

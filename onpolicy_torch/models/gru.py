@@ -1,0 +1,101 @@
+"""Mask-gated multi-layer GRU with output LayerNorm.
+
+Port of `onpolicy_tpu/models/gru.py`. Two modes:
+
+  * single step (rollout, `step`): the hidden state is multiplied by the
+    episode mask before the cell. Plain torch, as in the JAX package,
+    which also computes it outside any kernel;
+  * sequence (training, `sequence`): the gated form `h ← h·mask_t` at
+    every step over [T, B, ...]. For tensors on the card it runs the CUDA
+    kernels of `ops/cuda_gru.py`, always: there is no routing rule by
+    width. For tensors on the CPU it runs `scan_sequence`, the plain time
+    loop, which is also the tests' reference.
+
+Gate math matches torch.nn.GRU (gate order r, z, n; b_ih and b_hh kept
+separate so the r·(W_hn h + b_hn) coupling is exact). Weights are stored
+`w_ih [in, 3H]`, `w_hh [H, 3H]`. Hidden-state layout at the API boundary:
+[batch, recurrent_N, H].
+"""
+from __future__ import annotations
+
+import torch
+
+from onpolicy_torch.models import common as cm
+
+
+def init(cfg, input_dim: int, generator: torch.Generator, device):
+    H = cfg.hidden_size
+    init_fn = cm.orthogonal if cfg.use_orthogonal else cm.xavier_uniform
+    layers = []
+    d_in = input_dim
+    for _ in range(cfg.recurrent_N):
+        layers.append({
+            "w_ih": init_fn((d_in, 3 * H), 1.0, generator, device),
+            "w_hh": init_fn((H, 3 * H), 1.0, generator, device),
+            "b_ih": torch.zeros(3 * H, device=device),
+            "b_hh": torch.zeros(3 * H, device=device),
+        })
+        d_in = H
+    return {"layers": layers, "norm": cm.layer_norm_init(H, device)}
+
+
+def _cell(layer, x, h):
+    """One GRU cell step. x: [B, in], h: [B, H] → h': [B, H]."""
+    H = h.shape[-1]
+    gi = x @ layer["w_ih"] + layer["b_ih"]
+    gh = h @ layer["w_hh"] + layer["b_hh"]
+    i_r, i_z, i_n = gi[..., :H], gi[..., H:2 * H], gi[..., 2 * H:]
+    h_r, h_z, h_n = gh[..., :H], gh[..., H:2 * H], gh[..., 2 * H:]
+    r = torch.sigmoid(i_r + h_r)
+    z = torch.sigmoid(i_z + h_z)
+    n = torch.tanh(i_n + r * h_n)
+    return (1.0 - z) * n + z * h
+
+
+def step(cfg, params, x, hxs, masks):
+    """Single rollout step. x: [B, in]; hxs: [B, recurrent_N, H];
+    masks: [B, 1]. Returns (out [B, H], new_hxs [B, recurrent_N, H])."""
+    hxs = hxs * masks[..., None]
+    new_h = []
+    inp = x
+    for i, layer in enumerate(params["layers"]):
+        inp = _cell(layer, inp, hxs[:, i])
+        new_h.append(inp)
+    return cm.layer_norm_apply(params["norm"], inp), torch.stack(new_h, 1)
+
+
+def scan_sequence(params, xs, hxs, masks):
+    """Plain time loop over a [T, B, in] sequence with per-step mask
+    gating. Returns (outs [T, B, H] after LayerNorm, final hxs)."""
+    h = hxs
+    outs = []
+    for t in range(xs.shape[0]):
+        h = h * masks[t][..., None]
+        new_h = []
+        inp = xs[t]
+        for i, layer in enumerate(params["layers"]):
+            inp = _cell(layer, inp, h[:, i])
+            new_h.append(inp)
+        h = torch.stack(new_h, 1)
+        outs.append(inp)
+    return cm.layer_norm_apply(params["norm"], torch.stack(outs)), h
+
+
+def sequence(cfg, params, xs, hxs, masks):
+    """xs [T, B, in]; hxs [B, recurrent_N, H]; masks [T, B, 1].
+    Returns (outs [T, B, H], final hxs [B, recurrent_N, H]).
+
+    On the card: the CUDA kernels, always. On the CPU: the plain scan;
+    `use_pallas_gru=True` there raises, as the kernels exist only on the
+    card, and `use_pallas_gru=False` on the card raises likewise."""
+    explicit = getattr(cfg, "use_pallas_gru", None)
+    if xs.is_cuda:
+        if explicit is False:
+            raise ValueError("use_pallas_gru=False: the plain GRU scan is "
+                             "the CPU path, not a path on the card")
+        from onpolicy_torch.ops import cuda_gru
+        return cuda_gru.sequence(params, xs, hxs, masks)
+    if explicit:
+        raise ValueError("use_pallas_gru=True on CPU tensors: the GRU "
+                         "kernels run on the card only")
+    return scan_sequence(params, xs, hxs, masks)

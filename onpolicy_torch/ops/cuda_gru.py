@@ -1,0 +1,306 @@
+"""Sequence-mode mask-gated GRU through hand-written CUDA kernels.
+
+Port of `onpolicy_tpu/ops/pallas_gru.py`. The two Pallas TPU kernels
+there (`_fwd_call`, `_bwd_call`) become the CUDA kernels of
+`csrc/gru_seq.cu`, built with `nvcc` for `sm_90a` into `_build/` on
+first use and bound through `ctypes`. Beside each kernel stands its
+plain PyTorch version (`gru_layer_fwd_ref`, `gru_layer_bwd_ref`): the
+wrappers take it only for tensors that lie on the CPU; for a CUDA tensor
+they launch the kernel or raise.
+
+`FWD_LAUNCHES` / `BWD_LAUNCHES` count kernel launches (one per wrapper
+call that reaches the card), so a run can show that its training path
+went through the kernels.
+
+Layout (the JAX package's): gi streams `[T, B, H]`, masks `[T, B, 1]`,
+`w_hh [H, 3H]` and `b_hh [3H]` with gate order r, z, n.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+from onpolicy_torch.models import common as cm
+
+FWD_LAUNCHES = 0
+BWD_LAUNCHES = 0
+
+_PKG = Path(__file__).resolve().parent.parent
+SOURCE = _PKG / "csrc" / "gru_seq.cu"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_lib = None
+
+
+# ---------------------------------------------------------------------------
+# build and bind
+# ---------------------------------------------------------------------------
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    found = shutil.which("nvcc") or os.path.join(cuda_home, "bin", "nvcc")
+    if not os.path.exists(found):
+        raise RuntimeError("nvcc not found: the GRU kernels are built with "
+                           "the CUDA toolkit on the machine with the card")
+    return found
+
+
+def library_path() -> Path:
+    """Build target, named by the source's content hash: a changed source
+    builds anew, an unchanged one is reused."""
+    tag = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
+    return BUILD_DIR / f"libgru_seq_{tag}.so"
+
+
+def build() -> Path:
+    """Compile `csrc/gru_seq.cu` unless the library for this source exists.
+    Writes the compiler's register/shared-memory report beside it."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+                         capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    out.with_suffix(".ptxas.txt").write_text(res.stderr)
+    os.replace(tmp, out)
+    return out
+
+
+def _load():
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        P, I = ctypes.c_void_p, ctypes.c_int
+        lib.gru_seq_fwd.argtypes = [P] * 9 + [I] * 4 + [P]
+        lib.gru_seq_fwd.restype = I
+        lib.gru_seq_bwd.argtypes = [P] * 17 + [I] * 4 + [P]
+        lib.gru_seq_bwd.restype = I
+        _lib = lib
+    return _lib
+
+
+def _check(err: int, what: str):
+    if err != 0:
+        raise RuntimeError(f"{what} failed: cudaError {err}")
+
+
+def batch_tile(B: int, H: int, n_sm: int) -> int:
+    """Rows per block: the largest tile that still gives two waves of
+    blocks over the card's SMs, within a shared-memory cap that keeps the
+    backward's five [tile, H] buffers under 160 KB. Multiple of 4."""
+    cap = max(4, min(64, (8192 // max(H, 1)) // 4 * 4))
+    for bt in (64, 32, 16, 8):
+        if bt <= cap and -(-B // bt) >= 2 * n_sm:
+            return bt
+    return min(8, cap)
+
+
+def _require(tensors: dict, shapes: dict, device):
+    for name, x in tensors.items():
+        if x.device != device:
+            raise ValueError(f"{name} on {x.device}, expected {device}")
+        if x.dtype != torch.float32:
+            raise ValueError(f"{name} is {x.dtype}; the kernels take float32")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} is not contiguous")
+        if tuple(x.shape) != shapes[name]:
+            raise ValueError(f"{name} has shape {tuple(x.shape)}, "
+                             f"expected {shapes[name]}")
+
+
+def _shapes(T, B, H, **extra):
+    seq = (T, B, H)
+    d = {"gir": seq, "giz": seq, "gin": seq, "masks": (T, B, 1),
+         "h0": (B, H), "w_hh": (H, 3 * H), "b_hh": (3 * H,)}
+    d.update(extra)
+    return d
+
+
+def _ptr(x):
+    return ctypes.c_void_p(x.data_ptr())
+
+
+def _stream(device):
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions (CPU path, and the kernels' reference on the card)
+# ---------------------------------------------------------------------------
+
+def _gates(gir, giz, gin, hm, w_hh, b_hh):
+    H = hm.shape[-1]
+    ghr = hm @ w_hh[:, :H] + b_hh[:H]
+    ghz = hm @ w_hh[:, H:2 * H] + b_hh[H:2 * H]
+    ghn = hm @ w_hh[:, 2 * H:] + b_hh[2 * H:]
+    r = torch.sigmoid(gir + ghr)
+    z = torch.sigmoid(giz + ghz)
+    n = torch.tanh(gin + r * ghn)
+    return r, z, n, ghn
+
+
+def gru_layer_fwd_ref(gir, giz, gin, h0, masks, w_hh, b_hh):
+    """Time loop. Returns (outs [T, B, H], hT [B, H])."""
+    h = h0
+    outs = []
+    for t in range(gir.shape[0]):
+        hm = h * masks[t]
+        _, z, n, _ = _gates(gir[t], giz[t], gin[t], hm, w_hh, b_hh)
+        h = (1.0 - z) * n + z * hm
+        outs.append(h)
+    return torch.stack(outs), h
+
+
+def gru_layer_bwd_ref(gir, giz, gin, outs, h0, masks, douts, dhT, w_hh, b_hh):
+    """Reverse loop that rematerializes the gates from gi and
+    hprev = [h0, outs[:-1]], as `_bwd_kernel` does. Returns
+    (dgir, dgiz, dgin [T, B, H], dh0 [B, H], dw_hh [H, 3H], db_hh [3H]).
+    The masks get no cotangent."""
+    T, _, H = gir.shape
+    dh = dhT
+    dw = torch.zeros_like(w_hh)
+    db = torch.zeros_like(b_hh)
+    dgr, dgz, dgn = [None] * T, [None] * T, [None] * T
+    for t in reversed(range(T)):
+        hm = (outs[t - 1] if t > 0 else h0) * masks[t]
+        r, z, n, ghn = _gates(gir[t], giz[t], gin[t], hm, w_hh, b_hh)
+        dh = dh + douts[t]
+        dz = dh * (hm - n) * z * (1.0 - z)
+        dn = dh * (1.0 - z) * (1.0 - n * n)
+        dr = dn * ghn * r * (1.0 - r)
+        dgate = torch.cat([dr, dz, dn * r], dim=-1)           # [B, 3H]
+        d_hm = dh * z + dgate @ w_hh.T
+        dh = d_hm * masks[t]
+        dw = dw + hm.T @ dgate
+        db = db + dgate.sum(0)
+        dgr[t], dgz[t], dgn[t] = dr, dz, dn
+    return (torch.stack(dgr), torch.stack(dgz), torch.stack(dgn), dh, dw, db)
+
+
+# ---------------------------------------------------------------------------
+# wrappers: plain version on the CPU, kernel on the card
+# ---------------------------------------------------------------------------
+
+def gru_layer_fwd(gir, giz, gin, h0, masks, w_hh, b_hh):
+    """One layer forward. Returns (outs [T, B, H], hT [B, H])."""
+    global FWD_LAUNCHES
+    if gir.device.type == "cpu":
+        return gru_layer_fwd_ref(gir, giz, gin, h0, masks, w_hh, b_hh)
+    if gir.device.type != "cuda":
+        raise ValueError(f"unsupported device {gir.device}")
+    T, B, H = gir.shape
+    ins = dict(gir=gir, giz=giz, gin=gin, masks=masks, h0=h0, w_hh=w_hh,
+               b_hh=b_hh)
+    _require(ins, _shapes(T, B, H), gir.device)
+    outs = torch.empty_like(gir)
+    hT = torch.empty_like(h0)
+    if T == 0 or B == 0:
+        return outs, h0.clone()
+    lib = _load()
+    bt = batch_tile(B, H, _sm_count(gir.device))
+    with torch.cuda.device(gir.device):
+        err = lib.gru_seq_fwd(*map(_ptr, (gir, giz, gin, masks, h0, w_hh,
+                                          b_hh, outs, hT)), T, B, H, bt,
+                              _stream(gir.device))
+    _check(err, "gru_seq_fwd launch")
+    FWD_LAUNCHES += 1
+    return outs, hT
+
+
+def gru_layer_bwd(gir, giz, gin, outs, h0, masks, douts, dhT, w_hh, b_hh):
+    """One layer backward; same outputs as `gru_layer_bwd_ref`."""
+    global BWD_LAUNCHES
+    if gir.device.type == "cpu":
+        return gru_layer_bwd_ref(gir, giz, gin, outs, h0, masks, douts, dhT,
+                                 w_hh, b_hh)
+    if gir.device.type != "cuda":
+        raise ValueError(f"unsupported device {gir.device}")
+    T, B, H = gir.shape
+    ins = dict(gir=gir, giz=giz, gin=gin, outs=outs, masks=masks, h0=h0,
+               douts=douts, dhT=dhT, w_hh=w_hh, b_hh=b_hh)
+    _require(ins, _shapes(T, B, H, outs=(T, B, H), douts=(T, B, H),
+                          dhT=(B, H)), gir.device)
+    dgir, dgiz, dgin = (torch.empty_like(gir) for _ in range(3))
+    dh0 = torch.empty_like(h0)
+    dw = torch.empty_like(w_hh)
+    db = torch.empty_like(b_hh)
+    if T == 0 or B == 0:
+        return dgir, dgiz, dgin, dhT.clone(), dw.zero_(), db.zero_()
+    lib = _load()
+    bt = batch_tile(B, H, _sm_count(gir.device))
+    nblocks = -(-B // bt)
+    partial = torch.empty(nblocks * (H + 1) * 3 * H, device=gir.device)
+    with torch.cuda.device(gir.device):
+        err = lib.gru_seq_bwd(*map(_ptr, (gir, giz, gin, outs, masks, h0,
+                                          douts, dhT, w_hh, b_hh, dgir, dgiz,
+                                          dgin, dh0, dw, db, partial)),
+                              T, B, H, bt, _stream(gir.device))
+    _check(err, "gru_seq_bwd launch")
+    BWD_LAUNCHES += 1
+    return dgir, dgiz, dgin, dh0, dw, db
+
+
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+# ---------------------------------------------------------------------------
+# differentiable layer and the multi-layer sequence
+# ---------------------------------------------------------------------------
+
+class GRULayerSequence(torch.autograd.Function):
+    """One GRU layer over [T, B, H]; the backward is the backward kernel
+    (`gru_layer_sequence`'s custom VJP, pallas_gru.py:258-287). It saves
+    gi, outs, h0, masks and the weights; no gate residuals."""
+
+    @staticmethod
+    def forward(ctx, gir, giz, gin, h0, masks, w_hh, b_hh):
+        outs, hT = gru_layer_fwd(gir, giz, gin, h0, masks, w_hh, b_hh)
+        ctx.save_for_backward(gir, giz, gin, outs, h0, masks, w_hh, b_hh)
+        return outs, hT
+
+    @staticmethod
+    def backward(ctx, douts, dhT):
+        gir, giz, gin, outs, h0, masks, w_hh, b_hh = ctx.saved_tensors
+        douts = torch.zeros_like(outs) if douts is None else douts.contiguous()
+        dhT = torch.zeros_like(h0) if dhT is None else dhT.contiguous()
+        dgir, dgiz, dgin, dh0, dw, db = gru_layer_bwd(
+            gir, giz, gin, outs, h0, masks, douts, dhT, w_hh, b_hh)
+        return dgir, dgiz, dgin, dh0, None, dw, db
+
+
+def sequence(params, xs, hxs, masks):
+    """Kernel-backed equivalent of `models.gru.sequence`.
+
+    xs [T, B, in]; hxs [B, recurrent_N, H]; masks [T, B, 1].
+    Returns (outs [T, B, H] after LayerNorm, final hxs [B, recurrent_N, H]).
+    The input projections and the LayerNorm are plain PyTorch, as the JAX
+    package leaves them to XLA (pallas_gru.py:322-341).
+    """
+    T, B, _ = xs.shape
+    m = masks.to(torch.float32).contiguous()
+    inp = xs
+    finals = []
+    for i, layer in enumerate(params["layers"]):
+        H = layer["w_hh"].shape[0]
+        flat = inp.reshape(T * B, -1)
+        wi, bi = layer["w_ih"], layer["b_ih"]
+        gir = (flat @ wi[:, :H] + bi[:H]).reshape(T, B, H)
+        giz = (flat @ wi[:, H:2 * H] + bi[H:2 * H]).reshape(T, B, H)
+        gin = (flat @ wi[:, 2 * H:] + bi[2 * H:]).reshape(T, B, H)
+        outs, hT = GRULayerSequence.apply(
+            gir, giz, gin, hxs[:, i].contiguous(), m,
+            layer["w_hh"].contiguous(), layer["b_hh"].contiguous())
+        finals.append(hT)
+        inp = outs
+    return cm.layer_norm_apply(params["norm"], inp), torch.stack(finals, 1)

@@ -1,0 +1,87 @@
+"""Loss primitives: huber/mse, PPO clipped surrogate, value loss.
+
+Port of `onpolicy_tpu/ops/losses.py` (the reference's `r_mappo.py:52-141`
+and `utils/util.py:5-13`). The normalizer state is passed in explicitly;
+the trainer updates it before calling `value_loss`.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from onpolicy_torch.ops import valuenorm as vn
+
+
+def huber_loss(e: torch.Tensor, delta: float) -> torch.Tensor:
+    a = e.abs()
+    quad = 0.5 * torch.clamp_max(a, delta).square()
+    lin = delta * (a - torch.clamp_max(a, delta))
+    return quad + lin
+
+
+def mse_loss(e: torch.Tensor) -> torch.Tensor:
+    return 0.5 * e.square()
+
+
+def masked_mean(x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """sum(x*mask)/sum(mask); plain mean when mask is None."""
+    if mask is None:
+        return x.mean()
+    return (x * mask).sum() / torch.clamp_min(mask.sum(), 1e-8)
+
+
+def value_loss(values, value_preds_old, returns, active_masks,
+               norm_state: Optional[vn.ValueNormState], *, clip_param: float,
+               use_clipped_value_loss: bool = True, use_huber_loss: bool = True,
+               huber_delta: float = 10.0, use_value_active_masks: bool = True):
+    """Clipped value loss; errors in normalized space, per-element
+    max(orig, clipped), reduced by active masks when enabled."""
+    value_pred_clipped = value_preds_old + torch.clamp(
+        values - value_preds_old, -clip_param, clip_param)
+    target = vn.normalize(norm_state, returns) if norm_state is not None \
+        else returns
+    error_clipped = target - value_pred_clipped
+    error_original = target - values
+    if use_huber_loss:
+        loss_clipped = huber_loss(error_clipped, huber_delta)
+        loss_original = huber_loss(error_original, huber_delta)
+    else:
+        loss_clipped = mse_loss(error_clipped)
+        loss_original = mse_loss(error_original)
+    loss = torch.maximum(loss_original, loss_clipped) if use_clipped_value_loss \
+        else loss_original
+    return masked_mean(loss, active_masks if use_value_active_masks else None)
+
+
+def ppo_policy_loss(log_prob_new, log_prob_old, advantages, active_masks, *,
+                    clip_param: float, use_policy_active_masks: bool = True
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Clipped surrogate. Returns (loss, mean_ratio). Action heads are
+    summed (keepdim) before the batch reduction. HAPPO's sequential
+    factor and joint ratio come with its slice (ROADMAP.md)."""
+    ratio = torch.exp(log_prob_new - log_prob_old)
+    surr1 = ratio * advantages
+    surr2 = torch.clamp(ratio, 1.0 - clip_param, 1.0 + clip_param) * advantages
+    surr = torch.minimum(surr1, surr2).sum(-1, keepdim=True)
+    mask = active_masks if use_policy_active_masks else None
+    return -masked_mean(surr, mask), ratio.mean()
+
+
+def normalize_advantages(advantages: torch.Tensor,
+                         active_masks: Optional[torch.Tensor]) -> torch.Tensor:
+    """Active-mask-aware standardization (masked moments, population
+    variance), `r_mappo.py:179-187`."""
+    if active_masks is None:
+        mean = advantages.mean()
+        std = advantages.std(correction=0)
+    else:
+        w = active_masks
+        n = torch.clamp_min(w.sum(), 1e-8)
+        mean = (advantages * w).sum() / n
+        std = torch.sqrt(((advantages - mean).square() * w).sum() / n)
+    return (advantages - mean) / (std + 1e-5)
+
+
+def global_grad_norm(grads) -> torch.Tensor:
+    return torch.sqrt(torch.stack([g.square().sum() for g in grads]).sum())

@@ -1,0 +1,113 @@
+"""Where one flagship rMAPPO episode spends its time on the card.
+
+    python -m onpolicy_torch.scripts.profile_episode [--episodes 3] [--warmup 2]
+
+Runs the flagship simple_spread configuration (128 rollout threads,
+T=25, L=10, 10 PPO epochs, hidden 64) on the card and prints one JSON
+object:
+  * host wall time per episode, split into rollout (T env steps + the
+    policy's acts + GAE) and update (ppo_epoch PPO steps), each phase
+    ended by `torch.cuda.synchronize()`;
+  * from `torch.profiler` over one more episode: the device's busy time
+    (sum of kernel times; one stream, so kernels do not overlap), its idle
+    share of the unprofiled episode time, kernel launches per episode, the
+    GRU kernels' share, and the kernels that take the most device time;
+  * the card's name and power limit.
+Refuses to run without a CUDA device.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+
+import torch
+
+FLAGSHIP = [
+    "--algorithm_name", "rmappo", "--scenario_name", "simple_spread",
+    "--num_agents", "3", "--num_landmarks", "3", "--seed", "1",
+    "--n_rollout_threads", "128", "--num_mini_batch", "1",
+    "--episode_length", "25", "--ppo_epoch", "10", "--use_ReLU", "false",
+    "--gain", "0.01", "--lr", "7e-4", "--critic_lr", "7e-4",
+    "--device", "cuda",
+]
+GRU_KERNELS = ("gru_fwd_kernel", "gru_bwd_kernel", "gru_bwd_reduce")
+
+
+def _device_time_us(ev) -> float:
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(ev, name):
+            return float(getattr(ev, name))
+    return 0.0
+
+
+def _is_kernel(ev) -> bool:
+    return str(getattr(ev, "device_type", "")).endswith("CUDA")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--episodes", type=int, default=3)
+    ap.add_argument("--warmup", type=int, default=2)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_episode: needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from onpolicy_torch.config import config_from_args
+    from onpolicy_torch.runner.shared_runner import SharedRunner
+
+    cfg = config_from_args(FLAGSHIP)
+    runner = SharedRunner(cfg)
+    state, carry = runner.init()
+    for _ in range(args.warmup):
+        state, carry, _ = runner.episode(state, carry)
+    torch.cuda.synchronize()
+
+    rollout_ms, update_ms = [], []
+    for _ in range(args.episodes):
+        t0 = time.perf_counter()
+        carry, buf = runner.rollout(state, carry)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, _ = runner.algo.train(state, buf, runner.generator)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        rollout_ms.append((t1 - t0) * 1e3)
+        update_ms.append((t2 - t1) * 1e3)
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        state, carry, _ = runner.episode(state, carry)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if _is_kernel(e)]
+    busy_us = sum(_device_time_us(e) for e in kernels)
+    episode_ms = (sum(rollout_ms) + sum(update_ms)) / args.episodes
+    top = sorted(kernels, key=_device_time_us, reverse=True)[:12]
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    out = {
+        "card": card,
+        "env_steps_per_episode": cfg.episode_length * cfg.n_rollout_threads,
+        "rollout_ms": rollout_ms, "update_ms": update_ms,
+        "episode_ms": episode_ms,
+        "env_steps_per_s": cfg.episode_length * cfg.n_rollout_threads
+        / (episode_ms / 1e3),
+        "device_busy_ms": busy_us / 1e3,
+        "device_idle_share": 1.0 - busy_us / 1e3 / episode_ms,
+        "kernel_launches": sum(e.count for e in kernels),
+        "gru_kernels_ms": sum(_device_time_us(e) for e in kernels
+                              if any(k in e.key for k in GRU_KERNELS)) / 1e3,
+        "top_kernels": [{"name": e.key[:90], "count": e.count,
+                         "ms": _device_time_us(e) / 1e3} for e in top],
+    }
+    print(json.dumps(out))
+    return out
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

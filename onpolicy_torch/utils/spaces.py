@@ -1,0 +1,36 @@
+"""Lightweight, hashable space descriptors.
+
+The port's own copy of the parts of `onpolicy_tpu/utils/spaces.py` that
+the ported slice uses: frozen dataclasses in place of gym space classes
+(no gym dependency in the compute path). The other descriptors and the
+gym adapters come with the slices that need them (ROADMAP.md).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Tuple
+
+
+@dataclass(frozen=True)
+class Discrete:
+    n: int
+
+
+@dataclass(frozen=True)
+class Box:
+    shape: Tuple[int, ...]
+    low: float = -1.0
+    high: float = 1.0
+
+
+@dataclass(frozen=True)
+class MultiDiscrete:
+    nvec: Tuple[int, ...]
+
+
+def obs_shape(space) -> Tuple[int, ...]:
+    if isinstance(space, Box):
+        return tuple(space.shape)
+    if isinstance(space, Discrete):
+        return (space.n,)
+    raise TypeError(f"unsupported obs space {space!r}")

@@ -1,0 +1,75 @@
+"""The CUDA GRU kernels against their plain PyTorch versions, on the card.
+
+Marked `cuda`: each test skips where there is no CUDA device, as on the
+CPU machines that run the suite. The file imports neither JAX nor the
+JAX package, so the card's machine runs it on its own:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
+
+(`--noconftest`: tests/conftest.py configures JAX). Tolerances are those
+of tests/test_pallas_gru.py: forward rtol/atol 1e-5, gradients
+2e-4 / 2e-5. The backward must also be bitwise deterministic (per-block
+partial sums reduced in a fixed order, no float atomics).
+"""
+import numpy as np
+import pytest
+import torch
+
+from onpolicy_torch.ops import cuda_gru
+
+FWD = dict(rtol=1e-5, atol=1e-5)
+GRAD = dict(rtol=2e-4, atol=2e-5)
+
+
+def _layer_inputs(T, B, H, seed):
+    rng = np.random.default_rng(seed)
+    f = lambda *s, scale=1.0: torch.tensor(
+        (rng.standard_normal(s) * scale).astype(np.float32), device="cuda")
+    masks = torch.tensor((rng.random((T, B, 1)) > 0.2).astype(np.float32),
+                         device="cuda")
+    masks[0] = 0.0
+    return dict(gir=f(T, B, H), giz=f(T, B, H), gin=f(T, B, H),
+                h0=f(B, H, scale=0.5), masks=masks,
+                w_hh=f(H, 3 * H, scale=H ** -0.5), b_hh=f(3 * H, scale=0.1),
+                douts=f(T, B, H, scale=0.1), dhT=f(B, H, scale=0.1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,B,H", [(10, 960, 64), (10, 37, 64), (1, 300, 64),
+                                   (5, 333, 128), (4, 200, 256)])
+def test_kernels_match_plain_versions_on_the_card(T, B, H):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run on the card only")
+    x = _layer_inputs(T, B, H, seed=B)
+    args = (x["gir"], x["giz"], x["gin"], x["h0"], x["masks"], x["w_hh"],
+            x["b_hh"])
+    fwd0, bwd0 = cuda_gru.FWD_LAUNCHES, cuda_gru.BWD_LAUNCHES
+    outs, hT = cuda_gru.gru_layer_fwd(*args)
+    r_outs, r_hT = cuda_gru.gru_layer_fwd_ref(*args)
+    torch.testing.assert_close(outs, r_outs, **FWD)
+    torch.testing.assert_close(hT, r_hT, **FWD)
+    bargs = (x["gir"], x["giz"], x["gin"], r_outs, x["h0"], x["masks"],
+             x["douts"], x["dhT"], x["w_hh"], x["b_hh"])
+    got = cuda_gru.gru_layer_bwd(*bargs)
+    for a, b in zip(got, cuda_gru.gru_layer_bwd_ref(*bargs)):
+        torch.testing.assert_close(a, b, **GRAD)
+    again = cuda_gru.gru_layer_bwd(*bargs)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b), "backward is not deterministic"
+    assert (cuda_gru.FWD_LAUNCHES - fwd0, cuda_gru.BWD_LAUNCHES - bwd0) == (1, 2)
+
+
+@pytest.mark.cuda
+def test_kernel_wrappers_refuse_bad_inputs_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run on the card only")
+    x = _layer_inputs(3, 8, 16, seed=0)
+    args = [x["gir"], x["giz"], x["gin"], x["h0"], x["masks"], x["w_hh"],
+            x["b_hh"]]
+    with pytest.raises(ValueError, match="float32"):
+        cuda_gru.gru_layer_fwd(*[a.double() for a in args])
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_gru.gru_layer_fwd(x["gir"].transpose(0, 1).contiguous()
+                               .transpose(0, 1), *args[1:])
+    with pytest.raises(ValueError, match="expected"):
+        cuda_gru.gru_layer_fwd(*args[:3], x["h0"].cpu(), *args[4:])

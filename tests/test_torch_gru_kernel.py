@@ -1,0 +1,155 @@
+"""The port's sequence GRU (`onpolicy_torch/ops/cuda_gru.py`) against the
+JAX package's Pallas GRU (`onpolicy_tpu/ops/pallas_gru.py`).
+
+On the CPU the port's wrappers run the kernels' plain versions
+(`gru_layer_fwd_ref`, `gru_layer_bwd_ref`) under the same
+`torch.autograd.Function` that drives the CUDA kernels on the card; the
+JAX side runs the Pallas kernels in interpret mode, as
+tests/test_pallas_gru.py does. Inputs come from a numpy seed.
+Tolerances are those of tests/test_pallas_gru.py: forward rtol/atol 1e-5
+(f32, sums in another order), gradients 2e-4 / 2e-5 (a reverse
+recurrence accumulates more reordering). The kernels themselves are held
+against the plain versions on the card by `chip_smoke.py` and by
+tests/test_torch_cuda_kernels.py.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from onpolicy_tpu.config import Config as JaxConfig
+from onpolicy_tpu.ops import pallas_gru
+
+from onpolicy_torch.ops import cuda_gru
+from onpolicy_torch.utils.params import to_torch
+from onpolicy_torch.utils.tree import tree_leaves, tree_unflatten
+
+torch.set_num_threads(1)
+
+FWD = dict(rtol=1e-5, atol=1e-5)
+GRAD = dict(rtol=2e-4, atol=2e-5)
+
+
+def _case(T, B, D, H, layers, seed=0, zero_t0=True):
+    rng = np.random.default_rng(seed)
+    f = lambda *s, scale=1.0: (rng.standard_normal(s) * scale).astype(np.float32)
+    params = {"layers": [], "norm": {"scale": 1.0 + f(H, scale=0.1),
+                                     "bias": f(H, scale=0.1)}}
+    d_in = D
+    for _ in range(layers):
+        params["layers"].append({
+            "w_ih": f(d_in, 3 * H, scale=d_in ** -0.5),
+            "w_hh": f(H, 3 * H, scale=H ** -0.5),
+            "b_ih": f(3 * H, scale=0.1), "b_hh": f(3 * H, scale=0.1)})
+        d_in = H
+    xs, hxs = f(T, B, D), f(B, layers, H, scale=0.5)
+    masks = (rng.random((T, B, 1)) > 0.3).astype(np.float32)
+    if zero_t0:
+        masks[0] = 0.0
+    w_out = f(H, 3)
+    return params, xs, hxs, masks, w_out
+
+
+def _jax_value_and_grads(params, xs, hxs, masks, w_out, H, layers):
+    cfg = JaxConfig(hidden_size=H, recurrent_N=layers)
+
+    def loss(p, x, h):
+        outs, hT = pallas_gru.sequence(cfg, p, x, h, masks)
+        return jnp.sum((outs @ w_out) ** 2) + jnp.sum(hT * hT), (outs, hT)
+
+    (_, (outs, hT)), grads = jax.value_and_grad(
+        loss, argnums=(0, 1, 2), has_aux=True)(params, xs, hxs)
+    return outs, hT, jax.device_get(grads)
+
+
+def _torch_value_and_grads(params, xs, hxs, masks, w_out):
+    p = to_torch(params)
+    leaves = [x.requires_grad_() for x in tree_leaves(p)]
+    p = tree_unflatten(p, leaves)
+    x = torch.tensor(xs, requires_grad=True)
+    h = torch.tensor(hxs, requires_grad=True)
+    outs, hT = cuda_gru.sequence(p, x, h, torch.tensor(masks))
+    loss = ((outs @ torch.tensor(w_out)) ** 2).sum() + (hT * hT).sum()
+    g = torch.autograd.grad(loss, leaves + [x, h])
+    return outs.detach(), hT.detach(), g
+
+
+@pytest.mark.parametrize("T,B,H,layers", [
+    (7, 5, 16, 1),      # one tile
+    (7, 5, 16, 2),      # two layers
+    (4, 130, 8, 1),     # several TPU batch tiles
+    (1, 9, 16, 1),      # T = 1
+])
+def test_sequence_forward_and_grads_match_pallas(T, B, H, layers):
+    D = 12
+    params, xs, hxs, masks, w_out = _case(T, B, D, H, layers)
+    j_outs, j_hT, j_grads = _jax_value_and_grads(params, xs, hxs, masks,
+                                                 w_out, H, layers)
+    t_outs, t_hT, t_grads = _torch_value_and_grads(params, xs, hxs, masks,
+                                                   w_out)
+    np.testing.assert_allclose(t_outs.numpy(), np.asarray(j_outs), **FWD)
+    np.testing.assert_allclose(t_hT.numpy(), np.asarray(j_hT), **FWD)
+    j_params, j_xs, j_hxs = j_grads
+    want = tree_leaves(j_params) + [j_xs, j_hxs]
+    assert len(want) == len(t_grads)
+    for got, ref in zip(t_grads, want):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), **GRAD)
+
+
+def _layer_inputs(T, B, H, seed):
+    rng = np.random.default_rng(seed)
+    f = lambda *s, scale=1.0: torch.tensor(
+        (rng.standard_normal(s) * scale).astype(np.float32))
+    masks = torch.tensor((rng.random((T, B, 1)) > 0.2).astype(np.float32))
+    masks[0] = 0.0
+    return dict(gir=f(T, B, H), giz=f(T, B, H), gin=f(T, B, H),
+                h0=f(B, H, scale=0.5), masks=masks,
+                w_hh=f(H, 3 * H, scale=H ** -0.5), b_hh=f(3 * H, scale=0.1),
+                douts=f(T, B, H, scale=0.1), dhT=f(B, H, scale=0.1))
+
+
+@pytest.mark.parametrize("T,B,H", [(6, 11, 8), (1, 4, 16)])
+def test_plain_backward_matches_autograd(T, B, H):
+    """`gru_layer_bwd_ref` (the backward kernel's plain version, with the
+    gates rematerialized) equals torch autograd through
+    `gru_layer_fwd_ref`, and gives the masks no cotangent."""
+    x = _layer_inputs(T, B, H, seed=T + B)
+    names = ("gir", "giz", "gin", "h0", "w_hh", "b_hh")
+    leaves = {k: x[k].clone().requires_grad_() for k in names}
+    outs, hT = cuda_gru.gru_layer_fwd_ref(
+        leaves["gir"], leaves["giz"], leaves["gin"], leaves["h0"],
+        x["masks"], leaves["w_hh"], leaves["b_hh"])
+    auto = torch.autograd.grad((outs * x["douts"]).sum() + (hT * x["dhT"]).sum(),
+                               [leaves[k] for k in names])
+    dgir, dgiz, dgin, dh0, dw, db = cuda_gru.gru_layer_bwd_ref(
+        x["gir"], x["giz"], x["gin"], outs.detach(), x["h0"], x["masks"],
+        x["douts"], x["dhT"], x["w_hh"], x["b_hh"])
+    for got, ref in zip((dgir, dgiz, dgin, dh0, dw, db), auto):
+        np.testing.assert_allclose(got.numpy(), ref.numpy(), **GRAD)
+
+
+def test_cpu_wrappers_take_the_plain_version():
+    """On CPU tensors the wrappers run the plain versions and count no
+    kernel launch; a tensor on any other non-CUDA device is refused."""
+    x = _layer_inputs(3, 5, 8, seed=1)
+    fwd0, bwd0 = cuda_gru.FWD_LAUNCHES, cuda_gru.BWD_LAUNCHES
+    args = (x["gir"], x["giz"], x["gin"], x["h0"], x["masks"], x["w_hh"],
+            x["b_hh"])
+    outs, hT = cuda_gru.gru_layer_fwd(*args)
+    r_outs, r_hT = cuda_gru.gru_layer_fwd_ref(*args)
+    assert torch.equal(outs, r_outs) and torch.equal(hT, r_hT)
+    cuda_gru.gru_layer_bwd(x["gir"], x["giz"], x["gin"], outs, x["h0"],
+                           x["masks"], x["douts"], x["dhT"], x["w_hh"],
+                           x["b_hh"])
+    assert (cuda_gru.FWD_LAUNCHES, cuda_gru.BWD_LAUNCHES) == (fwd0, bwd0)
+    meta = [a.to("meta") for a in args]
+    with pytest.raises(ValueError, match="unsupported device"):
+        cuda_gru.gru_layer_fwd(*meta)
+
+
+def test_batch_tile_is_a_multiple_of_the_row_group():
+    for H in (8, 64, 256, 1024, 4096):
+        for B in (1, 37, 960, 122880):
+            bt = cuda_gru.batch_tile(B, H, n_sm=132)
+            assert bt >= 4 and bt % 4 == 0, (B, H, bt)

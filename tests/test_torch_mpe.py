@@ -1,0 +1,156 @@
+"""The port's batched MPE (simple_spread) against the JAX env.
+
+From `envs/mpe/golden.reference_reset` states (the reference's numpy draw
+order), 30 steps of the same random actions must give the same
+observations, rewards and dones, across an auto-reset at step 25 whose
+fresh states are the JAX env's own draws injected into the port (every
+env finishes there, since all start at t=0). The
+comparison runs in float64 at atol 1e-9, in a subprocess: float64 needs
+`jax_enable_x64`, which flips global JAX state for every later test of
+the same worker (as in tests/test_mpe_golden_exact.py).
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from onpolicy_torch.config import Config, canonicalize_algorithm
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+WORKER = r"""
+import json
+import jax
+jax.config.update('jax_platforms', 'cpu')
+jax.config.update('jax_enable_x64', True)
+import jax.numpy as jnp
+import numpy as np
+import torch
+torch.set_num_threads(1)
+
+from onpolicy_tpu.envs.mpe import golden
+from onpolicy_tpu.envs.mpe.env import MPEEnv as JEnv, MPEVecEnv as JVec
+from onpolicy_torch.envs.mpe.env import MPEEnv, MPEVecEnv
+from onpolicy_torch.utils.params import world_state_from_jax
+
+N, M, K, T, STEPS = 6, 3, 3, 25, 30
+f64 = torch.float64
+jenv = JEnv("simple_spread", M, K, T)
+jvec = JVec(jenv, N)
+j_step = jax.jit(jvec.step)
+j_resets = jax.jit(lambda k: jax.vmap(jenv.reset)(jax.random.split(k, N)))
+j_observe = jax.jit(jax.vmap(lambda s: jenv.scenario.observation(jenv.spec, s)))
+tenv = MPEEnv("simple_spread", M, K, T)
+tvec = MPEVecEnv(tenv, N, "cpu", torch.Generator().manual_seed(0), f64)
+conv = lambda s: world_state_from_jax(jax.device_get(s), dtype=f64)
+
+np.random.seed(0)
+resets = [golden.reference_reset("simple_spread", jenv.spec, jnp.float64)
+          for _ in range(N)]
+js = jax.tree_util.tree_map(lambda *x: jnp.stack(x), *resets)
+ts = conv(js)
+j_obs = j_observe(js)
+t_obs = tenv.observation(ts)
+err = {"obs": max(float(np.max(np.abs(t.numpy() - np.asarray(j))))
+                  for t, j in zip(t_obs, j_obs)),
+       "rew": 0.0, "state": 0.0}
+dones_seen, reset_seen = 0, 0
+rng = np.random.default_rng(1)
+key = jax.random.PRNGKey(2)
+for step in range(STEPS):
+    acts = rng.integers(0, 5, (N, M, 1)).astype(np.int32)
+    key, k = jax.random.split(key)
+    _, k_reset = jax.random.split(k)                  # as JVec.step splits
+    j_reset, _ = j_resets(k_reset)
+    js, j_obs, j_rew, j_done = j_step(js, jnp.asarray(acts), k)
+    ts, t_obs, t_rew, t_done = tvec.step(ts, torch.tensor(acts), conv(j_reset))
+    assert t_rew.shape == (N, M, 1) and t_done.shape == (N, M)
+    assert np.array_equal(t_done.numpy(), np.asarray(j_done)), step
+    dones_seen += int(t_done.any())
+    reset_seen += int((ts.t == 0).all())
+    if bool(t_done.any()):
+        # JAX's reset draws float32 positions and builds their obs in
+        # float32 even under x64; hold the port's obs of those states
+        # against JAX's observation of the same states in float64, and
+        # against the vec env's float32 obs at float32 rounding
+        j_ref = j_observe(jax.tree_util.tree_map(
+            lambda x: x.astype(jnp.float64) if x.dtype == jnp.float32 else x,
+            j_reset))
+        err["obs_reset_f32"] = max(float(np.max(np.abs(t.numpy() - np.asarray(j))))
+                                   for t, j in zip(t_obs, j_obs))
+        j_obs = j_ref
+    for t, j in zip(t_obs, j_obs):
+        assert t.dtype == f64 and t.shape == j.shape
+        err["obs"] = max(err["obs"], float(np.max(np.abs(t.numpy() - np.asarray(j)))))
+    err["rew"] = max(err["rew"], float(np.max(np.abs(t_rew.numpy() - np.asarray(j_rew)))))
+    for name in ("agent_pos", "agent_vel", "landmark_pos"):
+        err["state"] = max(err["state"], float(np.max(np.abs(
+            getattr(ts, name).numpy() - np.asarray(getattr(js, name))))))
+err["dones_seen"] = dones_seen
+err["reset_seen"] = reset_seen
+print(json.dumps(err))
+"""
+
+
+def test_simple_spread_matches_jax_float64():
+    res = subprocess.run([sys.executable, "-c", WORKER], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    err = json.loads(res.stdout.strip().splitlines()[-1])
+    assert err["dones_seen"] == 1 and err["reset_seen"] == 1, err
+    for k in ("obs", "rew", "state"):
+        assert err[k] < 1e-9, err
+    assert err["obs_reset_f32"] < 1e-7, err
+
+
+def test_env_spaces_and_decode():
+    from onpolicy_torch.envs.mpe.env import MPEEnv
+    env = MPEEnv("simple_spread", 3, 3, 25)
+    assert [s.shape for s in env.observation_space] == [(18,)] * 3
+    assert env.share_observation_space[0].shape == (54,)
+    assert env.action_space[0].n == 5
+    like = torch.zeros(1, dtype=torch.float32)
+    u, c = env._decode_actions(torch.tensor([[[0], [1], [4]]]), like)
+    assert u.tolist() == [[[0.0, 0.0], [5.0, 0.0], [0.0, -5.0]]]
+    assert c.abs().sum() == 0            # silent agents send nothing
+
+
+def test_other_scenarios_name_their_roadmap_item():
+    from onpolicy_torch.envs.mpe import scenarios
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        scenarios.load("simple_tag")
+    with pytest.raises(ValueError):
+        scenarios.load("no_such_scenario")
+
+
+def test_config_refuses_what_it_cannot_run():
+    cfg = canonicalize_algorithm(Config(algorithm_name="rmappo"))
+    assert cfg.device == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            cfg.validate()
+    cpu = cfg.replace(device="cpu")
+    assert cpu.validate() is cpu
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        cpu.replace(use_bf16=True).validate()
+    with pytest.raises(ValueError, match="card only"):
+        cpu.replace(use_pallas_gru=True).validate()
+
+
+@pytest.mark.parametrize("override", [
+    dict(use_eval=True), dict(algorithm_name="mappo"),
+    dict(episodes_per_call=2), dict(profile_dir="p"), dict(mesh_shape=(2,))])
+def test_runner_refuses_unported_options(override):
+    from onpolicy_torch.runner.shared_runner import SharedRunner
+    cfg = canonicalize_algorithm(Config(
+        algorithm_name=override.pop("algorithm_name", "rmappo"),
+        device="cpu", n_rollout_threads=2, episode_length=5)).replace(**override)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        SharedRunner(cfg)
