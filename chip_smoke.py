@@ -6,18 +6,26 @@
 Phases, each of which fails the run (non-zero exit) if it fails:
   1. card:    name and power limit (nvidia-smi); TF32 off for matmuls.
   2. build:   nvcc of onpolicy_torch/csrc/gru_seq.cu for sm_90a.
-  3. kernels: both GRU kernels against their plain PyTorch versions on
-              the card, in f32, at the flagship, bench, ragged, T=1,
-              masked, recurrent_N=2 and H=256 shapes; dW determinism.
+  3. kernels: the GRU kernels against their plain PyTorch versions on
+              the card, in f32, at the flagship, bench, ragged (B=5 below
+              one tile, B=803, B=5003 where blocks walk two tiles), T=1,
+              masked, recurrent_N=2 and H=16/32/48 shapes (tensor-core
+              backward), and at ragged, T=1, masked and H=40/128/256
+              shapes of the CUDA-core backward; each line names the
+              backward variant; dW bitwise repeatable at the flagship and
+              bench shapes.
   4. times:   kernel, plain version and cuDNN's nn.GRU (yardstick only)
-              at the flagship and bench shapes, with CUDA events.
+              at the flagship and bench shapes, with CUDA events (`ms`);
+              the kernels' device time from torch.profiler beside them
+              (`device_ms`, null where the profiler saw no device time).
   5. train:   one flagship-width episode at 8 rollout threads on the
               card against the CPU path from the same state; then the
               port's `scripts/train_mpe.main` with the flagship rMAPPO
               simple_spread flags for 10 episodes: every logged metric
               finite, each kernel launched 20 times an episode.
-The line before the last is one JSON object with a row per kernel; the
-last line is the result line `{"ok": true, "device": {...}}`.
+The last three lines are one JSON object with a row per kernel, the
+card's name and power limit, and the result line
+`{"ok": true, "device": {...}}`.
 Exits non-zero with no result line when no CUDA device is present or
 the port's package is not beside this script.
 """
@@ -34,9 +42,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 non-tensor-core flop/s
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 non-tensor-core
+# flop/s, dense TF32 tensor-core flop/s
 HBM_BYTES_S = 3.35e12
 F32_FLOP_S = 67e12
+TF32_FLOP_S = 495e12
 
 FLAGSHIP = dict(T=10, B=960, H=64)       # 25*128*3/10 chunks of L=10
 BENCH = dict(T=10, B=122880, H=64)       # 16384 rollout threads
@@ -98,8 +108,11 @@ def assert_close(torch, name, a, b, rtol, atol, scale=1.0):
 
 
 def check_layer(torch, cg, case, T, B, H, mask_mode="sprinkled",
-                bench_scale=False):
-    """Kernel vs plain version for one layer; returns (fwd_err, bwd_err)."""
+                bench_scale=False, repeat=False):
+    """Kernel vs plain version for one layer; with `repeat` (or
+    `bench_scale`) the backward also runs twice and must give the same
+    bits. Returns (fwd_err, bwd_err)."""
+    plan = cg.device_bwd_plan(torch.device("cuda"), B, H)
     x = make_inputs(torch, T, B, H, seed=T * 7919 + B * 31 + H,
                     mask_mode=mask_mode)
     args = (x["gir"], x["giz"], x["gin"], x["h0"], x["masks"], x["w_hh"],
@@ -125,14 +138,15 @@ def check_layer(torch, cg, case, T, B, H, mask_mode="sprinkled",
             if (bench_scale and n in ("dw_hh", "db_hh")) else 1.0
         assert_close(torch, f"{case} {n}", a, b, 2e-4, 2e-5, scale)
         bwd_err = max(bwd_err, max_err(a, b, scale))
-    if bench_scale:
+    if bench_scale or repeat:
         again = cg.gru_layer_bwd(*bargs)
         torch.cuda.synchronize()
         for n, a, b in zip(names, got, again):
             if not torch.equal(a, b):
                 raise AssertionError(f"{case} {n}: backward not deterministic")
-    log(f"  {case:<34} T={T:<3} B={B:<7} H={H:<4} "
-        f"fwd err {fwd_err:.2e}  bwd err {bwd_err:.2e}  ok")
+    log(f"  {case:<34} T={T:<3} B={B:<7} H={H:<4} bwd {plan.name:<18} "
+        f"(tile {plan.bt}, {plan.grid} blocks)  fwd err {fwd_err:.2e}  "
+        f"bwd err {bwd_err:.2e}  ok")
     return fwd_err, bwd_err
 
 
@@ -197,20 +211,43 @@ def time_ms(torch, fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def device_ms(torch, fn, names, iters=20):
+    """Device time per call of the kernels whose names contain one of
+    `names`, summed from torch.profiler; None if it saw no device time.
+    At the flagship width the kernels take less than the host needs to
+    launch them, so CUDA events around back-to-back calls read the host."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(float(getattr(e, "self_device_time_total", 0.0)
+                   or getattr(e, "self_cuda_time_total", 0.0))
+             for e in prof.key_averages() if any(n in e.key for n in names))
+    return us / iters / 1e3 if us > 0 else None
+
+
 def bounds(T, B, H):
-    """(fwd, bwd) least times in ms and what bounds them: each input read
-    once and each output written once over HBM rate; the three hidden
-    products (2*3*H^2*B*T flops forward, three times that backward) over
-    the f32 CUDA-core peak. Gate elementwise math is not counted."""
+    """Least times in ms and what bounds them: each input read once and
+    each output written once over the HBM rate, against the three hidden
+    products (2*3*H^2*B*T flops forward, three times that backward). The
+    products count on the f32 CUDA cores ("fwd", "bwd_f32") or, for the
+    tensor-core backward ("bwd_tc"), as three TF32 products each (3xTF32)
+    over the dense TF32 peak. Gate elementwise math is not counted."""
     seq, st, w = T * B * H * 4, B * H * 4, (3 * H * H + 3 * H) * 4
     m = T * B * 4
     fwd_bytes = 3 * seq + m + st + w + seq + st
     bwd_bytes = 5 * seq + m + 2 * st + w + 3 * seq + st + w
     fwd_flops = 6.0 * H * H * B * T
-    out = []
-    for nbytes, flops in ((fwd_bytes, fwd_flops), (bwd_bytes, 3 * fwd_flops)):
-        tb, tf = nbytes / HBM_BYTES_S * 1e3, flops / F32_FLOP_S * 1e3
-        out.append((max(tb, tf), "bytes" if tb >= tf else "operations"))
+    out = {}
+    for key, nbytes, ops_s in (
+            ("fwd", fwd_bytes, fwd_flops / F32_FLOP_S),
+            ("bwd_f32", bwd_bytes, 3 * fwd_flops / F32_FLOP_S),
+            ("bwd_tc", bwd_bytes, 3 * 3 * fwd_flops / TF32_FLOP_S)):
+        tb, tf = nbytes / HBM_BYTES_S * 1e3, ops_s * 1e3
+        out[key] = (max(tb, tf), "bytes" if tb >= tf else "operations")
     return out
 
 
@@ -225,6 +262,10 @@ def time_shape(torch, cg, shape, card):
     res = {
         "fwd_ms": time_ms(torch, lambda: cg.gru_layer_fwd(*fargs)),
         "bwd_ms": time_ms(torch, lambda: cg.gru_layer_bwd(*bargs)),
+        "fwd_device_ms": device_ms(torch, lambda: cg.gru_layer_fwd(*fargs),
+                                   ("gru_fwd_kernel",)),
+        "bwd_device_ms": device_ms(torch, lambda: cg.gru_layer_bwd(*bargs),
+                                   ("gru_bwd_kernel", "gru_bwd_reduce")),
         "fwd_plain_ms": time_ms(torch, lambda: cg.gru_layer_fwd_ref(*fargs),
                                 iters=5),
         "bwd_plain_ms": time_ms(torch, lambda: cg.gru_layer_bwd_ref(*bargs),
@@ -242,8 +283,11 @@ def time_shape(torch, cg, shape, card):
     res["bwd_library_ms"] = time_ms(
         torch, lambda: torch.autograd.grad(y, [xin] + list(gru.parameters()),
                                            dy, retain_graph=True))
-    (res["fwd_bound_ms"], res["fwd_bound_by"]), \
-        (res["bwd_bound_ms"], res["bwd_bound_by"]) = bounds(T, B, H)
+    b = bounds(T, B, H)
+    res["fwd_bound_ms"], res["fwd_bound_by"] = b["fwd"]
+    res["bwd_bound_f32_ms"], res["bwd_bound_f32_by"] = b["bwd_f32"]
+    res["bwd_bound_tc_ms"], res["bwd_bound_tc_by"] = b["bwd_tc"]
+    res["bwd_variant"] = cg.device_bwd_plan(torch.device("cuda"), B, H).name
     log(f"  times T={T} B={B} H={H} [{card}]: " + json.dumps(res))
     return res
 
@@ -357,12 +401,25 @@ def main() -> int:
     log(lib.with_suffix(".ptxas.txt").read_text().strip())
 
     log("== 3. kernels against their plain versions (f32)")
-    f_err, b_err = check_layer(torch, cg, "flagship", **FLAGSHIP)
+    f_err, b_err = check_layer(torch, cg, "flagship", **FLAGSHIP, repeat=True)
     check_layer(torch, cg, "bench (16384 threads)", **BENCH, bench_scale=True)
     check_layer(torch, cg, "B=37 (ragged single tile)", 10, 37, 64)
-    check_layer(torch, cg, "B=5003 (tiles, ragged edge)", 10, 5003, 64)
+    check_layer(torch, cg, "B=5 (below one tile)", 10, 5, 64)
+    check_layer(torch, cg, "B=803 (8k+3 rows)", 10, 803, 64)
+    walk = cg.device_bwd_plan(torch.device("cuda"), 5003, 64)
+    if -(-5003 // walk.bt) <= walk.grid:
+        raise AssertionError(f"B=5003: {walk} walks no second tile")
+    check_layer(torch, cg, "B=5003 (blocks walk 2 tiles)", 10, 5003, 64)
     check_layer(torch, cg, "T=1", 1, 960, 64)
     check_layer(torch, cg, "all-ones masks", 10, 960, 64, mask_mode="ones")
+    check_layer(torch, cg, "H=48 (tensor-core backward)", 10, 960, 48)
+    check_layer(torch, cg, "H=32 (tensor core, 16-row tiles)", 4, 2200, 32)
+    check_layer(torch, cg, "H=16 (tensor core, 8-row tiles)", 4, 300, 16)
+    check_layer(torch, cg, "H=40 (CUDA-core backward)", 10, 960, 40)
+    check_layer(torch, cg, "H=40 B=37 (ragged single tile)", 10, 37, 40)
+    check_layer(torch, cg, "H=40 T=1", 1, 300, 40)
+    check_layer(torch, cg, "H=40 all-ones masks", 10, 803, 40,
+                mask_mode="ones")
     check_layer(torch, cg, "H=256 (weights in L2)", 10, 960, 256)
     check_layer(torch, cg, "H=128 (backward weights in L2)", 5, 333, 128)
     check_sequence_layers(torch, cg)
@@ -376,20 +433,26 @@ def main() -> int:
     fwd_n, bwd_n = train_main_path(torch, cg)
 
     src = "onpolicy_torch/csrc/gru_seq.cu"
+    tc = "tc" if t_flag["bwd_variant"] == "tensor_core" else "f32"
     kernels = [
         {"name": "gru_seq_fwd", "route": "cuda", "source": src,
          "replaces": "onpolicy_tpu/ops/pallas_gru.py:122",
          "launches": fwd_n, "max_abs_err": f_err,
-         "ms": t_flag["fwd_ms"], "plain_ms": t_flag["fwd_plain_ms"],
+         "ms": t_flag["fwd_ms"], "device_ms": t_flag["fwd_device_ms"],
+         "plain_ms": t_flag["fwd_plain_ms"],
          "bound_ms": t_flag["fwd_bound_ms"],
          "bound_by": t_flag["fwd_bound_by"],
          "library_ms": t_flag["fwd_library_ms"]},
         {"name": "gru_seq_bwd", "route": "cuda", "source": src,
          "replaces": "onpolicy_tpu/ops/pallas_gru.py:219",
+         "variant": t_flag["bwd_variant"],
          "launches": bwd_n, "max_abs_err": b_err,
-         "ms": t_flag["bwd_ms"], "plain_ms": t_flag["bwd_plain_ms"],
-         "bound_ms": t_flag["bwd_bound_ms"],
-         "bound_by": t_flag["bwd_bound_by"],
+         "ms": t_flag["bwd_ms"], "device_ms": t_flag["bwd_device_ms"],
+         "plain_ms": t_flag["bwd_plain_ms"],
+         "bound_ms": t_flag[f"bwd_bound_{tc}_ms"],
+         "bound_by": t_flag[f"bwd_bound_{tc}_by"],
+         "bound_f32_ms": t_flag["bwd_bound_f32_ms"],
+         "bound_f32_by": t_flag["bwd_bound_f32_by"],
          "library_ms": t_flag["bwd_library_ms"]},
     ]
     print(json.dumps({"kernels": kernels}))

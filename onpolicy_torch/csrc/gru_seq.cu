@@ -2,10 +2,14 @@
 // rematerializing backward, hand-written for Hopper (sm_90a).
 //
 // Replaces the two Pallas TPU kernels of onpolicy_tpu/ops/pallas_gru.py:
-//   gru_fwd_kernel  <- _fwd_call / _fwd_kernel   (pallas_gru.py:103-153)
-//   gru_bwd_kernel  <- _bwd_call / _bwd_kernel   (pallas_gru.py:160-251)
-//   gru_bwd_reduce  <- the grid-wide dW_hh / db_hh accumulation of
-//                      _bwd_kernel (pallas_gru.py:169-179, 204-213)
+//   gru_fwd_kernel      <- _fwd_call / _fwd_kernel   (pallas_gru.py:103-153)
+//   gru_bwd_kernel_mma  <- _bwd_call / _bwd_kernel   (pallas_gru.py:160-251)
+//                          for H % 16 == 0 and H <= 64, on the tensor cores
+//   gru_bwd_kernel      <- the same, for every other H, on the CUDA cores
+//   gru_bwd_reduce      <- the grid-wide dW_hh / db_hh accumulation of
+//                          _bwd_kernel (pallas_gru.py:169-179, 204-213)
+// Which backward runs is chosen by shape before launch, in Python
+// (ops/cuda_gru.py:bwd_plan); the C entry launches what it is told.
 //
 // Per step t, for each row b of the batch (gate order r, z, n):
 //   hm = h * m_t
@@ -24,7 +28,8 @@
 // same size, so the kernels are bound by operations on the CUDA cores
 // (no tensor cores: everything stays f32 to match the reference).
 //
-// Design, kept simple and right first:
+// Design of the forward and of the CUDA-core backward (gru_bwd_kernel),
+// kept simple and right first:
 //   * One block per tile of `bt` batch rows; the block loops over T
 //     itself. Blocks carry nothing between each other, which takes the
 //     place of the TPU's sequential grid axis. The ragged last tile is
@@ -48,6 +53,9 @@
 //     partials in a fixed order: the result is deterministic, with no
 //     float atomics.
 #include <cuda_runtime.h>
+
+#include <cstdint>
+#include <initializer_list>
 
 namespace {
 
@@ -319,6 +327,403 @@ gru_bwd_kernel(const float* __restrict__ gir, const float* __restrict__ giz,
   }
 }
 
+// ---------------------------------------------------------------------------
+// backward on the tensor cores: gru_bwd_kernel_mma<H, BT>, H in {16,32,48,64}
+// ---------------------------------------------------------------------------
+// The same function as gru_bwd_kernel. By its count that kernel is bound by
+// shared-memory load issue (about 1.3 loads per FMA, half of them in the
+// read-modify-write of its dW accumulator) with one 8-warp block per SM at
+// large B. Here the
+// three products of a step run as mma.sync m16n8k8 TF32 on the tensor
+// cores, written transposed so that the tile's BT batch rows are the MMA's
+// N (8) or K (BT):
+//   gates    gh^T [3H x BT]  = W_hh^T [3H x H] . hm^T [H x BT]
+//   carry    d_hm^T [H x BT] = W_hh [H x 3H]   . dG^T [3H x BT]
+//   weights  dW [H x 3H]    += hm^T [H x BT]   . dG [BT x 3H]
+// with dG = [dr, dz, dn * r]. The least time on an H100 is then set by the
+// bytes of its eight [T, B, H] streams, not by the products; what keeps it
+// above that is instruction issue and latency around the mma.sync (fragment
+// loads, hi/lo splits) at 16 warps an SM, as diagnostics/ablate_gru_bwd.py
+// shows part by part. The gate math is that of gru_fwd_kernel (sigmoid_,
+// tanhf), so the backward differentiates the gates the forward produced.
+//  * f32 accuracy by 3xTF32: each operand x splits into a TF32 hi and the
+//    rest lo = x - hi as its fragment is loaded (see split), and a * b is
+//    taken as a_lo * b_hi + a_hi * b_lo + a_hi * b_hi in the f32
+//    accumulator.
+//  * dW stays in the MMA accumulators for the block's whole run (3H^2/256
+//    registers a thread: 48 at H = 64, which is why H <= 64), db in one
+//    register of each of the first 3H threads. A warp holds whole columns
+//    of dW tiles, so it loads each dG fragment once a step. The block
+//    writes its partial once; gru_bwd_reduce sums the partials in block
+//    order.
+//  * A block walks the batch tiles blockIdx.x, + gridDim.x, ... with the
+//    grid fixed by (B, H, SM count), so every call gives the same bits.
+//    A warp owns one (16 units, 8 rows) item of the gate and carry
+//    products; the thread that holds a (unit, row) pair's accumulators
+//    also does its gate math and keeps its carried dh in registers.
+//  * cp.async brings the next step's gir, giz, gin, douts, hprev tiles and
+//    masks (at a tile's last step, the next tile's first) into the other
+//    of two shared-memory stages while this step computes.
+//  * The shared matrices have row strides of 8 or 24 (mod 32) words and
+//    their column index XORed with (row & 4): every fragment load of the
+//    three products, whether it walks W, hm or dG by rows or by columns,
+//    is free of bank conflicts.
+// Shared memory, in floats: W [H][3H+8]; 2 stages of 5 x [BT][H+4] and BT
+// masks; hm [BT][H+8]; dG [BT][3H+8]. At H = 64 that is 112,256 bytes for
+// BT = 16 (two 256-thread blocks on an SM, 128 registers a thread) and
+// 81,728 for BT = 8 (one block on an SM, up to 255 registers).
+// Rows >= B of the ragged tile are copied in as zeros; their dh, and so
+// their dG, is zero, and they add nothing to dW through K = BT.
+
+template <int N>
+struct Split {  // an MMA fragment as hi + lo TF32 parts
+  uint32_t hi[N], lo[N];
+};
+
+// hi = x with its 13 low mantissa bits cleared, lo = x - hi (exact in
+// f32). lo is passed whole: the tensor cores read the top 19 bits of a
+// TF32 operand, so it enters truncated to 11 significant bits and x is
+// kept to about 2^-21 of itself. One LOP and one FADD an element, where
+// cvt.rna.tf32.f32 goes through the slower conversion pipe.
+template <int N>
+__device__ __forceinline__ Split<N> split(const float (&x)[N]) {
+  Split<N> s;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    s.hi[i] = __float_as_uint(x[i]) & 0xffffe000u;
+    s.lo[i] = __float_as_uint(x[i] - __uint_as_float(s.hi[i]));
+  }
+  return s;
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a . b to about f32 accuracy (3xTF32; the lo * lo term is dropped)
+__device__ __forceinline__ void mma3(float (&d)[4], const Split<4>& a,
+                                     const Split<2>& b) {
+  mma_tf32(d, a.lo, b.hi);
+  mma_tf32(d, a.hi, b.lo);
+  mma_tf32(d, a.hi, b.hi);
+}
+
+// Fragment maps of m16n8k8 (g = lane / 4, q = lane % 4):
+//   A [16 x 8]: a0 (g, q), a1 (g + 8, q), a2 (g, q + 4), a3 (g + 8, q + 4)
+//   B [8 x 8]:  b0 (q, g), b1 (q + 4, g)
+//   C [16 x 8]: c0 (g, 2q), c1 (g, 2q + 1), c2 (g + 8, 2q), c3 (g + 8, 2q + 1)
+
+// Word offset of (r, c) in a swizzled shared matrix with row stride `ld`.
+__device__ __forceinline__ int swz(int r, int c, int ld) {
+  return r * ld + (c ^ (r & 4));
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d),
+               "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(d),
+               "l"(src), "r"(valid ? 4 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+}
+
+template <int H, int BT>
+struct MmaLayout {  // shared memory of gru_bwd_kernel_mma, in floats
+  static constexpr int H3 = 3 * H;
+  static constexpr int WS = H3 + 8;  // W [H][3H], swizzled
+  static constexpr int SS = H + 4;   // a staged [BT][H] stream
+  static constexpr int HS = H + 8;   // hm [BT][H], swizzled
+  static constexpr int GS = H3 + 8;  // dG [BT][3H], swizzled
+  static constexpr int STREAM = BT * SS;
+  static constexpr int STAGE = 5 * STREAM + BT;  // gir giz gin douts hprev m
+  static constexpr int STAGE_OFF = H * WS;
+  static constexpr int HM_OFF = STAGE_OFF + 2 * STAGE;
+  static constexpr int G_OFF = HM_OFF + BT * HS;
+  static constexpr int BYTES = (G_OFF + BT * GS) * 4;
+  static constexpr int ITEMS = (H / 16) * (BT / 8);  // of the gate/carry products
+  // dW [H x 3H] as MT x NT tiles of 16 x 8: a warp keeps NW column tiles
+  // (all MT row tiles of each), so it loads a fragment of hm or dG once
+  static constexpr int MT = H / 16;
+  static constexpr int NT = H3 / 8;
+  static constexpr int NW = (NT + kThreads / 32 - 1) / (kThreads / 32);
+  // blocks per SM: two at 16-row tiles; one at 8-row tiles, which are
+  // taken when B is too small to fill the card, and then 255 registers
+  // shorten the serial chain of each step
+  static constexpr int MIN_BLOCKS = BT == 16 ? 2 : 1;
+  static_assert(H % 16 == 0 && BT % 8 == 0, "tile shapes of m16n8k8");
+  static_assert(ITEMS <= kThreads / 32, "one gate/carry item per warp");
+  static_assert(H3 <= kThreads, "one db entry per thread");
+};
+
+// Starts the copies of step t of the tile at row0 into `stage`.
+template <int H, int BT>
+__device__ __forceinline__ void stage_step(
+    float* stage, const float* gir, const float* giz, const float* gin,
+    const float* douts, const float* outs, const float* h0,
+    const float* masks, int t, int row0, int B) {
+  using L = MmaLayout<H, BT>;
+  constexpr int CH = H / 4;  // 16-byte chunks in a row
+  const size_t tb = (size_t)t * B;
+  const float* hprev = t > 0 ? outs + (tb - B) * H : h0;
+  for (int e = threadIdx.x; e < 5 * BT * CH; e += kThreads) {
+    const int i = e / (BT * CH);  // gir, giz, gin, douts, hprev
+    const int r = (e - i * BT * CH) / CH;
+    const int c = (e % CH) * 4;
+    const int row = row0 + r;
+    const bool ok = row < B;
+    const float* src = i == 4 ? hprev
+                     : (i == 0 ? gir : i == 1 ? giz : i == 2 ? gin : douts) + tb * H;
+    cp_async16(stage + i * L::STREAM + r * L::SS + c,
+               src + (size_t)(ok ? row : 0) * H + c, ok);
+  }
+  for (int r = threadIdx.x; r < BT; r += kThreads) {
+    const int row = row0 + r;
+    cp_async4(stage + 5 * L::STREAM + r, masks + tb + (row < B ? row : 0),
+              row < B);
+  }
+}
+
+template <int H, int BT>
+__global__ void __launch_bounds__(kThreads, MmaLayout<H, BT>::MIN_BLOCKS)
+gru_bwd_kernel_mma(const float* __restrict__ gir, const float* __restrict__ giz,
+                   const float* __restrict__ gin,
+                   const float* __restrict__ outs,   // [T, B, H]
+                   const float* __restrict__ masks,  // [T, B]
+                   const float* __restrict__ h0,     // [B, H]
+                   const float* __restrict__ douts,  // [T, B, H]
+                   const float* __restrict__ dhT,    // [B, H]
+                   const float* __restrict__ w_hh,   // [H, 3H]
+                   const float* __restrict__ b_hh,   // [3H]
+                   float* __restrict__ dgir, float* __restrict__ dgiz,
+                   float* __restrict__ dgin,
+                   float* __restrict__ dh0,          // [B, H]
+                   float* __restrict__ partial,      // [gridDim.x, (H+1)*3H]
+                   int T, int B) {
+  using L = MmaLayout<H, BT>;
+  constexpr int H3 = L::H3, WS = L::WS, SS = L::SS, HS = L::HS, GS = L::GS;
+  // k-steps of the gate and carry products in flight: more spills at 128
+  // registers (BT = 16); all of them at 8-row tiles
+  constexpr int kUnroll = BT == 16 ? 2 : H / 8;
+  extern __shared__ __align__(16) float mma_smem[];
+  float* sW = mma_smem;
+  float* sStage = mma_smem + L::STAGE_OFF;
+  float* sHm = mma_smem + L::HM_OFF;
+  float* sG = mma_smem + L::G_OFF;
+
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int g = (tid & 31) >> 2, q = tid & 3;
+  const int ntiles = (B + BT - 1) / BT;
+
+  for (int e = tid; e < H * H3 / 4; e += kThreads) {
+    const int r = e / (H3 / 4);
+    const int c = (e - r * (H3 / 4)) * 4;
+    cp_async16(sW + swz(r, c, WS), w_hh + (size_t)r * H3 + c, true);
+  }
+  int tile = blockIdx.x;
+  stage_step<H, BT>(sStage, gir, giz, gin, douts, outs, h0, masks, T - 1,
+                    tile * BT, B);
+  cp_async_commit();
+
+  // this warp's item of the gate/carry products: units u0.., rows n0..;
+  // accumulator element p holds unit u0 + g + 8 (p / 2), row n0 + 2q + p % 2
+  const bool has_item = warp < L::ITEMS;
+  const int u0 = (warp / (BT / 8)) * 16;
+  const int n0 = (warp % (BT / 8)) * 8;
+  float bias[3][2];
+#pragma unroll
+  for (int gate = 0; gate < 3; ++gate)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      bias[gate][hh] = has_item ? b_hh[gate * H + u0 + g + 8 * hh] : 0.0f;
+
+  // dW tiles (mt, warp * NW + j) of this warp, for those that exist
+  float acc_w[L::MT][L::NW][4] = {};
+  float acc_b = 0.0f;  // db[tid], tid < 3H
+  float carry[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  int s = 0;
+
+  for (; tile < ntiles; tile += gridDim.x) {
+    const int row0 = tile * BT;
+    if (has_item) {
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        const int row = row0 + n0 + 2 * q + (p & 1);
+        carry[p] = row < B ? dhT[(size_t)row * H + u0 + g + 8 * (p >> 1)] : 0.0f;
+      }
+    }
+    for (int t = T - 1; t >= 0; --t) {
+      cp_async_wait_all();
+      __syncthreads();  // stage s has landed; the last step's reads are done
+      {
+        int nt = t - 1, ntile = tile;
+        if (nt < 0) { nt = T - 1; ntile += gridDim.x; }
+        if (ntile < ntiles)
+          stage_step<H, BT>(sStage + (s ^ 1) * L::STAGE, gir, giz, gin, douts,
+                            outs, h0, masks, nt, ntile * BT, B);
+        cp_async_commit();
+      }
+      const float* st = sStage + s * L::STAGE;
+      const float* sM = st + 5 * L::STREAM;
+
+      // hm = hprev * m_t
+      for (int e = tid; e < BT * H / 4; e += kThreads) {
+        const int r = e / (H / 4);
+        const int c = (e - r * (H / 4)) * 4;
+        float4 v = *reinterpret_cast<const float4*>(st + 4 * L::STREAM + r * SS + c);
+        const float m = sM[r];
+        v.x *= m; v.y *= m; v.z *= m; v.w *= m;
+        *reinterpret_cast<float4*>(sHm + swz(r, c, HS)) = v;
+      }
+      __syncthreads();
+
+      // gates: gh^T = W^T . hm^T, then the cotangents of this item's pairs
+      float dhz[4];
+      if (has_item) {
+        float gh[3][4] = {};
+#pragma unroll(kUnroll)
+        for (int k0 = 0; k0 < H; k0 += 8) {
+          const float bf[2] = {sHm[swz(n0 + g, k0 + q, HS)],
+                               sHm[swz(n0 + g, k0 + q + 4, HS)]};
+          const Split<2> b = split(bf);
+#pragma unroll
+          for (int gate = 0; gate < 3; ++gate) {
+            const int m0 = gate * H + u0;
+            const float af[4] = {sW[swz(k0 + q, m0 + g, WS)],
+                                 sW[swz(k0 + q, m0 + g + 8, WS)],
+                                 sW[swz(k0 + q + 4, m0 + g, WS)],
+                                 sW[swz(k0 + q + 4, m0 + g + 8, WS)]};
+            mma3(gh[gate], split(af), b);
+          }
+        }
+        const size_t tb = (size_t)t * B;
+#pragma unroll
+        for (int p = 0; p < 4; ++p) {
+          const int hh = p >> 1;
+          const int j = u0 + g + 8 * hh;
+          const int n = n0 + 2 * q + (p & 1);
+          const int o = n * SS + j;
+          const float ghn = gh[2][p] + bias[2][hh];
+          const float rg = sigmoid_(st[o] + (gh[0][p] + bias[0][hh]));
+          const float zg = sigmoid_(st[L::STREAM + o] + (gh[1][p] + bias[1][hh]));
+          const float ng = tanhf(st[2 * L::STREAM + o] + rg * ghn);
+          const float dh = carry[p] + st[3 * L::STREAM + o];
+          const float dz = dh * (sHm[swz(n, j, HS)] - ng) * zg * (1.0f - zg);
+          const float dn = dh * (1.0f - zg) * (1.0f - ng * ng);
+          const float dr = dn * ghn * rg * (1.0f - rg);
+          const int row = row0 + n;
+          if (row < B) {
+            const size_t go = (tb + row) * H + j;
+            dgir[go] = dr;
+            dgiz[go] = dz;
+            dgin[go] = dn;
+          }
+          sG[swz(n, j, GS)] = dr;
+          sG[swz(n, H + j, GS)] = dz;
+          sG[swz(n, 2 * H + j, GS)] = dn * rg;
+          dhz[p] = dh * zg;
+        }
+      }
+      __syncthreads();
+
+      // carry: d_hm^T = W . dG^T;  dh <- (dh * z + d_hm) * m_t
+      if (has_item) {
+        float d[3][4] = {};  // one chain per gate's block of K
+#pragma unroll(kUnroll)
+        for (int k0 = 0; k0 < H; k0 += 8) {
+#pragma unroll
+          for (int gate = 0; gate < 3; ++gate) {
+            const int k = gate * H + k0;
+            const float af[4] = {sW[swz(u0 + g, k + q, WS)],
+                                 sW[swz(u0 + g + 8, k + q, WS)],
+                                 sW[swz(u0 + g, k + q + 4, WS)],
+                                 sW[swz(u0 + g + 8, k + q + 4, WS)]};
+            const float bf[2] = {sG[swz(n0 + g, k + q, GS)],
+                                 sG[swz(n0 + g, k + q + 4, GS)]};
+            mma3(d[gate], split(af), split(bf));
+          }
+        }
+#pragma unroll
+        for (int p = 0; p < 4; ++p)
+          carry[p] = (dhz[p] + (d[0][p] + d[1][p] + d[2][p]))
+                   * sM[n0 + 2 * q + (p & 1)];
+      }
+
+      // weights: dW += hm^T . dG over the tile's rows; db += column sums
+      if (warp * L::NW < L::NT) {
+#pragma unroll
+        for (int k0 = 0; k0 < BT; k0 += 8) {
+          Split<2> b[L::NW];
+#pragma unroll
+          for (int j = 0; j < L::NW; ++j) {
+            const int c0 = min(warp * L::NW + j, L::NT - 1) * 8;
+            const float bf[2] = {sG[swz(k0 + q, c0 + g, GS)],
+                                 sG[swz(k0 + q + 4, c0 + g, GS)]};
+            b[j] = split(bf);
+          }
+#pragma unroll
+          for (int mt = 0; mt < L::MT; ++mt) {
+            const int m0 = mt * 16;
+            const float af[4] = {sHm[swz(k0 + q, m0 + g, HS)],
+                                 sHm[swz(k0 + q, m0 + g + 8, HS)],
+                                 sHm[swz(k0 + q + 4, m0 + g, HS)],
+                                 sHm[swz(k0 + q + 4, m0 + g + 8, HS)]};
+            const Split<4> a = split(af);
+#pragma unroll
+            for (int j = 0; j < L::NW; ++j)
+              if (warp * L::NW + j < L::NT) mma3(acc_w[mt][j], a, b[j]);
+          }
+        }
+      }
+      if (tid < H3) {
+        float sum = 0.0f;
+#pragma unroll
+        for (int n = 0; n < BT; ++n) sum += sG[swz(n, tid, GS)];
+        acc_b += sum;
+      }
+      s ^= 1;
+    }
+    if (has_item) {
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        const int row = row0 + n0 + 2 * q + (p & 1);
+        if (row < B) dh0[(size_t)row * H + u0 + g + 8 * (p >> 1)] = carry[p];
+      }
+    }
+  }
+
+  float* out = partial + (size_t)blockIdx.x * (H + 1) * H3;
+#pragma unroll
+  for (int mt = 0; mt < L::MT; ++mt)
+#pragma unroll
+    for (int j = 0; j < L::NW; ++j) {
+      if (warp * L::NW + j >= L::NT) continue;
+      const int r = mt * 16 + g;
+      const int c = (warp * L::NW + j) * 8 + 2 * q;
+      out[r * H3 + c] = acc_w[mt][j][0];
+      out[r * H3 + c + 1] = acc_w[mt][j][1];
+      out[(r + 8) * H3 + c] = acc_w[mt][j][2];
+      out[(r + 8) * H3 + c + 1] = acc_w[mt][j][3];
+    }
+  if (tid < H3) out[H * H3 + tid] = acc_b;
+}
+
 // Sums the per-block partials in block order: dW_hh [H, 3H] and db_hh [3H].
 __global__ void __launch_bounds__(kThreads)
 gru_bwd_reduce(const float* __restrict__ partial, int nblocks, int H,
@@ -328,6 +733,7 @@ gru_bwd_reduce(const float* __restrict__ partial, int nblocks, int H,
   for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < nacc;
        e += gridDim.x * blockDim.x) {
     float s = 0.0f;
+#pragma unroll 8  // loads in flight; the sum keeps block order
     for (int b = 0; b < nblocks; ++b) s += partial[(size_t)b * nacc + e];
     if (e < H * H3) dw[e] = s;
     else db[e - H * H3] = s;
@@ -343,6 +749,14 @@ int max_dynamic_smem() {
 
 bool bad_shape(int T, int B, int H, int bt) {
   return T <= 0 || B <= 0 || H <= 0 || bt <= 0 || bt % kRows != 0;
+}
+
+// Dynamic shared memory of gru_bwd_kernel: its five [bt, H] tiles and
+// two mask rows, plus (kSmemW) W with odd row stride and the dW/db sums.
+size_t simt_bwd_bytes(int H, int bt, bool smem_w) {
+  size_t floats = (size_t)5 * bt * H + 2 * bt;
+  if (smem_w) floats += (size_t)H * ((3 * H) | 1) + (size_t)(H + 1) * 3 * H;
+  return floats * sizeof(float);
 }
 
 template <bool kSmemW>
@@ -373,10 +787,33 @@ cudaError_t launch_bwd(const float* gir, const float* giz, const float* gin,
       gru_bwd_kernel<kSmemW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)bytes);
   if (err != cudaSuccess) return err;
-  const int grid = (B + bt - 1) / bt;
-  gru_bwd_kernel<kSmemW><<<grid, kThreads, bytes, stream>>>(
+  gru_bwd_kernel<kSmemW><<<(B + bt - 1) / bt, kThreads, bytes, stream>>>(
       gir, giz, gin, outs, masks, h0, douts, dhT, w_hh, b_hh, dgir, dgiz,
       dgin, dh0, partial, T, B, H, bt);
+  return cudaGetLastError();
+}
+
+template <int H, int BT>
+cudaError_t launch_bwd_mma(const float* gir, const float* giz,
+                           const float* gin, const float* outs,
+                           const float* masks, const float* h0,
+                           const float* douts, const float* dhT,
+                           const float* w_hh, const float* b_hh, float* dgir,
+                           float* dgiz, float* dgin, float* dh0,
+                           float* partial, int T, int B, int grid,
+                           size_t bytes, cudaStream_t stream) {
+  if (bytes != (size_t)MmaLayout<H, BT>::BYTES) return cudaErrorInvalidValue;
+  // cp.async moves 16-byte chunks of these; refuse before a misaligned copy
+  // faults the context
+  for (const float* p : {gir, giz, gin, outs, h0, douts, w_hh})
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      gru_bwd_kernel_mma<H, BT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
+  if (err != cudaSuccess) return err;
+  gru_bwd_kernel_mma<H, BT><<<grid, kThreads, bytes, stream>>>(
+      gir, giz, gin, outs, masks, h0, douts, dhT, w_hh, b_hh, dgir, dgiz,
+      dgin, dh0, partial, T, B);
   return cudaGetLastError();
 }
 
@@ -401,32 +838,50 @@ int gru_seq_fwd(const float* gir, const float* giz, const float* gin,
                            T, B, H, bt, tile_bytes, s);
 }
 
-// `partial` holds ceil(B / bt) * (H + 1) * 3H floats of scratch.
+// The largest dynamic shared memory a block of this device may opt into.
+int gru_smem_optin() { return max_dynamic_smem(); }
+
+// Backward variants, as ops/cuda_gru.py:bwd_plan chooses them.
+enum { kBwdGlobalW = 0, kBwdSmemW = 1, kBwdMma = 2 };
+
+// Launches the backward `variant` on `grid` blocks of `bt` batch rows with
+// `smem_bytes` of dynamic shared memory, then the partials' reduction.
+// `partial` holds grid * (H + 1) * 3H floats of scratch. The CUDA-core
+// variants need grid = ceil(B / bt); the tensor-core one H in {16, 32, 48,
+// 64}, bt in {8, 16}, 16-byte aligned streams and W, and its layout's bytes.
 int gru_seq_bwd(const float* gir, const float* giz, const float* gin,
                 const float* outs, const float* masks, const float* h0,
                 const float* douts, const float* dhT, const float* w_hh,
                 const float* b_hh, float* dgir, float* dgiz, float* dgin,
                 float* dh0, float* dw_hh, float* db_hh, float* partial,
-                int T, int B, int H, int bt, void* stream) {
-  if (bad_shape(T, B, H, bt)) return cudaErrorInvalidValue;
-  const size_t tile_bytes = (size_t)(5 * bt * H + 2 * bt) * sizeof(float);
-  const size_t w_bytes =
-      ((size_t)H * ((3 * H) | 1) + (size_t)(H + 1) * 3 * H) * sizeof(float);
+                int T, int B, int H, int variant, int bt, int grid,
+                int smem_bytes, void* stream) {
+  if (T <= 0 || B <= 0 || H <= 0 || bt <= 0 || grid <= 0)
+    return cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err;
-  if (w_bytes + tile_bytes <= (size_t)max_dynamic_smem())
-    err = launch_bwd<true>(gir, giz, gin, outs, masks, h0, douts, dhT, w_hh,
-                           b_hh, dgir, dgiz, dgin, dh0, partial, T, B, H, bt,
-                           tile_bytes + w_bytes, s);
-  else
-    err = launch_bwd<false>(gir, giz, gin, outs, masks, h0, douts, dhT, w_hh,
-                            b_hh, dgir, dgiz, dgin, dh0, partial, T, B, H, bt,
-                            tile_bytes, s);
+  const size_t bytes = (size_t)smem_bytes;
+  cudaError_t err = cudaErrorInvalidValue;
+  if (variant == kBwdMma) {
+#define GRU_BWD_MMA(HH, BB)                                                  \
+  if (H == HH && bt == BB)                                                   \
+    err = launch_bwd_mma<HH, BB>(gir, giz, gin, outs, masks, h0, douts, dhT, \
+                                 w_hh, b_hh, dgir, dgiz, dgin, dh0, partial, \
+                                 T, B, grid, bytes, s);
+    GRU_BWD_MMA(16, 8) GRU_BWD_MMA(16, 16) GRU_BWD_MMA(32, 8)
+    GRU_BWD_MMA(32, 16) GRU_BWD_MMA(48, 8) GRU_BWD_MMA(48, 16)
+    GRU_BWD_MMA(64, 8) GRU_BWD_MMA(64, 16)
+#undef GRU_BWD_MMA
+  } else if ((variant == kBwdGlobalW || variant == kBwdSmemW) &&
+             !bad_shape(T, B, H, bt) && grid == (B + bt - 1) / bt &&
+             bytes == simt_bwd_bytes(H, bt, variant == kBwdSmemW)) {
+    err = (variant == kBwdSmemW ? launch_bwd<true> : launch_bwd<false>)(
+        gir, giz, gin, outs, masks, h0, douts, dhT, w_hh, b_hh, dgir, dgiz,
+        dgin, dh0, partial, T, B, H, bt, bytes, s);
+  }
   if (err != cudaSuccess) return err;
   const int nacc = (H + 1) * 3 * H;
   const int rgrid = (nacc + kThreads - 1) / kThreads;
-  gru_bwd_reduce<<<rgrid, kThreads, 0, s>>>(partial, (B + bt - 1) / bt, H,
-                                            dw_hh, db_hh);
+  gru_bwd_reduce<<<rgrid, kThreads, 0, s>>>(partial, grid, H, dw_hh, db_hh);
   return cudaGetLastError();
 }
 

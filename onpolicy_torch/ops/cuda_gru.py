@@ -3,7 +3,10 @@
 Port of `onpolicy_tpu/ops/pallas_gru.py`. The two Pallas TPU kernels
 there (`_fwd_call`, `_bwd_call`) become the CUDA kernels of
 `csrc/gru_seq.cu`, built with `nvcc` for `sm_90a` into `_build/` on
-first use and bound through `ctypes`. Beside each kernel stands its
+first use and bound through `ctypes`. The backward has two kernels: a
+tensor-core one (3xTF32 `mma.sync`) for H in 16, 32, 48, 64, and the
+CUDA-core one for every other H; `bwd_plan` chooses between them by shape
+before launch. Beside each kernel stands its
 plain PyTorch version (`gru_layer_fwd_ref`, `gru_layer_bwd_ref`): the
 wrappers take it only for tensors that lie on the CPU; for a CUDA tensor
 they launch the kernel or raise.
@@ -18,11 +21,13 @@ Layout (the JAX package's): gi streams `[T, B, H]`, masks `[T, B, 1]`,
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -83,8 +88,10 @@ def _load():
         P, I = ctypes.c_void_p, ctypes.c_int
         lib.gru_seq_fwd.argtypes = [P] * 9 + [I] * 4 + [P]
         lib.gru_seq_fwd.restype = I
-        lib.gru_seq_bwd.argtypes = [P] * 17 + [I] * 4 + [P]
+        lib.gru_seq_bwd.argtypes = [P] * 17 + [I] * 7 + [P]
         lib.gru_seq_bwd.restype = I
+        lib.gru_smem_optin.argtypes = []
+        lib.gru_smem_optin.restype = I
         _lib = lib
     return _lib
 
@@ -95,14 +102,89 @@ def _check(err: int, what: str):
 
 
 def batch_tile(B: int, H: int, n_sm: int) -> int:
-    """Rows per block: the largest tile that still gives two waves of
-    blocks over the card's SMs, within a shared-memory cap that keeps the
-    backward's five [tile, H] buffers under 160 KB. Multiple of 4."""
+    """Rows per block of the forward kernel and of the CUDA-core backward:
+    the largest tile that still gives two waves of blocks over the card's
+    SMs, within a shared-memory cap that keeps the CUDA-core backward's
+    five [tile, H] buffers under 160 KB. Multiple of 4. (The tensor-core
+    backward takes its tile from `bwd_plan`.)"""
     cap = max(4, min(64, (8192 // max(H, 1)) // 4 * 4))
     for bt in (64, 32, 16, 8):
         if bt <= cap and -(-B // bt) >= 2 * n_sm:
             return bt
     return min(8, cap)
+
+
+# backward variants (the C entry's `variant`): the CUDA-core kernel with W
+# read from global memory or held in shared memory, and the tensor-core one
+BWD_GLOBAL_W, BWD_SMEM_W, BWD_MMA = 0, 1, 2
+BWD_VARIANT_NAMES = ("cuda_core_global_w", "cuda_core_smem_w", "tensor_core")
+MMA_WIDTHS = (16, 32, 48, 64)   # H the tensor-core backward is built for
+MMA_BLOCKS_PER_SM = {8: 1, 16: 2}  # its __launch_bounds__, by tile rows
+SMEM_PER_BLOCK_RESERVED = 1024  # shared bytes the card keeps for each block
+
+
+class BwdPlan(NamedTuple):
+    variant: int
+    bt: int               # batch rows of a tile
+    grid: int             # blocks
+    smem_bytes: int       # dynamic shared memory of a block
+    partial_floats: int   # scratch for the per-block dW/db partials
+
+    @property
+    def name(self) -> str:
+        return BWD_VARIANT_NAMES[self.variant]
+
+
+def mma_smem_bytes(H: int, bt: int) -> int:
+    """Shared memory of the tensor-core backward (`MmaLayout` in
+    csrc/gru_seq.cu): W [H][3H+8], two stages of five [bt][H+4] streams
+    and bt masks, hm [bt][H+8], dG [bt][3H+8], in f32."""
+    return 4 * (H * (3 * H + 8) + 2 * (5 * bt * (H + 4) + bt)
+                + bt * (H + 8) + bt * (3 * H + 8))
+
+
+def bwd_plan(B: int, H: int, n_sm: int, smem_optin: int) -> BwdPlan:
+    """Which backward kernel runs for a [T, B, H] layer, on how many blocks
+    of how many rows, with how much shared memory. Chosen from the shape
+    and the card alone, before launch.
+
+    H in MMA_WIDTHS takes the tensor-core kernel: 16-row tiles, two blocks
+    to an SM, when they still give a tile to every SM, else 8-row tiles and
+    one block to an SM. min(tiles, blocks per SM * n_sm) blocks walk the
+    tiles, so the grid, and with it the bits of dW, follow from (B, H,
+    n_sm). Every other H, or a card where those blocks do not fit,
+    takes the CUDA-core kernel, one block per `batch_tile` rows, with W in
+    shared memory when it fits beside the tile."""
+    nacc = (H + 1) * 3 * H
+    if H in MMA_WIDTHS:
+        bt = 16 if -(-B // 16) >= n_sm else 8
+        nbytes = mma_smem_bytes(H, bt)
+        per_sm = MMA_BLOCKS_PER_SM[bt]
+        if per_sm * (nbytes + SMEM_PER_BLOCK_RESERVED) \
+                <= smem_optin + SMEM_PER_BLOCK_RESERVED:
+            grid = min(-(-B // bt), per_sm * n_sm)
+            return BwdPlan(BWD_MMA, bt, grid, nbytes, grid * nacc)
+    bt = batch_tile(B, H, n_sm)
+    tile = 4 * (5 * bt * H + 2 * bt)
+    w = 4 * (H * ((3 * H) | 1) + nacc)
+    grid = -(-B // bt)
+    if tile + w <= smem_optin:
+        return BwdPlan(BWD_SMEM_W, bt, grid, tile + w, grid * nacc)
+    return BwdPlan(BWD_GLOBAL_W, bt, grid, tile, grid * nacc)
+
+
+def device_bwd_plan(device, B: int, H: int) -> BwdPlan:
+    """`bwd_plan` for the card `device`."""
+    device = torch.device(device)
+    index = torch.cuda.current_device() if device.index is None else device.index
+    return _device_bwd_plan(index, B, H)
+
+
+@functools.lru_cache(maxsize=None)
+def _device_bwd_plan(index: int, B: int, H: int) -> BwdPlan:
+    with torch.cuda.device(index):
+        optin = _load().gru_smem_optin()
+    return bwd_plan(B, H, _sm_count(index), optin)
 
 
 def _require(tensors: dict, shapes: dict, device):
@@ -237,14 +319,19 @@ def gru_layer_bwd(gir, giz, gin, outs, h0, masks, douts, dhT, w_hh, b_hh):
     if T == 0 or B == 0:
         return dgir, dgiz, dgin, dhT.clone(), dw.zero_(), db.zero_()
     lib = _load()
-    bt = batch_tile(B, H, _sm_count(gir.device))
-    nblocks = -(-B // bt)
-    partial = torch.empty(nblocks * (H + 1) * 3 * H, device=gir.device)
+    plan = device_bwd_plan(gir.device, B, H)
+    if plan.variant == BWD_MMA:
+        # its cp.async copies move 16-byte chunks of the streams and of W
+        gir, giz, gin, outs, h0, douts, w_hh = (
+            x if x.data_ptr() % 16 == 0 else x.clone()
+            for x in (gir, giz, gin, outs, h0, douts, w_hh))
+    partial = torch.empty(plan.partial_floats, device=gir.device)
     with torch.cuda.device(gir.device):
         err = lib.gru_seq_bwd(*map(_ptr, (gir, giz, gin, outs, masks, h0,
                                           douts, dhT, w_hh, b_hh, dgir, dgiz,
                                           dgin, dh0, dw, db, partial)),
-                              T, B, H, bt, _stream(gir.device))
+                              T, B, H, plan.variant, plan.bt, plan.grid,
+                              plan.smem_bytes, _stream(gir.device))
     _check(err, "gru_seq_bwd launch")
     BWD_LAUNCHES += 1
     return dgir, dgiz, dgin, dh0, dw, db

@@ -36,7 +36,17 @@ def _layer_inputs(T, B, H, seed):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("T,B,H", [(10, 960, 64), (10, 37, 64), (1, 300, 64),
-                                   (5, 333, 128), (4, 200, 256)])
+                                   (5, 333, 128), (4, 200, 256),
+                                   # tensor-core backward: below one tile,
+                                   # 8k+3 rows, blocks walking two tiles, H=48
+                                   (10, 5, 64), (10, 803, 64), (10, 5003, 64),
+                                   (10, 960, 48),
+                                   # the other (H, tile) instantiations
+                                   (4, 2200, 48), (4, 2200, 32), (4, 300, 32),
+                                   (4, 2200, 16), (4, 300, 16),
+                                   # CUDA-core backward, W in shared memory:
+                                   # full tiles, a ragged single tile, T=1
+                                   (10, 960, 40), (10, 37, 40), (1, 300, 40)])
 def test_kernels_match_plain_versions_on_the_card(T, B, H):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels run on the card only")
@@ -57,6 +67,46 @@ def test_kernels_match_plain_versions_on_the_card(T, B, H):
     for a, b in zip(got, again):
         assert torch.equal(a, b), "backward is not deterministic"
     assert (cuda_gru.FWD_LAUNCHES - fwd0, cuda_gru.BWD_LAUNCHES - bwd0) == (1, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,variant", [
+    (960, 64, "tensor_core"), (122_880, 64, "tensor_core"),
+    (5003, 64, "tensor_core"),
+    (960, 48, "tensor_core"), (960, 40, "cuda_core_smem_w"),
+    (37, 40, "cuda_core_smem_w"), (300, 40, "cuda_core_smem_w"),
+    (333, 128, "cuda_core_global_w"), (200, 256, "cuda_core_global_w")])
+def test_backward_variant_by_width_on_the_card(B, H, variant):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run on the card only")
+    plan = cuda_gru.device_bwd_plan(torch.device("cuda"), B, H)
+    assert plan.name == variant
+    if B == 5003:   # the test above needs its blocks to walk two tiles
+        assert -(-B // plan.bt) > plan.grid
+
+
+@pytest.mark.cuda
+def test_tensor_core_backward_takes_unaligned_streams_on_the_card():
+    """Its cp.async copies move 16-byte chunks: a stream or a W_hh that
+    starts off a 16-byte boundary is copied first, and the result is the
+    same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run on the card only")
+    T, B, H = 4, 40, 64
+    x = _layer_inputs(T, B, H, seed=3)
+    outs, _ = cuda_gru.gru_layer_fwd_ref(x["gir"], x["giz"], x["gin"], x["h0"],
+                                         x["masks"], x["w_hh"], x["b_hh"])
+    bargs = [x["gir"], x["giz"], x["gin"], outs, x["h0"], x["masks"],
+             x["douts"], x["dhT"], x["w_hh"], x["b_hh"]]
+    want = cuda_gru.gru_layer_bwd(*bargs)
+    for i in (6, 8):   # douts, w_hh
+        flat = torch.empty(bargs[i].numel() + 1, device="cuda")
+        shifted = flat[1:].view(bargs[i].shape)
+        shifted.copy_(bargs[i])
+        assert shifted.data_ptr() % 16 != 0 and shifted.is_contiguous()
+        got = cuda_gru.gru_layer_bwd(*bargs[:i], shifted, *bargs[i + 1:])
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

@@ -153,3 +153,69 @@ def test_batch_tile_is_a_multiple_of_the_row_group():
         for B in (1, 37, 960, 122880):
             bt = cuda_gru.batch_tile(B, H, n_sm=132)
             assert bt >= 4 and bt % 4 == 0, (B, H, bt)
+
+
+# The backward's launch plan (`cuda_gru.bwd_plan`) is plain Python, chosen
+# from the shape and the card before launch; here for an H100 SXM.
+H100_SMS = 132
+H100_SMEM_OPTIN = 232_448      # bytes of shared memory a block may opt into
+H100_SMEM_PER_SM = 233_472     # the SM's, of which 1 KB is kept per block
+
+
+@pytest.mark.parametrize("B,H", [(960, 64), (122_880, 64), (5, 64), (803, 64),
+                                 (5003, 64), (960, 48), (300, 16), (3000, 32)])
+def test_bwd_plan_takes_the_tensor_core_kernel_for_its_widths(B, H):
+    plan = cuda_gru.bwd_plan(B, H, H100_SMS, H100_SMEM_OPTIN)
+    assert plan.variant == cuda_gru.BWD_MMA and plan.name == "tensor_core"
+    assert plan.bt in (8, 16) and plan.bt % 8 == 0
+    assert plan.smem_bytes == cuda_gru.mma_smem_bytes(H, plan.bt)
+    assert plan.smem_bytes <= H100_SMEM_OPTIN
+    per_sm = cuda_gru.MMA_BLOCKS_PER_SM[plan.bt]
+    assert plan.grid == min(-(-B // plan.bt), per_sm * H100_SMS)
+    assert plan.partial_floats == plan.grid * (H + 1) * 3 * H
+
+
+@pytest.mark.parametrize("H", [16, 32, 48, 64])
+def test_two_tensor_core_blocks_fit_an_sm_at_16_row_tiles(H):
+    nbytes = cuda_gru.mma_smem_bytes(H, 16)
+    assert cuda_gru.MMA_BLOCKS_PER_SM[16] == 2
+    assert 2 * (nbytes + cuda_gru.SMEM_PER_BLOCK_RESERVED) <= H100_SMEM_PER_SM
+    assert cuda_gru.mma_smem_bytes(64, 16) == 112_256   # the source's note
+    assert cuda_gru.mma_smem_bytes(64, 8) == 81_728
+
+
+def test_bwd_plan_at_the_flagship_and_bench_shapes():
+    flag = cuda_gru.bwd_plan(960, 64, H100_SMS, H100_SMEM_OPTIN)
+    assert (flag.name, flag.bt, flag.grid) == ("tensor_core", 8, 120)
+    bench = cuda_gru.bwd_plan(122_880, 64, H100_SMS, H100_SMEM_OPTIN)
+    assert (bench.name, bench.bt, bench.grid) == ("tensor_core", 16, 264)
+    # blocks walk 7,680 tiles; the partials stay at grid x (H+1) x 3H floats
+    assert bench.partial_floats * 4 == 264 * 65 * 192 * 4 == 13_178_880
+
+
+@pytest.mark.parametrize("H", [40, 128, 256, 512])
+def test_bwd_plan_keeps_the_cuda_core_kernel_for_other_widths(H):
+    for B in (5, 960, 122_880):
+        plan = cuda_gru.bwd_plan(B, H, H100_SMS, H100_SMEM_OPTIN)
+        assert plan.variant in (cuda_gru.BWD_GLOBAL_W, cuda_gru.BWD_SMEM_W)
+        assert plan.bt == cuda_gru.batch_tile(B, H, H100_SMS)
+        assert plan.grid == -(-B // plan.bt)
+        assert plan.smem_bytes <= H100_SMEM_OPTIN
+        assert plan.partial_floats == plan.grid * (H + 1) * 3 * H
+    assert cuda_gru.bwd_plan(960, 40, H100_SMS, H100_SMEM_OPTIN).name \
+        == "cuda_core_smem_w"
+    assert cuda_gru.bwd_plan(960, 256, H100_SMS, H100_SMEM_OPTIN).name \
+        == "cuda_core_global_w"
+
+
+@pytest.mark.parametrize("B,H", [(960, 64), (122_880, 64), (5003, 48), (37, 16)])
+def test_bwd_plan_grid_depends_only_on_shape_and_sm_count(B, H):
+    """dW is summed per block, so its bits follow the grid: the same
+    (B, H, SM count) must give the same grid whatever else the card
+    reports, and a card that cannot hold the blocks takes the CUDA-core
+    kernel rather than another grid."""
+    plan = cuda_gru.bwd_plan(B, H, H100_SMS, H100_SMEM_OPTIN)
+    for optin in (H100_SMEM_OPTIN, H100_SMEM_OPTIN + 65_536, 2 ** 20):
+        assert cuda_gru.bwd_plan(B, H, H100_SMS, optin) == plan
+    small = cuda_gru.bwd_plan(B, H, H100_SMS, 48 * 1024)
+    assert small.variant != cuda_gru.BWD_MMA or small == plan
