@@ -8,16 +8,20 @@ Phases, each of which fails the run (non-zero exit) if it fails:
   2. build:   nvcc of onpolicy_torch/csrc/gru_seq.cu for sm_90a.
   3. kernels: the GRU kernels against their plain PyTorch versions on
               the card, in f32, at the flagship, bench, ragged (B=5 below
-              one tile, B=803, B=5003 where blocks walk two tiles), T=1,
-              masked, recurrent_N=2 and H=16/32/48 shapes (tensor-core
-              backward), and at ragged, T=1, masked and H=40/128/256
-              shapes of the CUDA-core backward; each line names the
-              backward variant; dW bitwise repeatable at the flagship and
-              bench shapes.
+              one tile, B=37 and B=803 on 8-row tiles, B=5003 on 16-row
+              tiles where blocks walk two), T=1, masked, recurrent_N=2 and
+              H=16/32/48 shapes (tensor-core kernels, every (H, tile)
+              instantiation), and at ragged, T=1, masked and H=40/128/256
+              shapes of the CUDA-core kernels; each line names the forward
+              and backward variants, tiles and grids; dW bitwise
+              repeatable at the flagship and bench shapes.
   4. times:   kernel, plain version and cuDNN's nn.GRU (yardstick only)
               at the flagship and bench shapes, with CUDA events (`ms`);
               the kernels' device time from torch.profiler beside them
-              (`device_ms`, null where the profiler saw no device time).
+              (`device_ms`, null where the profiler saw no device time);
+              then the CUDA-core forward and the tensor-core one on the
+              same inputs through explicit plans, in turns (CUDA-core,
+              tensor-core, tensor-core, CUDA-core).
   5. train:   one flagship-width episode at 8 rollout threads on the
               card against the CPU path from the same state; then the
               port's `scripts/train_mpe.main` with the flagship rMAPPO
@@ -113,6 +117,7 @@ def check_layer(torch, cg, case, T, B, H, mask_mode="sprinkled",
     `bench_scale`) the backward also runs twice and must give the same
     bits. Returns (fwd_err, bwd_err)."""
     plan = cg.device_bwd_plan(torch.device("cuda"), B, H)
+    fplan = cg.device_fwd_plan(torch.device("cuda"), B, H)
     x = make_inputs(torch, T, B, H, seed=T * 7919 + B * 31 + H,
                     mask_mode=mask_mode)
     args = (x["gir"], x["giz"], x["gin"], x["h0"], x["masks"], x["w_hh"],
@@ -144,9 +149,10 @@ def check_layer(torch, cg, case, T, B, H, mask_mode="sprinkled",
         for n, a, b in zip(names, got, again):
             if not torch.equal(a, b):
                 raise AssertionError(f"{case} {n}: backward not deterministic")
-    log(f"  {case:<34} T={T:<3} B={B:<7} H={H:<4} bwd {plan.name:<18} "
-        f"(tile {plan.bt}, {plan.grid} blocks)  fwd err {fwd_err:.2e}  "
-        f"bwd err {bwd_err:.2e}  ok")
+    log(f"  {case:<34} T={T:<3} B={B:<7} H={H:<4} "
+        f"fwd {fplan.name:<18} (tile {fplan.bt}, {fplan.grid} blocks)  "
+        f"bwd {plan.name:<18} (tile {plan.bt}, {plan.grid} blocks)  "
+        f"fwd err {fwd_err:.2e}  bwd err {bwd_err:.2e}  ok")
     return fwd_err, bwd_err
 
 
@@ -234,8 +240,9 @@ def bounds(T, B, H):
     each output written once over the HBM rate, against the three hidden
     products (2*3*H^2*B*T flops forward, three times that backward). The
     products count on the f32 CUDA cores ("fwd", "bwd_f32") or, for the
-    tensor-core backward ("bwd_tc"), as three TF32 products each (3xTF32)
-    over the dense TF32 peak. Gate elementwise math is not counted."""
+    tensor-core kernels ("fwd_tc", "bwd_tc"), as three TF32 products each
+    (3xTF32) over the dense TF32 peak. Gate elementwise math is not
+    counted."""
     seq, st, w = T * B * H * 4, B * H * 4, (3 * H * H + 3 * H) * 4
     m = T * B * 4
     fwd_bytes = 3 * seq + m + st + w + seq + st
@@ -244,6 +251,7 @@ def bounds(T, B, H):
     out = {}
     for key, nbytes, ops_s in (
             ("fwd", fwd_bytes, fwd_flops / F32_FLOP_S),
+            ("fwd_tc", fwd_bytes, 3 * fwd_flops / TF32_FLOP_S),
             ("bwd_f32", bwd_bytes, 3 * fwd_flops / F32_FLOP_S),
             ("bwd_tc", bwd_bytes, 3 * 3 * fwd_flops / TF32_FLOP_S)):
         tb, tf = nbytes / HBM_BYTES_S * 1e3, ops_s * 1e3
@@ -284,11 +292,35 @@ def time_shape(torch, cg, shape, card):
         torch, lambda: torch.autograd.grad(y, [xin] + list(gru.parameters()),
                                            dy, retain_graph=True))
     b = bounds(T, B, H)
-    res["fwd_bound_ms"], res["fwd_bound_by"] = b["fwd"]
+    res["fwd_bound_f32_ms"], res["fwd_bound_f32_by"] = b["fwd"]
+    res["fwd_bound_tc_ms"], res["fwd_bound_tc_by"] = b["fwd_tc"]
     res["bwd_bound_f32_ms"], res["bwd_bound_f32_by"] = b["bwd_f32"]
     res["bwd_bound_tc_ms"], res["bwd_bound_tc_by"] = b["bwd_tc"]
+    res["fwd_variant"] = cg.device_fwd_plan(torch.device("cuda"), B, H).name
     res["bwd_variant"] = cg.device_bwd_plan(torch.device("cuda"), B, H).name
     log(f"  times T={T} B={B} H={H} [{card}]: " + json.dumps(res))
+    return res
+
+
+def compare_forwards(torch, cg, shape, card):
+    """The CUDA-core forward against the tensor-core one on the same
+    inputs, each through an explicit plan, timed in turns (CUDA-core,
+    tensor-core, tensor-core, CUDA-core) so that both see the same card:
+    CUDA-event ms and torch.profiler device ms of each turn."""
+    T, B, H = shape["T"], shape["B"], shape["H"]
+    x = make_inputs(torch, T, B, H, seed=13, mask_mode="ones")
+    fargs = (x["gir"], x["giz"], x["gin"], x["h0"], x["masks"], x["w_hh"],
+             x["b_hh"])
+    limits = cg.device_limits(torch.cuda.current_device())
+    plans = {"cuda_core": cg.cuda_core_fwd_plan(B, H, *limits),
+             "tensor_core": cg.fwd_plan(B, H, *limits)}
+    res = {k: {"plan": plans[k]._asdict(), "event_ms": [], "device_ms": []}
+           for k in plans}
+    for k in ("cuda_core", "tensor_core", "tensor_core", "cuda_core"):
+        fn = lambda: cg.gru_layer_fwd(*fargs, plan=plans[k])
+        res[k]["event_ms"].append(time_ms(torch, fn))
+        res[k]["device_ms"].append(device_ms(torch, fn, ("gru_fwd_kernel",)))
+    log(f"  forward in turns T={T} B={B} H={H} [{card}]: " + json.dumps(res))
     return res
 
 
@@ -403,58 +435,59 @@ def main() -> int:
     log("== 3. kernels against their plain versions (f32)")
     f_err, b_err = check_layer(torch, cg, "flagship", **FLAGSHIP, repeat=True)
     check_layer(torch, cg, "bench (16384 threads)", **BENCH, bench_scale=True)
-    check_layer(torch, cg, "B=37 (ragged single tile)", 10, 37, 64)
+    check_layer(torch, cg, "B=37 (ragged 8-row tiles)", 10, 37, 64)
     check_layer(torch, cg, "B=5 (below one tile)", 10, 5, 64)
     check_layer(torch, cg, "B=803 (8k+3 rows)", 10, 803, 64)
-    walk = cg.device_bwd_plan(torch.device("cuda"), 5003, 64)
-    if -(-5003 // walk.bt) <= walk.grid:
-        raise AssertionError(f"B=5003: {walk} walks no second tile")
-    check_layer(torch, cg, "B=5003 (blocks walk 2 tiles)", 10, 5003, 64)
+    for walk in (cg.device_fwd_plan(torch.device("cuda"), 5003, 64),
+                 cg.device_bwd_plan(torch.device("cuda"), 5003, 64)):
+        if -(-5003 // walk.bt) <= walk.grid:
+            raise AssertionError(f"B=5003: {walk} walks no second tile")
+    check_layer(torch, cg, "B=5003 (ragged 16-row, 2 tiles)", 10, 5003, 64)
     check_layer(torch, cg, "T=1", 1, 960, 64)
     check_layer(torch, cg, "all-ones masks", 10, 960, 64, mask_mode="ones")
     check_layer(torch, cg, "H=48 (tensor-core backward)", 10, 960, 48)
+    check_layer(torch, cg, "H=48 (tensor core, 16-row tiles)", 4, 2200, 48)
     check_layer(torch, cg, "H=32 (tensor core, 16-row tiles)", 4, 2200, 32)
+    check_layer(torch, cg, "H=32 (tensor core, 8-row tiles)", 4, 300, 32)
     check_layer(torch, cg, "H=16 (tensor core, 8-row tiles)", 4, 300, 16)
-    check_layer(torch, cg, "H=40 (CUDA-core backward)", 10, 960, 40)
+    check_layer(torch, cg, "H=16 (tensor core, 16-row tiles)", 4, 2200, 16)
+    check_layer(torch, cg, "H=40 (CUDA-core kernels)", 10, 960, 40)
     check_layer(torch, cg, "H=40 B=37 (ragged single tile)", 10, 37, 40)
     check_layer(torch, cg, "H=40 T=1", 1, 300, 40)
     check_layer(torch, cg, "H=40 all-ones masks", 10, 803, 40,
                 mask_mode="ones")
     check_layer(torch, cg, "H=256 (weights in L2)", 10, 960, 256)
     check_layer(torch, cg, "H=128 (backward weights in L2)", 5, 333, 128)
+    check_layer(torch, cg, "H=128 T=1 all-ones", 1, 37, 128, mask_mode="ones")
     check_sequence_layers(torch, cg)
 
     log("== 4. times (CUDA events)")
     t_flag = time_shape(torch, cg, FLAGSHIP, card)
     time_shape(torch, cg, BENCH, card)
+    compare_forwards(torch, cg, FLAGSHIP, card)
+    compare_forwards(torch, cg, BENCH, card)
 
     log("== 5. main path: train_mpe, flagship rMAPPO simple_spread")
     check_small_against_cpu(torch)
     fwd_n, bwd_n = train_main_path(torch, cg)
 
     src = "onpolicy_torch/csrc/gru_seq.cu"
-    tc = "tc" if t_flag["bwd_variant"] == "tensor_core" else "f32"
-    kernels = [
-        {"name": "gru_seq_fwd", "route": "cuda", "source": src,
-         "replaces": "onpolicy_tpu/ops/pallas_gru.py:122",
-         "launches": fwd_n, "max_abs_err": f_err,
-         "ms": t_flag["fwd_ms"], "device_ms": t_flag["fwd_device_ms"],
-         "plain_ms": t_flag["fwd_plain_ms"],
-         "bound_ms": t_flag["fwd_bound_ms"],
-         "bound_by": t_flag["fwd_bound_by"],
-         "library_ms": t_flag["fwd_library_ms"]},
-        {"name": "gru_seq_bwd", "route": "cuda", "source": src,
-         "replaces": "onpolicy_tpu/ops/pallas_gru.py:219",
-         "variant": t_flag["bwd_variant"],
-         "launches": bwd_n, "max_abs_err": b_err,
-         "ms": t_flag["bwd_ms"], "device_ms": t_flag["bwd_device_ms"],
-         "plain_ms": t_flag["bwd_plain_ms"],
-         "bound_ms": t_flag[f"bwd_bound_{tc}_ms"],
-         "bound_by": t_flag[f"bwd_bound_{tc}_by"],
-         "bound_f32_ms": t_flag["bwd_bound_f32_ms"],
-         "bound_f32_by": t_flag["bwd_bound_f32_by"],
-         "library_ms": t_flag["bwd_library_ms"]},
-    ]
+    kernels = []
+    for d, name, line, n, err in (("fwd", "gru_seq_fwd", 122, fwd_n, f_err),
+                                  ("bwd", "gru_seq_bwd", 219, bwd_n, b_err)):
+        tc = "tc" if t_flag[f"{d}_variant"] == "tensor_core" else "f32"
+        kernels.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": f"onpolicy_tpu/ops/pallas_gru.py:{line}",
+            "variant": t_flag[f"{d}_variant"],
+            "launches": n, "max_abs_err": err,
+            "ms": t_flag[f"{d}_ms"], "device_ms": t_flag[f"{d}_device_ms"],
+            "plain_ms": t_flag[f"{d}_plain_ms"],
+            "bound_ms": t_flag[f"{d}_bound_{tc}_ms"],
+            "bound_by": t_flag[f"{d}_bound_{tc}_by"],
+            "bound_f32_ms": t_flag[f"{d}_bound_f32_ms"],
+            "bound_f32_by": t_flag[f"{d}_bound_f32_by"],
+            "library_ms": t_flag[f"{d}_library_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

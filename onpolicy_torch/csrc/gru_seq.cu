@@ -2,14 +2,17 @@
 // rematerializing backward, hand-written for Hopper (sm_90a).
 //
 // Replaces the two Pallas TPU kernels of onpolicy_tpu/ops/pallas_gru.py:
-//   gru_fwd_kernel      <- _fwd_call / _fwd_kernel   (pallas_gru.py:103-153)
+//   gru_fwd_kernel_mma  <- _fwd_call / _fwd_kernel   (pallas_gru.py:103-153)
+//                          for H % 16 == 0 and H <= 64, on the tensor cores
+//   gru_fwd_kernel      <- the same, for every other H, on the CUDA cores
 //   gru_bwd_kernel_mma  <- _bwd_call / _bwd_kernel   (pallas_gru.py:160-251)
 //                          for H % 16 == 0 and H <= 64, on the tensor cores
 //   gru_bwd_kernel      <- the same, for every other H, on the CUDA cores
 //   gru_bwd_reduce      <- the grid-wide dW_hh / db_hh accumulation of
 //                          _bwd_kernel (pallas_gru.py:169-179, 204-213)
-// Which backward runs is chosen by shape before launch, in Python
-// (ops/cuda_gru.py:bwd_plan); the C entry launches what it is told.
+// Which kernel runs is chosen by shape before launch, in Python
+// (ops/cuda_gru.py:fwd_plan, bwd_plan); the C entries launch what they
+// are told.
 //
 // Per step t, for each row b of the batch (gate order r, z, n):
 //   hm = h * m_t
@@ -25,11 +28,12 @@
 // products per step (6*B*H^2 flops forward, three times that backward)
 // against 4 (forward) or 8 (backward) [T,B,H] f32 streams. At H=64 the
 // flops term (67 TFLOP/s f32) and the bytes term (3.35 TB/s) are of the
-// same size, so the kernels are bound by operations on the CUDA cores
-// (no tensor cores: everything stays f32 to match the reference).
+// same size, so the CUDA-core kernels are bound by operations. The
+// tensor-core kernels keep f32 accuracy with 3xTF32 products and are bound
+// by bytes.
 //
-// Design of the forward and of the CUDA-core backward (gru_bwd_kernel),
-// kept simple and right first:
+// Design of the CUDA-core forward and backward (gru_fwd_kernel,
+// gru_bwd_kernel), kept simple and right first:
 //   * One block per tile of `bt` batch rows; the block loops over T
 //     itself. Blocks carry nothing between each other, which takes the
 //     place of the TPU's sequential grid axis. The ragged last tile is
@@ -444,6 +448,12 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;" ::: "memory");
 }
 
+// Waits until at most N of this thread's latest copy groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
 template <int H, int BT>
 struct MmaLayout {  // shared memory of gru_bwd_kernel_mma, in floats
   static constexpr int H3 = 3 * H;
@@ -724,6 +734,227 @@ gru_bwd_kernel_mma(const float* __restrict__ gir, const float* __restrict__ giz,
   if (tid < H3) out[H * H3 + tid] = acc_b;
 }
 
+// ---------------------------------------------------------------------------
+// forward on the tensor cores: gru_fwd_kernel_mma<H, BT>, H in {16,32,48,64}
+// ---------------------------------------------------------------------------
+// The same function as gru_fwd_kernel, which runs the step's three products
+// as scalar FMAs with three shared-memory loads of W per k. Here they run
+// as the backward's gate product (3xTF32 mma.sync m16n8k8, see split and
+// mma_tf32), written transposed so that the tile's BT batch rows are the
+// MMA's N:
+//   gh^T [3H x BT] = W_hh^T [3H x H] . hm^T [H x BT],   hm = h * m_t
+// Its least time on an H100 is set by the bytes of its four [T, B, H]
+// streams (three in, one out); the products, at three TF32 terms each, take
+// less than half of that at the dense TF32 rate. What keeps it above the
+// bound is instruction issue around the mma.sync (fragment loads, hi/lo
+// splits) and the gate math, as diagnostics/ablate_gru_fwd.py shows. At
+// small B the ten steps are a serial chain, and what counts is each step's
+// latency.
+//  * A warp owns one item of 16 units and 8 rows: for each gate one 16 x 8
+//    accumulator tile. The thread that holds a (unit, row) pair's r, z and
+//    n accumulators also does its gate math and keeps its h in a register
+//    across the T steps; blocks have one warp per item (128 threads at
+//    H = 64 with 8-row tiles, 256 with 16-row tiles).
+//  * Each gate's product runs two accumulator chains, one for hi * hi and
+//    one for the two small terms, so a chain is KT or 2 KT mma deep.
+//  * W^T sits in shared memory in fragment order: lane l's a0..a3 of
+//    fragment (m-tile, k-tile) are four consecutive words, one 16-byte load
+//    a lane, split into hi/lo as it is loaded. It is copied in once per
+//    block: a block walks the batch tiles blockIdx.x, + gridDim.x, ...
+//  * h of the tile goes to shared memory after each step as the next
+//    step's B operand, double-buffered so that a step needs one barrier;
+//    the B fragment is multiplied by the step's mask as it is loaded. Its
+//    row stride H + 4 makes both the B-fragment loads and the stores from
+//    the accumulator layout free of bank conflicts.
+//  * cp.async brings the gir, giz, gin tiles and masks of the next step
+//    (across tile boundaries) into a ring of STAGES shared-memory stages
+//    while this step computes. Two stages are as fast as three or four
+//    (diagnostics/ablate_gru_fwd.py), so the ring keeps one step ahead.
+//  * outs is written from the accumulator layout: a warp's store covers
+//    four rows of 32 bytes, whole sectors.
+// Shared memory, in floats: W^T 3H * H; STAGES = 2 stages of 3 x [BT][H+4]
+// and BT masks; h 2 x [BT][H+4]. At H = 64 that is 84,096 bytes for
+// BT = 16 and 66,624 for BT = 8; two blocks fit an SM.
+// Rows >= B of the ragged tile are copied in as zeros and never written.
+
+template <int H, int BT>
+struct FwdLayout {  // shared memory of gru_fwd_kernel_mma, in floats
+  static constexpr int H3 = 3 * H;
+  static constexpr int KT = H / 8;   // k-steps of the gate product
+  static constexpr int SS = H + 4;   // row stride of a [BT][H] tile
+  static constexpr int STREAM = BT * SS;
+  static constexpr int STAGE = 3 * STREAM + BT;  // gir giz gin m
+  static constexpr int STAGES = 2;
+  static constexpr int STAGE_OFF = H3 * H;       // after W^T
+  static constexpr int H_OFF = STAGE_OFF + STAGES * STAGE;
+  static constexpr int BYTES = (H_OFF + 2 * STREAM) * 4;
+  static constexpr int THREADS = 32 * (H / 16) * (BT / 8);  // a warp an item
+  static constexpr int MIN_BLOCKS = 2;
+  static_assert(H % 16 == 0 && BT % 8 == 0, "tile shapes of m16n8k8");
+  static_assert(3 * H % BT == 0, "W's copy: 3H / BT float4 a thread");
+};
+
+// Starts the copies of step t of the tile at row0 into `stage`.
+template <int H, int BT>
+__device__ __forceinline__ void stage_fwd(float* stage, const float* gir,
+                                          const float* giz, const float* gin,
+                                          const float* masks, int t, int row0,
+                                          int B) {
+  using L = FwdLayout<H, BT>;
+  constexpr int CH = H / 4;  // 16-byte chunks in a row
+  const size_t tb = (size_t)t * B;
+  for (int e = threadIdx.x; e < 3 * BT * CH; e += L::THREADS) {
+    const int i = e / (BT * CH);  // gir, giz, gin
+    const int r = (e - i * BT * CH) / CH;
+    const int c = (e % CH) * 4;
+    const int row = row0 + r;
+    const bool ok = row < B;
+    const float* src = i == 0 ? gir : i == 1 ? giz : gin;
+    cp_async16(stage + i * L::STREAM + r * L::SS + c,
+               src + (tb + (ok ? row : 0)) * H + c, ok);
+  }
+  for (int r = threadIdx.x; r < BT; r += L::THREADS) {
+    const int row = row0 + r;
+    cp_async4(stage + 3 * L::STREAM + r, masks + tb + (row < B ? row : 0),
+              row < B);
+  }
+}
+
+template <int H, int BT>
+__global__ void __launch_bounds__(FwdLayout<H, BT>::THREADS,
+                                  FwdLayout<H, BT>::MIN_BLOCKS)
+gru_fwd_kernel_mma(const float* __restrict__ gir, const float* __restrict__ giz,
+                   const float* __restrict__ gin,
+                   const float* __restrict__ masks,  // [T, B]
+                   const float* __restrict__ h0,     // [B, H]
+                   const float* __restrict__ w_hh,   // [H, 3H]
+                   const float* __restrict__ b_hh,   // [3H]
+                   float* __restrict__ outs,         // [T, B, H]
+                   float* __restrict__ hT,           // [B, H]
+                   int T, int B) {
+  using L = FwdLayout<H, BT>;
+  constexpr int H3 = L::H3, KT = L::KT, SS = L::SS, MT = H / 16;
+  extern __shared__ __align__(16) float fwd_smem[];
+  float* sW = fwd_smem;
+  float* sStage = fwd_smem + L::STAGE_OFF;
+  float* sH = fwd_smem + L::H_OFF;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, q = lane & 3;
+  const int ntiles = (B + BT - 1) / BT;
+
+  // the copies run STAGES - 1 steps ahead of the compute, through the
+  // block's tiles: step pt of tile ptile goes to stage ps
+  int pt = 0, ptile = blockIdx.x, ps = 0;
+  auto issue = [&]() {
+    if (ptile < ntiles)
+      stage_fwd<H, BT>(sStage + ps * L::STAGE, gir, giz, gin, masks, pt,
+                       ptile * BT, B);
+    cp_async_commit();  // one group a step, empty past the last tile
+    if (++pt == T) { pt = 0; ptile += gridDim.x; }
+    ps = ps + 1 == L::STAGES ? 0 : ps + 1;
+  };
+#pragma unroll
+  for (int i = 0; i < L::STAGES - 1; ++i) issue();
+
+  // W^T as A fragments: a_i of lane l of fragment f = (m-tile, k-tile) is
+  // word (f * 32 + l) * 4 + i. W is read in rows, four columns at a time,
+  // with all of a thread's loads in flight together.
+#pragma unroll
+  for (int i = 0; i < 3 * H / BT; ++i) {
+    const int e = tid + i * L::THREADS;
+    const int k = e / (H3 / 4), m = (e - k * (H3 / 4)) * 4;
+    const float4 v = *reinterpret_cast<const float4*>(w_hh + (size_t)k * H3 + m);
+    const int f = (m / 16) * KT + k / 8, kk = k & 7;
+    float* dst = sW + f * 128 + (kk & 3) * 4 + 2 * (kk >> 2) + ((m >> 3) & 1);
+    dst[(m & 7) * 16] = v.x;
+    dst[((m + 1) & 7) * 16] = v.y;
+    dst[((m + 2) & 7) * 16] = v.z;
+    dst[((m + 3) & 7) * 16] = v.w;
+  }
+
+  // this warp's item: units u0.., rows n0..; accumulator element p holds
+  // unit u0 + g + 8 (p / 2), row n0 + 2q + p % 2
+  const int u0 = (warp / (BT / 8)) * 16;
+  const int n0 = (warp % (BT / 8)) * 8;
+  float bias[3][2];
+#pragma unroll
+  for (int gate = 0; gate < 3; ++gate)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      bias[gate][hh] = b_hh[gate * H + u0 + g + 8 * hh];
+  // this lane's word of the warp's fragment (gate, k-tile) is wf[(gate * MT
+  // * KT + kt) * 32]
+  const float4* wf =
+      reinterpret_cast<const float4*>(sW) + (u0 / 16) * KT * 32 + lane;
+
+  float h[4];
+  int s = 0, hb = 0;  // the stage and the h buffer of this step
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const int row0 = tile * BT;
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      const int n = n0 + 2 * q + (p & 1), j = u0 + g + 8 * (p >> 1);
+      h[p] = row0 + n < B ? h0[(size_t)(row0 + n) * H + j] : 0.0f;
+      sH[hb * L::STREAM + n * SS + j] = h[p];
+    }
+    for (int t = 0; t < T; ++t) {
+      cp_async_wait<L::STAGES - 2>();
+      __syncthreads();  // stage s and h have landed; last step's reads done
+      issue();          // into the stage that the last step read
+      const float* stg = sStage + s * L::STAGE;
+      const float* sM = stg + 3 * L::STREAM;
+
+      // gates: gh^T = W^T . hm^T
+      float big[3][4] = {}, small[3][4] = {};
+      const float* hr = sH + hb * L::STREAM + (n0 + g) * SS + q;
+      const float mb = sM[n0 + g];  // the mask of this lane's B column
+#pragma unroll
+      for (int kt = 0; kt < KT; ++kt) {
+        const float bf[2] = {hr[kt * 8] * mb, hr[kt * 8 + 4] * mb};
+        const Split<2> b = split(bf);
+#pragma unroll
+        for (int gate = 0; gate < 3; ++gate) {
+          const float4 w = wf[(gate * MT * KT + kt) * 32];
+          const float af[4] = {w.x, w.y, w.z, w.w};
+          const Split<4> a = split(af);
+          mma_tf32(small[gate], a.lo, b.hi);
+          mma_tf32(small[gate], a.hi, b.lo);
+          mma_tf32(big[gate], a.hi, b.hi);
+        }
+      }
+
+      // gate math of this thread's pairs; h to registers, shared, outs
+      float* hn = sH + (hb ^ 1) * L::STREAM;
+      const size_t tb = (size_t)t * B;
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        const int hh = p >> 1;
+        const int n = n0 + 2 * q + (p & 1), j = u0 + g + 8 * hh;
+        const int o = n * SS + j;
+        const float hm = h[p] * sM[n];
+        const float rg = sigmoid_(stg[o]
+                                  + ((big[0][p] + small[0][p]) + bias[0][hh]));
+        const float zg = sigmoid_(stg[L::STREAM + o]
+                                  + ((big[1][p] + small[1][p]) + bias[1][hh]));
+        const float ghn = (big[2][p] + small[2][p]) + bias[2][hh];
+        const float ng = tanhf(stg[2 * L::STREAM + o] + rg * ghn);
+        h[p] = (1.0f - zg) * ng + zg * hm;
+        hn[o] = h[p];
+        if (row0 + n < B) outs[(tb + row0 + n) * H + j] = h[p];
+      }
+      s = s + 1 == L::STAGES ? 0 : s + 1;
+      hb ^= 1;
+    }
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      const int row = row0 + n0 + 2 * q + (p & 1);
+      if (row < B) hT[(size_t)row * H + u0 + g + 8 * (p >> 1)] = h[p];
+    }
+  }
+  cp_async_wait_all();
+}
+
 // Sums the per-block partials in block order: dW_hh [H, 3H] and db_hh [3H].
 __global__ void __launch_bounds__(kThreads)
 gru_bwd_reduce(const float* __restrict__ partial, int nblocks, int H,
@@ -751,6 +982,14 @@ bool bad_shape(int T, int B, int H, int bt) {
   return T <= 0 || B <= 0 || H <= 0 || bt <= 0 || bt % kRows != 0;
 }
 
+// Dynamic shared memory of gru_fwd_kernel: h and hm of the tile and its
+// mask row, plus (kSmemW) W with odd row stride.
+size_t simt_fwd_bytes(int H, int bt, bool smem_w) {
+  size_t floats = (size_t)2 * bt * H + bt;
+  if (smem_w) floats += (size_t)H * ((3 * H) | 1);
+  return floats * sizeof(float);
+}
+
 // Dynamic shared memory of gru_bwd_kernel: its five [bt, H] tiles and
 // two mask rows, plus (kSmemW) W with odd row stride and the dW/db sums.
 size_t simt_bwd_bytes(int H, int bt, bool smem_w) {
@@ -772,6 +1011,29 @@ cudaError_t launch_fwd(const float* gir, const float* giz, const float* gin,
   const int grid = (B + bt - 1) / bt;
   gru_fwd_kernel<kSmemW><<<grid, kThreads, bytes, stream>>>(
       gir, giz, gin, masks, h0, w_hh, b_hh, outs, hT, T, B, H, bt);
+  return cudaGetLastError();
+}
+
+template <int H, int BT>
+cudaError_t launch_fwd_mma(const float* gir, const float* giz,
+                           const float* gin, const float* masks,
+                           const float* h0, const float* w_hh,
+                           const float* b_hh, float* outs, float* hT, int T,
+                           int B, int grid, size_t bytes,
+                           cudaStream_t stream) {
+  using L = FwdLayout<H, BT>;
+  if (bytes != (size_t)L::BYTES || grid > (B + BT - 1) / BT)
+    return cudaErrorInvalidValue;
+  // cp.async and the copy of W move 16-byte chunks of these; refuse before
+  // a misaligned access faults the context
+  for (const float* p : {gir, giz, gin, w_hh})
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      gru_fwd_kernel_mma<H, BT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
+  if (err != cudaSuccess) return err;
+  gru_fwd_kernel_mma<H, BT><<<grid, L::THREADS, bytes, stream>>>(
+      gir, giz, gin, masks, h0, w_hh, b_hh, outs, hT, T, B);
   return cudaGetLastError();
 }
 
@@ -821,28 +1083,49 @@ cudaError_t launch_bwd_mma(const float* gir, const float* giz,
 
 extern "C" {
 
+// Kernel variants of both entries, as ops/cuda_gru.py:fwd_plan and
+// bwd_plan choose them: the CUDA-core kernel with W read from global memory
+// or held in shared memory, and the tensor-core one.
+enum { kGlobalW = 0, kSmemW = 1, kMma = 2 };
+
 // Each entry launches on `stream` and returns cudaGetLastError() (0 = ok);
-// 1 (cudaErrorInvalidValue) for a shape the kernels do not take.
+// 1 (cudaErrorInvalidValue) for a shape or plan the kernels do not take.
+
+// Launches the forward `variant` on `grid` blocks of `bt` batch rows with
+// `smem_bytes` of dynamic shared memory. The CUDA-core variants need
+// grid = ceil(B / bt); the tensor-core one H in {16, 32, 48, 64}, bt in
+// {8, 16}, grid <= ceil(B / bt), 16-byte aligned gi streams and W, and its
+// layout's bytes.
 int gru_seq_fwd(const float* gir, const float* giz, const float* gin,
                 const float* masks, const float* h0, const float* w_hh,
                 const float* b_hh, float* outs, float* hT, int T, int B,
-                int H, int bt, void* stream) {
-  if (bad_shape(T, B, H, bt)) return cudaErrorInvalidValue;
-  const size_t tile_bytes = (size_t)(2 * bt * H + bt) * sizeof(float);
-  const size_t w_bytes = (size_t)H * ((3 * H) | 1) * sizeof(float);
+                int H, int variant, int bt, int grid, int smem_bytes,
+                void* stream) {
+  if (T <= 0 || B <= 0 || H <= 0 || bt <= 0 || grid <= 0)
+    return cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (w_bytes + tile_bytes <= (size_t)max_dynamic_smem())
-    return launch_fwd<true>(gir, giz, gin, masks, h0, w_hh, b_hh, outs, hT,
-                            T, B, H, bt, tile_bytes + w_bytes, s);
-  return launch_fwd<false>(gir, giz, gin, masks, h0, w_hh, b_hh, outs, hT,
-                           T, B, H, bt, tile_bytes, s);
+  const size_t bytes = (size_t)smem_bytes;
+  if (variant == kMma) {
+#define GRU_FWD_MMA(HH, BB)                                                  \
+  if (H == HH && bt == BB)                                                   \
+    return launch_fwd_mma<HH, BB>(gir, giz, gin, masks, h0, w_hh, b_hh,     \
+                                  outs, hT, T, B, grid, bytes, s);
+    GRU_FWD_MMA(16, 8) GRU_FWD_MMA(16, 16) GRU_FWD_MMA(32, 8)
+    GRU_FWD_MMA(32, 16) GRU_FWD_MMA(48, 8) GRU_FWD_MMA(48, 16)
+    GRU_FWD_MMA(64, 8) GRU_FWD_MMA(64, 16)
+#undef GRU_FWD_MMA
+  } else if ((variant == kGlobalW || variant == kSmemW) &&
+             !bad_shape(T, B, H, bt) && grid == (B + bt - 1) / bt &&
+             bytes == simt_fwd_bytes(H, bt, variant == kSmemW)) {
+    return (variant == kSmemW ? launch_fwd<true> : launch_fwd<false>)(
+        gir, giz, gin, masks, h0, w_hh, b_hh, outs, hT, T, B, H, bt, bytes,
+        s);
+  }
+  return cudaErrorInvalidValue;
 }
 
 // The largest dynamic shared memory a block of this device may opt into.
 int gru_smem_optin() { return max_dynamic_smem(); }
-
-// Backward variants, as ops/cuda_gru.py:bwd_plan chooses them.
-enum { kBwdGlobalW = 0, kBwdSmemW = 1, kBwdMma = 2 };
 
 // Launches the backward `variant` on `grid` blocks of `bt` batch rows with
 // `smem_bytes` of dynamic shared memory, then the partials' reduction.
@@ -861,7 +1144,7 @@ int gru_seq_bwd(const float* gir, const float* giz, const float* gin,
   cudaStream_t s = (cudaStream_t)stream;
   const size_t bytes = (size_t)smem_bytes;
   cudaError_t err = cudaErrorInvalidValue;
-  if (variant == kBwdMma) {
+  if (variant == kMma) {
 #define GRU_BWD_MMA(HH, BB)                                                  \
   if (H == HH && bt == BB)                                                   \
     err = launch_bwd_mma<HH, BB>(gir, giz, gin, outs, masks, h0, douts, dhT, \
@@ -871,10 +1154,10 @@ int gru_seq_bwd(const float* gir, const float* giz, const float* gin,
     GRU_BWD_MMA(32, 16) GRU_BWD_MMA(48, 8) GRU_BWD_MMA(48, 16)
     GRU_BWD_MMA(64, 8) GRU_BWD_MMA(64, 16)
 #undef GRU_BWD_MMA
-  } else if ((variant == kBwdGlobalW || variant == kBwdSmemW) &&
+  } else if ((variant == kGlobalW || variant == kSmemW) &&
              !bad_shape(T, B, H, bt) && grid == (B + bt - 1) / bt &&
-             bytes == simt_bwd_bytes(H, bt, variant == kBwdSmemW)) {
-    err = (variant == kBwdSmemW ? launch_bwd<true> : launch_bwd<false>)(
+             bytes == simt_bwd_bytes(H, bt, variant == kSmemW)) {
+    err = (variant == kSmemW ? launch_bwd<true> : launch_bwd<false>)(
         gir, giz, gin, outs, masks, h0, douts, dhT, w_hh, b_hh, dgir, dgiz,
         dgin, dh0, partial, T, B, H, bt, bytes, s);
   }

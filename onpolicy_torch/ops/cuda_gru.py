@@ -3,10 +3,10 @@
 Port of `onpolicy_tpu/ops/pallas_gru.py`. The two Pallas TPU kernels
 there (`_fwd_call`, `_bwd_call`) become the CUDA kernels of
 `csrc/gru_seq.cu`, built with `nvcc` for `sm_90a` into `_build/` on
-first use and bound through `ctypes`. The backward has two kernels: a
-tensor-core one (3xTF32 `mma.sync`) for H in 16, 32, 48, 64, and the
-CUDA-core one for every other H; `bwd_plan` chooses between them by shape
-before launch. Beside each kernel stands its
+first use and bound through `ctypes`. The forward and the backward each
+have two kernels: a tensor-core one (3xTF32 `mma.sync`) for H in 16, 32,
+48, 64, and a CUDA-core one for every other H; `fwd_plan` and `bwd_plan`
+choose between them by shape before launch. Beside each kernel stands its
 plain PyTorch version (`gru_layer_fwd_ref`, `gru_layer_bwd_ref`): the
 wrappers take it only for tensors that lie on the CPU; for a CUDA tensor
 they launch the kernel or raise.
@@ -86,7 +86,7 @@ def _load():
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.gru_seq_fwd.argtypes = [P] * 9 + [I] * 4 + [P]
+        lib.gru_seq_fwd.argtypes = [P] * 9 + [I] * 7 + [P]
         lib.gru_seq_fwd.restype = I
         lib.gru_seq_bwd.argtypes = [P] * 17 + [I] * 7 + [P]
         lib.gru_seq_bwd.restype = I
@@ -102,11 +102,11 @@ def _check(err: int, what: str):
 
 
 def batch_tile(B: int, H: int, n_sm: int) -> int:
-    """Rows per block of the forward kernel and of the CUDA-core backward:
+    """Rows per block of the CUDA-core forward and backward:
     the largest tile that still gives two waves of blocks over the card's
     SMs, within a shared-memory cap that keeps the CUDA-core backward's
     five [tile, H] buffers under 160 KB. Multiple of 4. (The tensor-core
-    backward takes its tile from `bwd_plan`.)"""
+    kernels take their tiles from `fwd_plan` and `bwd_plan`.)"""
     cap = max(4, min(64, (8192 // max(H, 1)) // 4 * 4))
     for bt in (64, 32, 16, 8):
         if bt <= cap and -(-B // bt) >= 2 * n_sm:
@@ -114,13 +114,64 @@ def batch_tile(B: int, H: int, n_sm: int) -> int:
     return min(8, cap)
 
 
-# backward variants (the C entry's `variant`): the CUDA-core kernel with W
-# read from global memory or held in shared memory, and the tensor-core one
-BWD_GLOBAL_W, BWD_SMEM_W, BWD_MMA = 0, 1, 2
-BWD_VARIANT_NAMES = ("cuda_core_global_w", "cuda_core_smem_w", "tensor_core")
-MMA_WIDTHS = (16, 32, 48, 64)   # H the tensor-core backward is built for
-MMA_BLOCKS_PER_SM = {8: 1, 16: 2}  # its __launch_bounds__, by tile rows
+# kernel variants of both C entries (their `variant`): the CUDA-core kernel
+# with W read from global memory or held in shared memory, and the
+# tensor-core one
+GLOBAL_W, SMEM_W, MMA = 0, 1, 2
+VARIANT_NAMES = ("cuda_core_global_w", "cuda_core_smem_w", "tensor_core")
+MMA_WIDTHS = (16, 32, 48, 64)   # H the tensor-core kernels are built for
+MMA_BLOCKS_PER_SM = {8: 1, 16: 2}  # the backward's launch bounds, by tile rows
+MMA_FWD_BLOCKS_PER_SM = 2       # the forward's, at either tile
+MMA_FWD_STAGES = 2              # its ring of cp.async stages
 SMEM_PER_BLOCK_RESERVED = 1024  # shared bytes the card keeps for each block
+
+
+class FwdPlan(NamedTuple):
+    variant: int
+    bt: int               # batch rows of a tile
+    grid: int             # blocks
+    smem_bytes: int       # dynamic shared memory of a block
+
+    @property
+    def name(self) -> str:
+        return VARIANT_NAMES[self.variant]
+
+
+def mma_fwd_smem_bytes(H: int, bt: int) -> int:
+    """Shared memory of the tensor-core forward (`FwdLayout` in
+    csrc/gru_seq.cu): W^T 3H*H, MMA_FWD_STAGES stages of three [bt][H+4]
+    streams and bt masks, h 2 x [bt][H+4], in f32."""
+    stage = 3 * bt * (H + 4) + bt
+    return 4 * (3 * H * H + MMA_FWD_STAGES * stage + 2 * bt * (H + 4))
+
+
+def fwd_plan(B: int, H: int, n_sm: int, smem_optin: int) -> FwdPlan:
+    """Which forward kernel runs for a [T, B, H] layer, on how many blocks
+    of how many rows, with how much shared memory. Chosen from the shape
+    and the card alone, before launch.
+
+    H in MMA_WIDTHS takes the tensor-core kernel: 16-row tiles when they
+    still give a tile to every SM, else 8-row tiles; min(tiles, 2 * n_sm)
+    blocks walk the tiles. Every other H, or a card whose blocks cannot
+    hold its shared memory, takes `cuda_core_fwd_plan`."""
+    if H in MMA_WIDTHS:
+        bt = 16 if -(-B // 16) >= n_sm else 8
+        nbytes = mma_fwd_smem_bytes(H, bt)
+        if nbytes <= smem_optin:
+            grid = min(-(-B // bt), MMA_FWD_BLOCKS_PER_SM * n_sm)
+            return FwdPlan(MMA, bt, grid, nbytes)
+    return cuda_core_fwd_plan(B, H, n_sm, smem_optin)
+
+
+def cuda_core_fwd_plan(B: int, H: int, n_sm: int, smem_optin: int) -> FwdPlan:
+    """The CUDA-core forward: one block per `batch_tile` rows, with W in
+    shared memory when it fits beside the tile."""
+    bt = batch_tile(B, H, n_sm)
+    tile = 4 * (2 * bt * H + bt)
+    w = 4 * H * ((3 * H) | 1)
+    if tile + w <= smem_optin:
+        return FwdPlan(SMEM_W, bt, -(-B // bt), tile + w)
+    return FwdPlan(GLOBAL_W, bt, -(-B // bt), tile)
 
 
 class BwdPlan(NamedTuple):
@@ -132,7 +183,7 @@ class BwdPlan(NamedTuple):
 
     @property
     def name(self) -> str:
-        return BWD_VARIANT_NAMES[self.variant]
+        return VARIANT_NAMES[self.variant]
 
 
 def mma_smem_bytes(H: int, bt: int) -> int:
@@ -163,28 +214,47 @@ def bwd_plan(B: int, H: int, n_sm: int, smem_optin: int) -> BwdPlan:
         if per_sm * (nbytes + SMEM_PER_BLOCK_RESERVED) \
                 <= smem_optin + SMEM_PER_BLOCK_RESERVED:
             grid = min(-(-B // bt), per_sm * n_sm)
-            return BwdPlan(BWD_MMA, bt, grid, nbytes, grid * nacc)
+            return BwdPlan(MMA, bt, grid, nbytes, grid * nacc)
     bt = batch_tile(B, H, n_sm)
     tile = 4 * (5 * bt * H + 2 * bt)
     w = 4 * (H * ((3 * H) | 1) + nacc)
     grid = -(-B // bt)
     if tile + w <= smem_optin:
-        return BwdPlan(BWD_SMEM_W, bt, grid, tile + w, grid * nacc)
-    return BwdPlan(BWD_GLOBAL_W, bt, grid, tile, grid * nacc)
+        return BwdPlan(SMEM_W, bt, grid, tile + w, grid * nacc)
+    return BwdPlan(GLOBAL_W, bt, grid, tile, grid * nacc)
+
+
+def _index(device) -> int:
+    device = torch.device(device)
+    return torch.cuda.current_device() if device.index is None else device.index
+
+
+@functools.lru_cache(maxsize=None)
+def device_limits(index: int) -> tuple[int, int]:
+    """(SMs, opt-in shared bytes of a block) of card `index`."""
+    with torch.cuda.device(index):
+        optin = _load().gru_smem_optin()
+    return torch.cuda.get_device_properties(index).multi_processor_count, optin
+
+
+def device_fwd_plan(device, B: int, H: int) -> FwdPlan:
+    """`fwd_plan` for the card `device`."""
+    return _device_fwd_plan(_index(device), B, H)
+
+
+@functools.lru_cache(maxsize=None)
+def _device_fwd_plan(index: int, B: int, H: int) -> FwdPlan:
+    return fwd_plan(B, H, *device_limits(index))
 
 
 def device_bwd_plan(device, B: int, H: int) -> BwdPlan:
     """`bwd_plan` for the card `device`."""
-    device = torch.device(device)
-    index = torch.cuda.current_device() if device.index is None else device.index
-    return _device_bwd_plan(index, B, H)
+    return _device_bwd_plan(_index(device), B, H)
 
 
 @functools.lru_cache(maxsize=None)
 def _device_bwd_plan(index: int, B: int, H: int) -> BwdPlan:
-    with torch.cuda.device(index):
-        optin = _load().gru_smem_optin()
-    return bwd_plan(B, H, _sm_count(index), optin)
+    return bwd_plan(B, H, *device_limits(index))
 
 
 def _require(tensors: dict, shapes: dict, device):
@@ -273,8 +343,10 @@ def gru_layer_bwd_ref(gir, giz, gin, outs, h0, masks, douts, dhT, w_hh, b_hh):
 # wrappers: plain version on the CPU, kernel on the card
 # ---------------------------------------------------------------------------
 
-def gru_layer_fwd(gir, giz, gin, h0, masks, w_hh, b_hh):
-    """One layer forward. Returns (outs [T, B, H], hT [B, H])."""
+def gru_layer_fwd(gir, giz, gin, h0, masks, w_hh, b_hh, plan=None):
+    """One layer forward. Returns (outs [T, B, H], hT [B, H]). On the card
+    `plan` (a `FwdPlan`) overrides `device_fwd_plan`, so that two kernels
+    can be timed on the same inputs."""
     global FWD_LAUNCHES
     if gir.device.type == "cpu":
         return gru_layer_fwd_ref(gir, giz, gin, h0, masks, w_hh, b_hh)
@@ -289,11 +361,16 @@ def gru_layer_fwd(gir, giz, gin, h0, masks, w_hh, b_hh):
     if T == 0 or B == 0:
         return outs, h0.clone()
     lib = _load()
-    bt = batch_tile(B, H, _sm_count(gir.device))
+    plan = plan or device_fwd_plan(gir.device, B, H)
+    if plan.variant == MMA:
+        # it moves 16-byte chunks of the gi streams and of W
+        gir, giz, gin, w_hh = (x if x.data_ptr() % 16 == 0 else x.clone()
+                               for x in (gir, giz, gin, w_hh))
     with torch.cuda.device(gir.device):
         err = lib.gru_seq_fwd(*map(_ptr, (gir, giz, gin, masks, h0, w_hh,
-                                          b_hh, outs, hT)), T, B, H, bt,
-                              _stream(gir.device))
+                                          b_hh, outs, hT)), T, B, H,
+                              plan.variant, plan.bt, plan.grid,
+                              plan.smem_bytes, _stream(gir.device))
     _check(err, "gru_seq_fwd launch")
     FWD_LAUNCHES += 1
     return outs, hT
@@ -320,7 +397,7 @@ def gru_layer_bwd(gir, giz, gin, outs, h0, masks, douts, dhT, w_hh, b_hh):
         return dgir, dgiz, dgin, dhT.clone(), dw.zero_(), db.zero_()
     lib = _load()
     plan = device_bwd_plan(gir.device, B, H)
-    if plan.variant == BWD_MMA:
+    if plan.variant == MMA:
         # its cp.async copies move 16-byte chunks of the streams and of W
         gir, giz, gin, outs, h0, douts, w_hh = (
             x if x.data_ptr() % 16 == 0 else x.clone()
@@ -335,10 +412,6 @@ def gru_layer_bwd(gir, giz, gin, outs, h0, masks, douts, dhT, w_hh, b_hh):
     _check(err, "gru_seq_bwd launch")
     BWD_LAUNCHES += 1
     return dgir, dgiz, dgin, dh0, dw, db
-
-
-def _sm_count(device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 # ---------------------------------------------------------------------------

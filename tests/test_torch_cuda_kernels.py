@@ -37,14 +37,15 @@ def _layer_inputs(T, B, H, seed):
 @pytest.mark.cuda
 @pytest.mark.parametrize("T,B,H", [(10, 960, 64), (10, 37, 64), (1, 300, 64),
                                    (5, 333, 128), (4, 200, 256),
-                                   # tensor-core backward: below one tile,
+                                   # tensor-core kernels: below one tile,
                                    # 8k+3 rows, blocks walking two tiles, H=48
                                    (10, 5, 64), (10, 803, 64), (10, 5003, 64),
                                    (10, 960, 48),
-                                   # the other (H, tile) instantiations
+                                   # the other (H, tile) instantiations of
+                                   # both tensor-core kernels
                                    (4, 2200, 48), (4, 2200, 32), (4, 300, 32),
                                    (4, 2200, 16), (4, 300, 16),
-                                   # CUDA-core backward, W in shared memory:
+                                   # CUDA-core kernels, W in shared memory:
                                    # full tiles, a ragged single tile, T=1
                                    (10, 960, 40), (10, 37, 40), (1, 300, 40)])
 def test_kernels_match_plain_versions_on_the_card(T, B, H):
@@ -67,6 +68,42 @@ def test_kernels_match_plain_versions_on_the_card(T, B, H):
     for a, b in zip(got, again):
         assert torch.equal(a, b), "backward is not deterministic"
     assert (cuda_gru.FWD_LAUNCHES - fwd0, cuda_gru.BWD_LAUNCHES - bwd0) == (1, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,variant,bt", [
+    (960, 64, "tensor_core", 8), (122_880, 64, "tensor_core", 16),
+    (5003, 64, "tensor_core", 16), (37, 64, "tensor_core", 8),
+    (960, 48, "tensor_core", 8), (300, 16, "tensor_core", 8),
+    (2200, 32, "tensor_core", 16),
+    (960, 40, "cuda_core_smem_w", 8), (333, 128, "cuda_core_smem_w", 8),
+    (200, 256, "cuda_core_global_w", 8)])
+def test_forward_variant_by_width_on_the_card(B, H, variant, bt):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run on the card only")
+    plan = cuda_gru.device_fwd_plan(torch.device("cuda"), B, H)
+    assert (plan.name, plan.bt) == (variant, bt)
+    if B == 5003:   # the first test needs its blocks to walk two tiles
+        assert -(-B // plan.bt) > plan.grid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,B,H", [(10, 960, 64), (10, 37, 64), (1, 5003, 64)])
+def test_cuda_core_forward_at_tensor_core_widths_on_the_card(T, B, H):
+    """The CUDA-core forward still runs at H=64 when a plan asks for it, as
+    chip_smoke.py times it against the tensor-core one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run on the card only")
+    x = _layer_inputs(T, B, H, seed=B + 1)
+    args = (x["gir"], x["giz"], x["gin"], x["h0"], x["masks"], x["w_hh"],
+            x["b_hh"])
+    plan = cuda_gru.cuda_core_fwd_plan(
+        B, H, *cuda_gru.device_limits(torch.cuda.current_device()))
+    assert plan.name == "cuda_core_smem_w"
+    outs, hT = cuda_gru.gru_layer_fwd(*args, plan=plan)
+    r_outs, r_hT = cuda_gru.gru_layer_fwd_ref(*args)
+    torch.testing.assert_close(outs, r_outs, **FWD)
+    torch.testing.assert_close(hT, r_hT, **FWD)
 
 
 @pytest.mark.cuda
@@ -105,6 +142,31 @@ def test_tensor_core_backward_takes_unaligned_streams_on_the_card():
         shifted.copy_(bargs[i])
         assert shifted.data_ptr() % 16 != 0 and shifted.is_contiguous()
         got = cuda_gru.gru_layer_bwd(*bargs[:i], shifted, *bargs[i + 1:])
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_tensor_core_forward_takes_unaligned_streams_on_the_card():
+    """It moves 16-byte chunks of the gi streams and of W_hh: one that
+    starts off a 16-byte boundary is copied first. h0 is read with plain
+    loads and taken where it lies. The result is the same bits either
+    way."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run on the card only")
+    T, B, H = 4, 40, 64
+    x = _layer_inputs(T, B, H, seed=4)
+    args = [x["gir"], x["giz"], x["gin"], x["h0"], x["masks"], x["w_hh"],
+            x["b_hh"]]
+    assert cuda_gru.device_fwd_plan(torch.device("cuda"), B, H).name \
+        == "tensor_core"
+    want = cuda_gru.gru_layer_fwd(*args)
+    for i in (1, 3, 5):   # giz, h0, w_hh
+        flat = torch.empty(args[i].numel() + 1, device="cuda")
+        shifted = flat[1:].view(args[i].shape)
+        shifted.copy_(args[i])
+        assert shifted.data_ptr() % 16 != 0 and shifted.is_contiguous()
+        got = cuda_gru.gru_layer_fwd(*args[:i], shifted, *args[i + 1:])
         for a, b in zip(got, want):
             assert torch.equal(a, b)
 

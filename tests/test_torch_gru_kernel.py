@@ -166,7 +166,7 @@ H100_SMEM_PER_SM = 233_472     # the SM's, of which 1 KB is kept per block
                                  (5003, 64), (960, 48), (300, 16), (3000, 32)])
 def test_bwd_plan_takes_the_tensor_core_kernel_for_its_widths(B, H):
     plan = cuda_gru.bwd_plan(B, H, H100_SMS, H100_SMEM_OPTIN)
-    assert plan.variant == cuda_gru.BWD_MMA and plan.name == "tensor_core"
+    assert plan.variant == cuda_gru.MMA and plan.name == "tensor_core"
     assert plan.bt in (8, 16) and plan.bt % 8 == 0
     assert plan.smem_bytes == cuda_gru.mma_smem_bytes(H, plan.bt)
     assert plan.smem_bytes <= H100_SMEM_OPTIN
@@ -197,7 +197,7 @@ def test_bwd_plan_at_the_flagship_and_bench_shapes():
 def test_bwd_plan_keeps_the_cuda_core_kernel_for_other_widths(H):
     for B in (5, 960, 122_880):
         plan = cuda_gru.bwd_plan(B, H, H100_SMS, H100_SMEM_OPTIN)
-        assert plan.variant in (cuda_gru.BWD_GLOBAL_W, cuda_gru.BWD_SMEM_W)
+        assert plan.variant in (cuda_gru.GLOBAL_W, cuda_gru.SMEM_W)
         assert plan.bt == cuda_gru.batch_tile(B, H, H100_SMS)
         assert plan.grid == -(-B // plan.bt)
         assert plan.smem_bytes <= H100_SMEM_OPTIN
@@ -218,4 +218,76 @@ def test_bwd_plan_grid_depends_only_on_shape_and_sm_count(B, H):
     for optin in (H100_SMEM_OPTIN, H100_SMEM_OPTIN + 65_536, 2 ** 20):
         assert cuda_gru.bwd_plan(B, H, H100_SMS, optin) == plan
     small = cuda_gru.bwd_plan(B, H, H100_SMS, 48 * 1024)
-    assert small.variant != cuda_gru.BWD_MMA or small == plan
+    assert small.variant != cuda_gru.MMA or small == plan
+
+
+# The forward's launch plan (`cuda_gru.fwd_plan`), chosen the same way.
+
+@pytest.mark.parametrize("B,H", [(960, 64), (122_880, 64), (5, 64), (37, 64),
+                                 (803, 64), (5003, 64), (960, 48), (2200, 48),
+                                 (300, 32), (2200, 32), (300, 16), (2200, 16)])
+def test_fwd_plan_takes_the_tensor_core_kernel_for_its_widths(B, H):
+    plan = cuda_gru.fwd_plan(B, H, H100_SMS, H100_SMEM_OPTIN)
+    assert plan.variant == cuda_gru.MMA and plan.name == "tensor_core"
+    assert plan.bt == (16 if -(-B // 16) >= H100_SMS else 8)
+    assert plan.smem_bytes == cuda_gru.mma_fwd_smem_bytes(H, plan.bt)
+    per_sm = cuda_gru.MMA_FWD_BLOCKS_PER_SM
+    assert per_sm * (plan.smem_bytes + cuda_gru.SMEM_PER_BLOCK_RESERVED) \
+        <= H100_SMEM_PER_SM
+    assert plan.grid == min(-(-B // plan.bt), per_sm * H100_SMS)
+    # the grid follows from (B, H, SM count) alone
+    for optin in (plan.smem_bytes, H100_SMEM_OPTIN + 65_536, 2 ** 20):
+        assert cuda_gru.fwd_plan(B, H, H100_SMS, optin) == plan
+
+
+@pytest.mark.parametrize("H", [40, 128, 256, 512])
+def test_fwd_plan_keeps_the_cuda_core_kernel_for_other_widths(H):
+    for B in (5, 960, 122_880):
+        plan = cuda_gru.fwd_plan(B, H, H100_SMS, H100_SMEM_OPTIN)
+        assert plan == cuda_gru.cuda_core_fwd_plan(B, H, H100_SMS,
+                                                   H100_SMEM_OPTIN)
+        assert plan.variant in (cuda_gru.GLOBAL_W, cuda_gru.SMEM_W)
+        assert plan.bt == cuda_gru.batch_tile(B, H, H100_SMS)
+        assert plan.grid == -(-B // plan.bt)
+        assert plan.smem_bytes <= H100_SMEM_OPTIN
+    names = {H: cuda_gru.fwd_plan(960, H, H100_SMS, H100_SMEM_OPTIN).name
+             for H in (40, 128, 256)}
+    assert names == {40: "cuda_core_smem_w", 128: "cuda_core_smem_w",
+                     256: "cuda_core_global_w"}
+
+
+def test_fwd_plan_at_the_flagship_and_bench_shapes():
+    flag = cuda_gru.fwd_plan(960, 64, H100_SMS, H100_SMEM_OPTIN)
+    assert flag == (cuda_gru.MMA, 8, 120, 66_624)
+    bench = cuda_gru.fwd_plan(122_880, 64, H100_SMS, H100_SMEM_OPTIN)
+    assert bench == (cuda_gru.MMA, 16, 264, 84_096)   # blocks walk 7,680 tiles
+    # the CUDA-core forward these replace: one block per 8 or 64 rows
+    assert cuda_gru.cuda_core_fwd_plan(960, 64, H100_SMS, H100_SMEM_OPTIN) \
+        == (cuda_gru.SMEM_W, 8, 120, 4 * (64 * 193 + 2 * 8 * 64 + 8))
+    assert cuda_gru.cuda_core_fwd_plan(
+        122_880, 64, H100_SMS, H100_SMEM_OPTIN)[:3] == (cuda_gru.SMEM_W, 64,
+                                                         1920)
+
+
+def _fwd_layout_bytes(H, bt):
+    """`FwdLayout<H, BT>::BYTES` of csrc/gru_seq.cu, member by member."""
+    H3, SS = 3 * H, H + 4
+    stream = bt * SS
+    stage = 3 * stream + bt
+    stages = 2
+    stage_off = H3 * H
+    h_off = stage_off + stages * stage
+    return (h_off + 2 * stream) * 4
+
+
+@pytest.mark.parametrize("H", [16, 32, 48, 64])
+@pytest.mark.parametrize("bt", [8, 16])
+def test_fwd_smem_bytes_mirror_the_kernel_layout(H, bt):
+    assert cuda_gru.mma_fwd_smem_bytes(H, bt) == _fwd_layout_bytes(H, bt)
+    # 16-byte cp.async targets: every stage and h buffer starts aligned
+    assert (3 * H * H) % 4 == 0 and (bt * (H + 4)) % 4 == 0 and bt % 4 == 0
+    src = cuda_gru.SOURCE.read_text()
+    assert "84,096 bytes for\n// BT = 16 and 66,624 for BT = 8" in src
+    assert "static constexpr int STAGES = 2;" in src
+    assert _fwd_layout_bytes(64, 16) == 84_096
+    assert _fwd_layout_bytes(64, 8) == 66_624
