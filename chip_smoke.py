@@ -7,28 +7,38 @@ Phases, each of which fails the run (non-zero exit) if it fails:
   1. card:    name and power limit (nvidia-smi); TF32 off for matmuls.
   2. build:   nvcc of onpolicy_torch/csrc/gru_seq.cu for sm_90a.
   3. kernels: the GRU kernels against their plain PyTorch versions on
-              the card, in f32, at the flagship, bench, ragged (B=5 below
-              one tile, B=37 and B=803 on 8-row tiles, B=5003 on 16-row
-              tiles where blocks walk two), T=1, masked, recurrent_N=2 and
-              H=16/32/48 shapes (tensor-core kernels, every (H, tile)
-              instantiation), and at ragged, T=1, masked and H=40/128/256
+              the card, with f32 and then with bf16 streams, at each of
+              `SHAPES`: the flagship, bench, ragged (B=5 below one tile,
+              B=37 and B=803 on 8-row tiles, B=5003 on 16-row tiles where
+              blocks walk two), T=1, masked, T=25/B=384 (naive-recurrent)
+              and H=16/32/48 shapes (tensor-core kernels, every (H, tile)
+              instantiation), and ragged, T=1, masked and H=40/128/256
               shapes of the CUDA-core kernels; each line names the forward
               and backward variants, tiles and grids; dW bitwise
-              repeatable at the flagship and bench shapes.
+              repeatable at the flagship, bench, T=25 and H=128 shapes.
+              Then recurrent_N=2 through the autograd path on the card
+              against the CPU path, in each stream type.
   4. times:   kernel, plain version and cuDNN's nn.GRU (yardstick only)
-              at the flagship and bench shapes, with CUDA events (`ms`);
-              the kernels' device time from torch.profiler beside them
+              at the flagship and bench shapes, with CUDA events (`ms`),
+              in f32 and with bf16 streams (cuDNN then in bf16); the
+              kernels' device time from torch.profiler beside them
               (`device_ms`, null where the profiler saw no device time);
               then the CUDA-core forward and the tensor-core one on the
               same inputs through explicit plans, in turns (CUDA-core,
               tensor-core, tensor-core, CUDA-core).
-  5. train:   one flagship-width episode at 8 rollout threads on the
-              card against the CPU path from the same state; then the
-              port's `scripts/train_mpe.main` with the flagship rMAPPO
-              simple_spread flags for 10 episodes: every logged metric
-              finite, each kernel launched 20 times an episode.
-The last three lines are one JSON object with a row per kernel, the
-card's name and power limit, and the result line
+  5. train:   one episode at 8 rollout threads on the card against the
+              CPU path from the same state (rMAPPO in f32, rMAPPO and
+              MAPPO with the critic dedup in bf16): rollout, update
+              metrics, and the parameters' change; then the port's
+              `scripts/train_mpe.main`: the flagship rMAPPO for 10
+              episodes (each kernel launched 20 times an episode), and
+              the JAX package's two bench configurations at 16,384
+              rollout threads for 3 episodes each: MAPPO with the critic
+              dedup in bf16 (no GRU kernel launched) and rMAPPO in bf16
+              (each kernel launched 20 times an episode). Every logged
+              metric finite; env-steps/s printed for each.
+The last three lines are one JSON object with a row per kernel and
+stream type, the card's name and power limit, and the result line
 `{"ok": true, "device": {...}}`.
 Exits non-zero with no result line when no CUDA device is present or
 the port's package is not beside this script.
@@ -54,16 +64,36 @@ TF32_FLOP_S = 495e12
 
 FLAGSHIP = dict(T=10, B=960, H=64)       # 25*128*3/10 chunks of L=10
 BENCH = dict(T=10, B=122880, H=64)       # 16384 rollout threads
-TRAIN_ARGV = [
-    "--env_name", "MPE", "--algorithm_name", "rmappo",
-    "--experiment_name", "chip_smoke", "--scenario_name", "simple_spread",
-    "--num_agents", "3", "--num_landmarks", "3", "--seed", "1",
-    "--n_rollout_threads", "128", "--num_mini_batch", "1",
-    "--episode_length", "25", "--num_env_steps", "32000",
-    "--ppo_epoch", "10", "--use_ReLU", "false", "--gain", "0.01",
-    "--lr", "7e-4", "--critic_lr", "7e-4", "--log_interval", "1",
-    "--device", "cuda",
-]
+# (config of train_mpe.CONFIGS, episodes); launches of each GRU kernel
+# an episode: ppo_epoch 10 x (actor + critic) x recurrent_N 1
+TRAIN_RUNS = (("flagship", 10, 20), ("bench_mappo", 3, 0),
+              ("bench_rmappo", 3, 20))
+# phase 3's layer shapes, each run with f32 and with bf16 streams:
+# (case, T, B, H, options of check_layer)
+SHAPES = (
+    ("flagship", *FLAGSHIP.values(), dict(repeat=True)),
+    ("bench (16384 threads)", *BENCH.values(), dict(bench_scale=True)),
+    ("B=37 (ragged 8-row tiles)", 10, 37, 64, {}),
+    ("B=5 (below one tile)", 10, 5, 64, {}),
+    ("B=803 (8k+3 rows)", 10, 803, 64, {}),
+    ("B=5003 (ragged 16-row, 2 tiles)", 10, 5003, 64, {}),
+    ("T=1", 1, 960, 64, {}),
+    ("all-ones masks", 10, 960, 64, dict(mask_mode="ones")),
+    ("T=25 B=384 (naive-recurrent)", 25, 384, 64, dict(repeat=True)),
+    ("H=48 (tensor core, 8-row tiles)", 10, 960, 48, {}),
+    ("H=48 (tensor core, 16-row tiles)", 4, 2200, 48, {}),
+    ("H=32 (tensor core, 16-row tiles)", 4, 2200, 32, {}),
+    ("H=32 (tensor core, 8-row tiles)", 4, 300, 32, {}),
+    ("H=16 (tensor core, 8-row tiles)", 4, 300, 16, {}),
+    ("H=16 (tensor core, 16-row tiles)", 4, 2200, 16, {}),
+    ("H=40 (CUDA-core kernels)", 10, 960, 40, {}),
+    ("H=40 B=37 (ragged single tile)", 10, 37, 40, {}),
+    ("H=40 T=1", 1, 300, 40, {}),
+    ("H=40 all-ones masks", 10, 803, 40, dict(mask_mode="ones")),
+    ("H=256 (weights in L2)", 10, 960, 256, {}),
+    ("H=128 (backward weights in L2)", 5, 333, 128, dict(repeat=True)),
+    ("H=128 T=1 all-ones", 1, 37, 128, dict(mask_mode="ones")),
+)
 
 
 def log(msg):
@@ -81,7 +111,10 @@ def card_line() -> str:
 # inputs and comparisons
 # ---------------------------------------------------------------------------
 
-def make_inputs(torch, T, B, H, seed, mask_mode="sprinkled"):
+def make_inputs(torch, T, B, H, seed, mask_mode="sprinkled",
+                stream_dtype=None):
+    """Layer inputs on the card; gir, giz, gin and douts in `stream_dtype`
+    (f32 when None)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     dev = "cuda"
     rn = lambda *s, scale=1.0: torch.randn(*s, generator=g, device=dev) * scale
@@ -96,14 +129,18 @@ def make_inputs(torch, T, B, H, seed, mask_mode="sprinkled"):
     x["masks"] = m
     x["douts"] = rn(T, B, H, scale=0.1)
     x["dhT"] = rn(B, H, scale=0.1)
+    if stream_dtype is not None:
+        for k in ("gir", "giz", "gin", "douts"):
+            x[k] = x[k].to(stream_dtype)
     return x
 
 
 def max_err(a, b, scale=1.0):
-    return float((a - b).abs().max()) / scale
+    return float((a.float() - b.float()).abs().max()) / scale
 
 
 def assert_close(torch, name, a, b, rtol, atol, scale=1.0):
+    a, b = a.float(), b.float()
     ok = torch.allclose(a / scale, b / scale, rtol=rtol, atol=atol)
     if not ok:
         raise AssertionError(
@@ -111,21 +148,35 @@ def assert_close(torch, name, a, b, rtol, atol, scale=1.0):
             f"(scale {scale:.3g}, rtol {rtol}, atol {atol})")
 
 
+# A bf16 stream written by the kernel and by the plain version from the
+# same inputs holds the same f32 value up to summation order, rounded to
+# bf16: the two may land on neighbouring bf16 values, one ulp (2^-7 of
+# the value) apart. f32 results keep the f32 tolerances.
+BF16_STREAM_TOL = (2 ** -7, 2e-5)
+
+
 def check_layer(torch, cg, case, T, B, H, mask_mode="sprinkled",
-                bench_scale=False, repeat=False):
+                bench_scale=False, repeat=False, stream_dtype=None):
     """Kernel vs plain version for one layer; with `repeat` (or
     `bench_scale`) the backward also runs twice and must give the same
-    bits. Returns (fwd_err, bwd_err)."""
-    plan = cg.device_bwd_plan(torch.device("cuda"), B, H)
-    fplan = cg.device_fwd_plan(torch.device("cuda"), B, H)
+    bits. `stream_dtype` bf16 moves gi, outs, douts and dgi in bf16.
+    Returns (fwd_err, bwd_err)."""
+    bf16 = stream_dtype is not None
+    itemsize = 2 if bf16 else 4
+    plan = cg.device_bwd_plan(torch.device("cuda"), B, H, itemsize)
+    fplan = cg.device_fwd_plan(torch.device("cuda"), B, H, itemsize)
     x = make_inputs(torch, T, B, H, seed=T * 7919 + B * 31 + H,
-                    mask_mode=mask_mode)
+                    mask_mode=mask_mode, stream_dtype=stream_dtype)
     args = (x["gir"], x["giz"], x["gin"], x["h0"], x["masks"], x["w_hh"],
             x["b_hh"])
     outs, hT = cg.gru_layer_fwd(*args)
     r_outs, r_hT = cg.gru_layer_fwd_ref(*args)
     torch.cuda.synchronize()
-    assert_close(torch, f"{case} outs", outs, r_outs, 1e-5, 1e-5)
+    if outs.dtype != r_outs.dtype or outs.dtype != x["gir"].dtype:
+        raise AssertionError(f"{case}: outs {outs.dtype}, plain "
+                             f"{r_outs.dtype}, streams {x['gir'].dtype}")
+    stream_tol = BF16_STREAM_TOL if bf16 else (1e-5, 1e-5)
+    assert_close(torch, f"{case} outs", outs, r_outs, *stream_tol)
     assert_close(torch, f"{case} hT", hT, r_hT, 1e-5, 1e-5)
     fwd_err = max(max_err(outs, r_outs), max_err(hT, r_hT))
 
@@ -141,7 +192,9 @@ def check_layer(torch, cg, case, T, B, H, mask_mode="sprinkled",
         # versions; at bench scale (1.2M terms) compare relative to |ref|
         scale = max(1.0, float(b.abs().max())) \
             if (bench_scale and n in ("dw_hh", "db_hh")) else 1.0
-        assert_close(torch, f"{case} {n}", a, b, 2e-4, 2e-5, scale)
+        tol = BF16_STREAM_TOL if (bf16 and n.startswith("dgi")) \
+            else (2e-4, 2e-5)
+        assert_close(torch, f"{case} {n}", a, b, *tol, scale)
         bwd_err = max(bwd_err, max_err(a, b, scale))
     if bench_scale or repeat:
         again = cg.gru_layer_bwd(*bargs)
@@ -149,54 +202,81 @@ def check_layer(torch, cg, case, T, B, H, mask_mode="sprinkled",
         for n, a, b in zip(names, got, again):
             if not torch.equal(a, b):
                 raise AssertionError(f"{case} {n}: backward not deterministic")
-    log(f"  {case:<34} T={T:<3} B={B:<7} H={H:<4} "
+    log(f"  {case:<34} {'bf16' if bf16 else 'f32 '} T={T:<3} B={B:<7} H={H:<4} "
         f"fwd {fplan.name:<18} (tile {fplan.bt}, {fplan.grid} blocks)  "
         f"bwd {plan.name:<18} (tile {plan.bt}, {plan.grid} blocks)  "
         f"fwd err {fwd_err:.2e}  bwd err {bwd_err:.2e}  ok")
     return fwd_err, bwd_err
 
 
-def check_sequence_layers(torch, cg):
-    """recurrent_N=2 through the autograd path (kernels, both layers)
-    against the plain scan on the same card, outputs and every grad."""
+def check_sequence_layers(torch, cg, stream_dtype=None):
+    """recurrent_N=2 through `cuda_gru.sequence` (the autograd path, the
+    kernels for both layers) on the card, outputs and every gradient,
+    against a plain path. In f32 that is the plain scan
+    (`models/gru.scan_sequence`) on the same card, which differs by
+    summation order only: 1e-5 on outputs and final states, rtol 2e-4 /
+    atol 2e-5 on the gradients. With bf16 streams (bf16 input projections
+    and LayerNorm) it is `cuda_gru.sequence` on the CPU, whose plain
+    versions have the kernels' semantics (the bf16 scan has not); the two
+    devices may round a value to its neighbour, and such a difference
+    passes through two layers: rtol/atol 2e-2 on the bf16 outputs and on
+    each gradient relative to its largest entry, 1e-2 on the f32 final
+    states."""
     from onpolicy_torch.models import gru as gru_mod
+    bf16 = stream_dtype is not None
     T, B, D, H, N = 10, 300, 24, 64, 2
-    g = torch.Generator(device="cuda").manual_seed(5)
-    rn = lambda *s, scale=1.0: torch.randn(*s, generator=g, device="cuda") * scale
-    layers = []
-    d_in = D
+    gen_device = "cpu" if bf16 else "cuda"
+    g = torch.Generator(device=gen_device).manual_seed(6 if bf16 else 5)
+    rn = lambda *s, scale=1.0: torch.randn(*s, generator=g,
+                                           device=gen_device) * scale
+    layers, d_in = [], D
     for _ in range(N):
         layers.append({"w_ih": rn(d_in, 3 * H, scale=d_in ** -0.5),
                        "w_hh": rn(H, 3 * H, scale=H ** -0.5),
                        "b_ih": rn(3 * H, scale=0.1), "b_hh": rn(3 * H, scale=0.1)})
         d_in = H
-    params = {"layers": layers, "norm": {"scale": 1.0 + rn(H, scale=0.1),
-                                         "bias": rn(H, scale=0.1)}}
+    norm = {"scale": 1.0 + rn(H, scale=0.1), "bias": rn(H, scale=0.1)}
     xs, hxs = rn(T, B, D), rn(B, N, H, scale=0.5)
-    masks = (torch.rand(T, B, 1, generator=g, device="cuda") > 0.2).float()
+    masks = (torch.rand(T, B, 1, generator=g, device=gen_device)
+             > 0.2).float()
     masks[0] = 0.0
     w_out = rn(H, 3, scale=H ** -0.5)   # keeps the loss's gradients O(1)
 
-    def grads(fn):
-        leaves = [xs, hxs] + [v for l in layers for v in l.values()] \
-            + list(params["norm"].values())
-        leaves = [v.detach().requires_grad_() for v in leaves]
-        x_, h_ = leaves[0], leaves[1]
-        it = iter(leaves[2:])
-        p = {"layers": [{k: next(it) for k in l} for l in layers],
-             "norm": {k: next(it) for k in params["norm"]}}
-        outs, hT = fn(p, x_, h_, masks)
-        loss = ((outs @ w_out) ** 2).sum() + (hT * hT).sum()
-        return (outs, hT), torch.autograd.grad(loss, leaves)
+    def run(fn, device):
+        t = lambda v: v.to(device).requires_grad_()
+        p = {"layers": [{k: t(v) for k, v in l.items()} for l in layers],
+             "norm": {k: t(v) for k, v in norm.items()}}
+        x_, h_ = t(xs), t(hxs)
+        outs, hT = fn(p, x_, h_, masks.to(device))
+        loss = ((outs.float() @ w_out.to(device)) ** 2).sum() + (hT * hT).sum()
+        leaves = [x_, h_] + [v for l in p["layers"] for v in l.values()] \
+            + list(p["norm"].values())
+        grads = torch.autograd.grad(loss, leaves)
+        return [v.detach().float().cpu() for v in (outs, hT, *grads)]
 
-    (o1, h1), g1 = grads(cg.sequence)
-    (o2, h2), g2 = grads(gru_mod.scan_sequence)
+    n0 = cg.FWD_LAUNCHES
+    if bf16:
+        kernels = lambda *a: cg.sequence(*a, stream_dtype)
+        got, ref = run(kernels, "cuda"), run(kernels, "cpu")
+    else:
+        got, ref = run(cg.sequence, "cuda"), run(gru_mod.scan_sequence, "cuda")
     torch.cuda.synchronize()
-    assert_close(torch, "layers=2 outs", o1, o2, 1e-5, 1e-5)
-    assert_close(torch, "layers=2 hT", h1, h2, 1e-5, 1e-5)
-    for i, (a, b) in enumerate(zip(g1, g2)):
-        assert_close(torch, f"layers=2 grad {i}", a, b, 2e-4, 2e-5)
-    log(f"  {'recurrent_N=2 autograd':<34} T={T:<3} B={B:<7} H={H:<4} ok")
+    name = "bf16 layers=2" if bf16 else "layers=2"
+    if cg.FWD_LAUNCHES - n0 != N:
+        raise AssertionError(f"{name} did not launch the kernels")
+    out_tol, h_tol = ((2e-2, 2e-2), (1e-2, 1e-2)) if bf16 \
+        else ((1e-5, 1e-5), (1e-5, 1e-5))
+    assert_close(torch, f"{name} outs", got[0], ref[0], *out_tol)
+    assert_close(torch, f"{name} hT", got[1], ref[1], *h_tol)
+    err = max(max_err(got[0], ref[0]), max_err(got[1], ref[1]))
+    for i, (a, b) in enumerate(zip(got[2:], ref[2:])):
+        scale = max(1.0, float(b.abs().max())) if bf16 else 1.0
+        assert_close(torch, f"{name} grad {i}", a, b,
+                     *((2e-2, 2e-2) if bf16 else (2e-4, 2e-5)), scale)
+        err = max(err, max_err(a, b, scale))
+    against = "the CPU path" if bf16 else "the plain scan"
+    log(f"  {'recurrent_N=2 autograd':<34} {'bf16' if bf16 else 'f32 '} "
+        f"T={T:<3} B={B:<7} H={H:<4} against {against}: max err {err:.2e}  ok")
 
 
 # ---------------------------------------------------------------------------
@@ -235,33 +315,42 @@ def device_ms(torch, fn, names, iters=20):
     return us / iters / 1e3 if us > 0 else None
 
 
-def bounds(T, B, H):
+def bounds(T, B, H, itemsize=4):
     """Least times in ms and what bounds them: each input read once and
     each output written once over the HBM rate, against the three hidden
     products (2*3*H^2*B*T flops forward, three times that backward). The
-    products count on the f32 CUDA cores ("fwd", "bwd_f32") or, for the
-    tensor-core kernels ("fwd_tc", "bwd_tc"), as three TF32 products each
-    (3xTF32) over the dense TF32 peak. Gate elementwise math is not
-    counted."""
-    seq, st, w = T * B * H * 4, B * H * 4, (3 * H * H + 3 * H) * 4
-    m = T * B * 4
+    [T, B, H] streams take `itemsize` bytes an element (4 f32, 2 bf16);
+    the backward reads outs at steps 0..T-2 and h0 in their place at t = 0
+    (hprev), also in the stream type. h0, hT, dhT, dh0, the masks, W and
+    dW are f32. The products count on the f32 CUDA cores ("fwd",
+    "bwd_f32") or, for the tensor-core kernels ("fwd_tc", "bwd_tc"), in
+    TF32 passes over the dense TF32 peak. 3xTF32 takes three passes
+    (hi·hi, hi·lo, lo·hi), one fewer where an operand is exact in TF32:
+    the forward's h and W are f32, three passes each; in the backward
+    with bf16 streams hm = hprev·m is bf16, so hm·W (gate recompute) and
+    hm^T·dG (dW) take two passes and dG·W^T (carry) three, seven in all
+    against nine with f32 streams. Gate elementwise math is not counted."""
+    seq, st, w = T * B * H * itemsize, B * H * 4, (3 * H * H + 3 * H) * 4
+    m, hprev = T * B * 4, T * B * H * itemsize
     fwd_bytes = 3 * seq + m + st + w + seq + st
-    bwd_bytes = 5 * seq + m + 2 * st + w + 3 * seq + st + w
+    bwd_bytes = 3 * seq + hprev + seq + m + st + w + 3 * seq + st + w
     fwd_flops = 6.0 * H * H * B * T
+    bwd_passes = 7 if itemsize == 2 else 9
     out = {}
     for key, nbytes, ops_s in (
             ("fwd", fwd_bytes, fwd_flops / F32_FLOP_S),
             ("fwd_tc", fwd_bytes, 3 * fwd_flops / TF32_FLOP_S),
             ("bwd_f32", bwd_bytes, 3 * fwd_flops / F32_FLOP_S),
-            ("bwd_tc", bwd_bytes, 3 * 3 * fwd_flops / TF32_FLOP_S)):
+            ("bwd_tc", bwd_bytes, bwd_passes * fwd_flops / TF32_FLOP_S)):
         tb, tf = nbytes / HBM_BYTES_S * 1e3, ops_s * 1e3
         out[key] = (max(tb, tf), "bytes" if tb >= tf else "operations")
     return out
 
 
-def time_shape(torch, cg, shape, card):
+def time_shape(torch, cg, shape, card, stream_dtype=None):
     T, B, H = shape["T"], shape["B"], shape["H"]
-    x = make_inputs(torch, T, B, H, seed=11, mask_mode="ones")
+    x = make_inputs(torch, T, B, H, seed=11, mask_mode="ones",
+                    stream_dtype=stream_dtype)
     fargs = (x["gir"], x["giz"], x["gin"], x["h0"], x["masks"], x["w_hh"],
              x["b_hh"])
     outs, _ = cg.gru_layer_fwd_ref(*fargs)
@@ -280,10 +369,13 @@ def time_shape(torch, cg, shape, card):
                                 iters=5),
     }
     # yardstick only, never called by the port: cuDNN's GRU on all-ones
-    # masks computes the same recurrence, plus the input projection
-    gru = torch.nn.GRU(H, H).cuda()
-    xin = torch.randn(T, B, H, device="cuda", requires_grad=True)
-    h0 = x["h0"][None].clone()
+    # masks computes the same recurrence, plus the input projection; with
+    # bf16 streams it runs wholly in bf16
+    dt = stream_dtype or torch.float32
+    gru = torch.nn.GRU(H, H).to("cuda", dt)
+    gru.flatten_parameters()
+    xin = torch.randn(T, B, H, device="cuda", dtype=dt, requires_grad=True)
+    h0 = x["h0"][None].to(dt).clone()
     with torch.no_grad():
         res["fwd_library_ms"] = time_ms(torch, lambda: gru(xin, h0))
     y, _ = gru(xin, h0)
@@ -291,14 +383,19 @@ def time_shape(torch, cg, shape, card):
     res["bwd_library_ms"] = time_ms(
         torch, lambda: torch.autograd.grad(y, [xin] + list(gru.parameters()),
                                            dy, retain_graph=True))
-    b = bounds(T, B, H)
+    b = bounds(T, B, H, x["gir"].element_size())
     res["fwd_bound_f32_ms"], res["fwd_bound_f32_by"] = b["fwd"]
     res["fwd_bound_tc_ms"], res["fwd_bound_tc_by"] = b["fwd_tc"]
     res["bwd_bound_f32_ms"], res["bwd_bound_f32_by"] = b["bwd_f32"]
     res["bwd_bound_tc_ms"], res["bwd_bound_tc_by"] = b["bwd_tc"]
-    res["fwd_variant"] = cg.device_fwd_plan(torch.device("cuda"), B, H).name
-    res["bwd_variant"] = cg.device_bwd_plan(torch.device("cuda"), B, H).name
-    log(f"  times T={T} B={B} H={H} [{card}]: " + json.dumps(res))
+    itemsize = x["gir"].element_size()
+    res["fwd_variant"] = cg.device_fwd_plan(torch.device("cuda"), B, H,
+                                            itemsize).name
+    res["bwd_variant"] = cg.device_bwd_plan(torch.device("cuda"), B, H,
+                                            itemsize).name
+    res["streams"] = "bf16" if itemsize == 2 else "f32"
+    log(f"  times {res['streams']} T={T} B={B} H={H} [{card}]: "
+        + json.dumps(res))
     return res
 
 
@@ -328,21 +425,33 @@ def compare_forwards(torch, cg, shape, card):
 # main path
 # ---------------------------------------------------------------------------
 
-def check_small_against_cpu(torch):
-    """One flagship-width episode at 8 rollout threads, on the card
-    (kernels) and on the CPU (plain versions) from the same parameters,
-    carry and actions: rollout buffers and the trained state must agree.
-    f32 sums reorder between cuBLAS/the kernels and the CPU, and the
-    differences pass through 25 env steps and 2 PPO epochs of Adam, hence
-    atol 1e-4 / rtol 1e-3 on the buffer and 1e-4 / 1e-3 on parameters."""
+def check_small_against_cpu(torch, name, tol, update_tol, **flags):
+    """One episode at 8 rollout threads, on the card (kernels) and on the
+    CPU (plain versions) from the same parameters, carry and actions.
+    Each rollout field must agree within `tol` (rtol, atol) relative to
+    its largest entry; the update's value loss, entropy and gradient norms
+    within rtol `tol[0]`; the trained parameters within `tol`. In f32 the
+    sums reorder between cuBLAS/the kernels and the CPU, and the
+    differences pass through 25 env steps and 2 PPO epochs of Adam:
+    1e-3 / 1e-4. In bf16 the two devices may round a bf16 value to its
+    neighbour, as tests/test_bf16.py allows between JAX's bf16 model and
+    its f32 one: 5e-2 / 5e-2.
+    Two Adam steps at lr 7e-4 move a parameter by at most ~1.4e-3, below
+    those tolerances, so the update itself (new - old parameters, all
+    leaves of the actor, then of the critic) is held to the CPU's by the
+    norm of the difference over the norm of the CPU's update: at most
+    `update_tol`. A missing update reads 1, one of the wrong sign 2. On
+    an H100 the readings were 2.7e-6 (actor) and 7.5e-6 (critic) in f32,
+    hence 1e-3; 1.8e-2 / 2.1e-2 (rMAPPO) and 9.1e-3 / 5.6e-2 (MAPPO with
+    the critic dedup) in bf16, where bf16 rounding can turn the sign of
+    Adam's first step for a parameter of near-zero gradient, hence 0.25."""
     from onpolicy_torch.config import Config, canonicalize_algorithm
     from onpolicy_torch.envs.mpe.world import WorldState
     from onpolicy_torch.runner.shared_runner import SharedRunner
     from onpolicy_torch.utils.tree import tree_leaves, tree_map
     base = canonicalize_algorithm(Config(
-        algorithm_name="rmappo", n_rollout_threads=8, episode_length=25,
-        num_env_steps=200, ppo_epoch=2, use_ReLU=False, lr=7e-4,
-        critic_lr=7e-4))
+        n_rollout_threads=8, episode_length=25, num_env_steps=200,
+        ppo_epoch=2, use_ReLU=False, lr=7e-4, critic_lr=7e-4, **flags))
     gpu = SharedRunner(base.replace(device="cuda"))
     cpu = SharedRunner(base.replace(device="cpu"))
     ts_g, carry_g = gpu.init()
@@ -361,48 +470,108 @@ def check_small_against_cpu(torch):
     for k in ("obs", "rewards", "action_log_probs", "value_preds",
               "rnn_states", "returns", "advantages"):
         a, b = getattr(buf_g, k).cpu(), getattr(buf_c, k)
-        assert_close(torch, f"small rollout {k}", a, b, 1e-3, 1e-4)
-        err = max(err, max_err(a, b))
-    new_g, _ = gpu.algo.train(ts_g, buf_g, gpu.generator)
-    new_c, _ = cpu.algo.train(ts_c, buf_c, cpu.generator)
+        scale = float(b.abs().max()) or 1.0
+        assert_close(torch, f"{name} rollout {k}", a, b, *tol, scale)
+        err = max(err, max_err(a, b, scale))
+    new_g, m_g = gpu.algo.train(ts_g, buf_g, gpu.generator)
+    new_c, m_c = cpu.algo.train(ts_c, buf_c, cpu.generator)
     torch.cuda.synchronize()
+    for k in ("value_loss", "dist_entropy", "actor_grad_norm",
+              "critic_grad_norm"):
+        a, b = float(m_g[k]), float(m_c[k])
+        if not abs(a - b) <= tol[0] * abs(b):
+            raise AssertionError(f"{name} train {k}: card {a:.6g}, CPU "
+                                 f"{b:.6g} (rtol {tol[0]})")
+    moved = {}
     for part in ("actor_params", "critic_params"):
+        step = lambda new, old: torch.cat([
+            (n - o).flatten().cpu() for n, o in zip(
+                tree_leaves(getattr(new, part)), tree_leaves(getattr(old, part)))])
+        d_g, d_c = step(new_g, ts_g), step(new_c, ts_c)
+        moved[part] = float((d_g - d_c).norm() / d_c.norm())
+        if not moved[part] <= update_tol:
+            raise AssertionError(
+                f"{name} train {part}: card's update differs from the CPU's "
+                f"by {moved[part]:.3e} of its norm (limit {update_tol})")
         for i, (a, b) in enumerate(zip(tree_leaves(getattr(new_g, part)),
                                        tree_leaves(getattr(new_c, part)))):
-            assert_close(torch, f"small train {part}[{i}]", a.cpu(), b,
-                         1e-3, 1e-4)
+            assert_close(torch, f"{name} train {part}[{i}]", a.cpu(), b, *tol)
             err = max(err, max_err(a.cpu(), b))
-    log(f"  card vs CPU, 1 episode at N=8: max abs err {err:.2e}  ok")
+    log(f"  card vs CPU, {name}, 1 episode at N=8: max err {err:.2e} "
+        f"(rollout relative to each field's largest entry), update differs "
+        f"by {moved['actor_params']:.3e} (actor) / "
+        f"{moved['critic_params']:.3e} (critic) of its norm  ok")
 
 
-def train_main_path(torch, cg):
+def train_main_path(torch, cg, config, episodes, launches_per_episode):
+    """`scripts/train_mpe.main` with `train_mpe.CONFIGS[config]` for
+    `episodes` episodes, the launch counts set to 0 just before and read
+    just after. Every logged metric must be finite, and each GRU kernel
+    launched `launches_per_episode` times an episode. Returns
+    (fwd launches, bwd launches, env-steps/s over the run, env-steps/s of
+    the last episode)."""
     from onpolicy_torch.scripts import train_mpe
+    argv = train_mpe.CONFIGS[config] + [
+        "--experiment_name", f"chip_smoke_{config}", "--log_interval", "1",
+        "--device", "cuda"]
+    flag = lambda name: int(argv[argv.index(name) + 1])
+    threads = flag("--n_rollout_threads")
+    steps = flag("--episode_length") * threads
+    argv += ["--num_env_steps", str(episodes * steps)]
     with tempfile.TemporaryDirectory() as tmp:
         os.environ["ONPOLICY_TORCH_RESULTS"] = tmp
         cg.FWD_LAUNCHES = 0
         cg.BWD_LAUNCHES = 0
         t0 = time.perf_counter()
-        _, history = train_mpe.main(TRAIN_ARGV)
+        _, history = train_mpe.main(argv)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         fwd, bwd = cg.FWD_LAUNCHES, cg.BWD_LAUNCHES
-    episodes = len([r for r in history if "value_loss" in r])
-    if episodes < 10:
-        raise AssertionError(f"only {episodes} episodes logged")
+    logged = len([r for r in history if "value_loss" in r])
+    if logged != episodes:
+        raise AssertionError(f"{config}: {logged} episodes logged, want "
+                             f"{episodes}")
     for r in history:
         for k, v in r.items():
             if isinstance(v, float) and not math.isfinite(v):
-                raise AssertionError(f"episode {r['episode']}: {k}={v}")
-    want = 20 * episodes   # ppo_epoch 10 x (actor + critic) x recurrent_N 1
+                raise AssertionError(f"{config} episode {r['episode']}: "
+                                     f"{k}={v}")
+    want = launches_per_episode * episodes
     if fwd != want or bwd != want:
-        raise AssertionError(f"launches fwd={fwd} bwd={bwd}, want {want}")
-    last = history[-1]
-    mean_rew = sum(r["average_episode_rewards"] for r in history) / episodes
-    log(f"  episodes {episodes}, wall {wall:.2f} s, launches fwd {fwd} "
-        f"bwd {bwd}")
-    log(f"env_steps_per_s {last['fps']:.1f}")
-    log(f"mean_episode_reward {mean_rew:.4f}")
-    return fwd, bwd
+        raise AssertionError(f"{config}: launches fwd={fwd} bwd={bwd}, "
+                             f"want {want}")
+    # the runner's fps is cumulative: episode i ends at (i+1)*steps/fps_i
+    ends = [(r["episode"] + 1) * steps / r["fps"] for r in history]
+    last_rate = steps / (ends[-1] - ends[-2])
+    mean_rew = sum(r["average_episode_rewards"] for r in history) / logged
+    log(f"  {config}: {threads} threads, {episodes} episodes, wall "
+        f"{wall:.2f} s, launches fwd {fwd} bwd {bwd}, env-steps/s "
+        f"{history[-1]['fps']:.1f} over the run (first episode included), "
+        f"{last_rate:.1f} in the last episode, mean reward {mean_rew:.4f}")
+    return fwd, bwd, history[-1]["fps"], last_rate
+
+
+def kernel_rows(times, launches, errs, shape, streams):
+    """The `kernels` line's rows of both kernels for one stream type."""
+    src = "onpolicy_torch/csrc/gru_seq.cu"
+    rows = []
+    for d, name, line in (("fwd", "gru_seq_fwd", 122),
+                          ("bwd", "gru_seq_bwd", 219)):
+        tc = "tc" if times[f"{d}_variant"] == "tensor_core" else "f32"
+        rows.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": f"onpolicy_tpu/ops/pallas_gru.py:{line}",
+            "streams": streams, "shape": shape,
+            "variant": times[f"{d}_variant"],
+            "launches": launches[d], "max_abs_err": errs[d],
+            "ms": times[f"{d}_ms"], "device_ms": times[f"{d}_device_ms"],
+            "plain_ms": times[f"{d}_plain_ms"],
+            "bound_ms": times[f"{d}_bound_{tc}_ms"],
+            "bound_by": times[f"{d}_bound_{tc}_by"],
+            "bound_f32_ms": times[f"{d}_bound_f32_ms"],
+            "bound_f32_by": times[f"{d}_bound_f32_by"],
+            "library_ms": times[f"{d}_library_ms"]})
+    return rows
 
 
 def main() -> int:
@@ -432,62 +601,51 @@ def main() -> int:
     log(f"built {lib.relative_to(ROOT)} in {time.perf_counter() - t0:.1f} s")
     log(lib.with_suffix(".ptxas.txt").read_text().strip())
 
-    log("== 3. kernels against their plain versions (f32)")
-    f_err, b_err = check_layer(torch, cg, "flagship", **FLAGSHIP, repeat=True)
-    check_layer(torch, cg, "bench (16384 threads)", **BENCH, bench_scale=True)
-    check_layer(torch, cg, "B=37 (ragged 8-row tiles)", 10, 37, 64)
-    check_layer(torch, cg, "B=5 (below one tile)", 10, 5, 64)
-    check_layer(torch, cg, "B=803 (8k+3 rows)", 10, 803, 64)
-    for walk in (cg.device_fwd_plan(torch.device("cuda"), 5003, 64),
-                 cg.device_bwd_plan(torch.device("cuda"), 5003, 64)):
-        if -(-5003 // walk.bt) <= walk.grid:
-            raise AssertionError(f"B=5003: {walk} walks no second tile")
-    check_layer(torch, cg, "B=5003 (ragged 16-row, 2 tiles)", 10, 5003, 64)
-    check_layer(torch, cg, "T=1", 1, 960, 64)
-    check_layer(torch, cg, "all-ones masks", 10, 960, 64, mask_mode="ones")
-    check_layer(torch, cg, "H=48 (tensor-core backward)", 10, 960, 48)
-    check_layer(torch, cg, "H=48 (tensor core, 16-row tiles)", 4, 2200, 48)
-    check_layer(torch, cg, "H=32 (tensor core, 16-row tiles)", 4, 2200, 32)
-    check_layer(torch, cg, "H=32 (tensor core, 8-row tiles)", 4, 300, 32)
-    check_layer(torch, cg, "H=16 (tensor core, 8-row tiles)", 4, 300, 16)
-    check_layer(torch, cg, "H=16 (tensor core, 16-row tiles)", 4, 2200, 16)
-    check_layer(torch, cg, "H=40 (CUDA-core kernels)", 10, 960, 40)
-    check_layer(torch, cg, "H=40 B=37 (ragged single tile)", 10, 37, 40)
-    check_layer(torch, cg, "H=40 T=1", 1, 300, 40)
-    check_layer(torch, cg, "H=40 all-ones masks", 10, 803, 40,
-                mask_mode="ones")
-    check_layer(torch, cg, "H=256 (weights in L2)", 10, 960, 256)
-    check_layer(torch, cg, "H=128 (backward weights in L2)", 5, 333, 128)
-    check_layer(torch, cg, "H=128 T=1 all-ones", 1, 37, 128, mask_mode="ones")
-    check_sequence_layers(torch, cg)
+    errs = {}
+    for stream_dtype in (None, torch.bfloat16):
+        streams = "bf16" if stream_dtype is not None else "f32"
+        log(f"== 3. kernels against their plain versions ({streams} streams)")
+        itemsize = 2 if stream_dtype is not None else 4
+        for walk in (cg.device_fwd_plan(torch.device("cuda"), 5003, 64,
+                                        itemsize),
+                     cg.device_bwd_plan(torch.device("cuda"), 5003, 64,
+                                        itemsize)):
+            if -(-5003 // walk.bt) <= walk.grid:
+                raise AssertionError(f"B=5003: {walk} walks no second tile")
+        for case, T, B, H, opts in SHAPES:
+            errs[case, streams] = check_layer(
+                torch, cg, case, T, B, H, stream_dtype=stream_dtype, **opts)
+        check_sequence_layers(torch, cg, stream_dtype)
 
     log("== 4. times (CUDA events)")
     t_flag = time_shape(torch, cg, FLAGSHIP, card)
     time_shape(torch, cg, BENCH, card)
+    time_shape(torch, cg, FLAGSHIP, card, torch.bfloat16)
+    t_bench16 = time_shape(torch, cg, BENCH, card, torch.bfloat16)
     compare_forwards(torch, cg, FLAGSHIP, card)
     compare_forwards(torch, cg, BENCH, card)
 
-    log("== 5. main path: train_mpe, flagship rMAPPO simple_spread")
-    check_small_against_cpu(torch)
-    fwd_n, bwd_n = train_main_path(torch, cg)
+    log("== 5. main path: train_mpe, flagship and bench configurations")
+    check_small_against_cpu(torch, "rmappo f32", (1e-3, 1e-4), 1e-3,
+                            algorithm_name="rmappo")
+    check_small_against_cpu(torch, "rmappo bf16", (5e-2, 5e-2), 0.25,
+                            algorithm_name="rmappo", use_bf16=True)
+    check_small_against_cpu(torch, "mappo dedup bf16", (5e-2, 5e-2), 0.25,
+                            algorithm_name="mappo", use_bf16=True,
+                            use_critic_dedup=True)
+    launches = {}
+    for config, episodes, per_episode in TRAIN_RUNS:
+        fwd, bwd, _, _ = train_main_path(torch, cg, config, episodes,
+                                         per_episode)
+        launches[config] = {"fwd": fwd, "bwd": bwd}
 
-    src = "onpolicy_torch/csrc/gru_seq.cu"
-    kernels = []
-    for d, name, line, n, err in (("fwd", "gru_seq_fwd", 122, fwd_n, f_err),
-                                  ("bwd", "gru_seq_bwd", 219, bwd_n, b_err)):
-        tc = "tc" if t_flag[f"{d}_variant"] == "tensor_core" else "f32"
-        kernels.append({
-            "name": name, "route": "cuda", "source": src,
-            "replaces": f"onpolicy_tpu/ops/pallas_gru.py:{line}",
-            "variant": t_flag[f"{d}_variant"],
-            "launches": n, "max_abs_err": err,
-            "ms": t_flag[f"{d}_ms"], "device_ms": t_flag[f"{d}_device_ms"],
-            "plain_ms": t_flag[f"{d}_plain_ms"],
-            "bound_ms": t_flag[f"{d}_bound_{tc}_ms"],
-            "bound_by": t_flag[f"{d}_bound_{tc}_by"],
-            "bound_f32_ms": t_flag[f"{d}_bound_f32_ms"],
-            "bound_f32_by": t_flag[f"{d}_bound_f32_by"],
-            "library_ms": t_flag[f"{d}_library_ms"]})
+    row_errs = lambda case, streams: dict(zip(("fwd", "bwd"),
+                                              errs[case, streams]))
+    kernels = kernel_rows(t_flag, launches["flagship"],
+                          row_errs("flagship", "f32"), FLAGSHIP, "f32")
+    kernels += kernel_rows(t_bench16, launches["bench_rmappo"],
+                           row_errs("bench (16384 threads)", "bf16"), BENCH,
+                           "bf16")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
 """Where the tensor-core GRU backward spends its time, by ablation.
 
-    python -m diagnostics.ablate_gru_bwd [--rounds 2]   # from the repo root
+    python -m diagnostics.ablate_gru_bwd [--rounds 2] [--streams f32|bf16]
 
 A one-off measurement, not a tool of the port: it edits the text of
 `onpolicy_torch/csrc/gru_seq.cu` as it stands in the same commit, and
@@ -13,8 +13,10 @@ product, the two small 3xTF32 terms, the prefetch of the next step) or
 one choice changed (the hi/lo split through `cvt.rna.tf32.f32`; fully
 unrolled k-loops at 16-row tiles; `__expf` and a fast reciprocal in the
 gate sigmoids) and times each against the whole kernel, in turns, on the
-same card. The variants exist only in a temporary directory; those that
-take a part out compute wrong results. Prints one JSON object: per variant, the backward's device time
+same card, with the [T, B, H] streams in f32 or (`--streams bf16`) in
+bf16. The variants exist only in a temporary directory; those that take
+a part out compute wrong results. Prints one JSON object: per variant,
+the backward's device time
 at the flagship shape (T=10, B=960, H=64; `torch.profiler`, kernel and
 reduction) and its CUDA-event time at the bench shape (B=122,880), with
 the compiler's register and spill report for the H=64 kernels and the
@@ -23,10 +25,10 @@ card's name and power limit. Refuses to run without a CUDA device.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import subprocess
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -61,13 +63,21 @@ VARIANTS = {
          "__device__ __forceinline__ float sigmoid_fast(float x) {\n"
          "  return __fdividef(1.0f, 1.0f + __expf(-x));\n}\n\n"
          "template <int N>\nstruct Split {"),
-        ("const float rg = sigmoid_(st[o]", "const float rg = sigmoid_fast(st[o]"),
-        ("const float zg = sigmoid_(st[L::STREAM + o]",
-         "const float zg = sigmoid_fast(st[L::STREAM + o]")],
+        ("const float rg = sigmoid_(to_f32(st[o])",
+         "const float rg = sigmoid_fast(to_f32(st[o])"),
+        ("const float zg = sigmoid_(to_f32(st[L::STREAM + o])",
+         "const float zg = sigmoid_fast(to_f32(st[L::STREAM + o])")],
 }
 
 
-def _build(tmp: Path, name: str, edits) -> tuple[ctypes.CDLL, list[str]]:
+def _instance(line: str, prefix: str) -> str:
+    """`<H,BT,type>` of a kernel from its mangled name in a ptxas line."""
+    args = line.split(prefix)[1].split("EEvPK")[0]
+    return "<" + (args.replace("E13__nv_bfloat16", ",bf16")
+                  .replace("Ef", ",f32").replace("ELi", ",")) + ">"
+
+
+def _build(tmp: Path, name: str, edits):
     src = cg.SOURCE.read_text()
     for old, new in edits:
         if src.count(old) != 1:
@@ -81,27 +91,21 @@ def _build(tmp: Path, name: str, edits) -> tuple[ctypes.CDLL, list[str]]:
     if res.returncode != 0:
         raise RuntimeError(f"{name}: nvcc failed\n{res.stderr}")
     lines = res.stderr.splitlines()
-    report = [f"{lines[i].split('gru_bwd_kernel_mmaILi')[1][:7]}: "
+    report = [f"{_instance(lines[i], 'gru_bwd_kernel_mmaILi')}: "
               f"{lines[i + 2].strip()}; {lines[i + 3].split(':', 1)[1].strip()}"
               for i, l in enumerate(lines)
               if "Compiling entry" in l and "gru_bwd_kernel_mmaILi64" in l]
-    lib = ctypes.CDLL(str(out))
-    P, I = ctypes.c_void_p, ctypes.c_int
-    lib.gru_seq_bwd.argtypes = [P] * 17 + [I] * 7 + [P]
-    lib.gru_seq_bwd.restype = I
-    lib.gru_smem_optin.argtypes = []
-    lib.gru_smem_optin.restype = I
-    return lib, report
+    return cg.bind(out), report
 
 
-def _inputs(T, B, H, seed=11):
+def _inputs(T, B, H, dtype, seed=11):
     g = torch.Generator(device="cuda").manual_seed(seed)
     rn = lambda *s, scale=1.0: torch.randn(*s, generator=g, device="cuda") * scale
-    gir, giz, gin = rn(T, B, H), rn(T, B, H), rn(T, B, H)
+    gir, giz, gin = (rn(T, B, H).to(dtype) for _ in range(3))
     h0, masks = rn(B, H, scale=0.5), torch.ones(T, B, 1, device="cuda")
     w_hh, b_hh = rn(H, 3 * H, scale=H ** -0.5), rn(3 * H, scale=0.1)
     outs, _ = cg.gru_layer_fwd_ref(gir, giz, gin, h0, masks, w_hh, b_hh)
-    return (gir, giz, gin, outs, h0, masks, rn(T, B, H, scale=0.1),
+    return (gir, giz, gin, outs, h0, masks, rn(T, B, H, scale=0.1).to(dtype),
             rn(B, H, scale=0.1), w_hh, b_hh)
 
 
@@ -138,18 +142,22 @@ def _device_ms(fn, iters=20):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--streams", choices=("f32", "bf16"), default="f32")
     args = ap.parse_args(argv)
+    dtype = torch.bfloat16 if args.streams == "bf16" else torch.float32
     if not torch.cuda.is_available():
         raise SystemExit("ablate_gru_bwd: needs a CUDA device")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
-    flag, bench = _inputs(*FLAGSHIP), _inputs(*BENCH)
-    out = {"card": card, "variants": {}}
-    with tempfile.TemporaryDirectory() as tmp:
+    flag, bench = _inputs(*FLAGSHIP, dtype), _inputs(*BENCH, dtype)
+    out = {"card": card, "streams": args.streams, "variants": {}}
+    with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(8) as pool:
+        builds = {name: pool.submit(_build, Path(tmp), name, edits)
+                  for name, edits in VARIANTS.items()}
         libs = {}
-        for name, edits in VARIANTS.items():
-            libs[name], report = _build(Path(tmp), name, edits)
+        for name, fut in builds.items():
+            libs[name], report = fut.result()
             out["variants"][name] = {"ptxas_h64": report, "flagship_device_ms": [],
                                      "bench_event_ms": []}
         try:

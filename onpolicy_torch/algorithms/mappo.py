@@ -1,4 +1,4 @@
-"""rMAPPO: shared-policy trainer.
+"""MAPPO / IPPO / rMAPPO: shared-policy trainer.
 
 Port of `onpolicy_tpu/algorithms/mappo.py` (the reference's
 `rMAPPOPolicy.py` + `r_mappo.py`). All state threads through
@@ -8,12 +8,16 @@ ValueNorm statistics. `train()` normalizes the advantages with the active
 masks, then runs ppo_epoch × num_mini_batch `_update` steps. In
 `_update` the normalizer is updated on the raw returns BEFORE the
 gradient step (the reference's order), and the grad norms logged are
-taken before the clip.
+taken before the clip. IPPO is this trainer with a decentralized critic
+input (`use_centralized_V=False`, set by the config's canonicalization).
 
-The rollout-time recurrent path is plain torch; the update's actor
-`evaluate_seq` and critic `forward_seq` run the sequence GRU, which on
-the card is the CUDA kernels. Feed-forward MAPPO, IPPO and PopArt come in
-later slices (ROADMAP.md) and raise here.
+Three samplers (`_sample_minibatches`): chunked BPTT (rMAPPO), whole
+episodes (`use_naive_recurrent_policy`) and flat rows (feed-forward).
+The recurrent policies' update runs `evaluate_seq` / `forward_seq`
+through the sequence GRU, which on the card is the CUDA kernels; the
+feed-forward update evaluates flat rows, with `use_critic_dedup` running
+the critic once per env. PopArt comes in a later slice (ROADMAP.md) and
+raises here.
 """
 from __future__ import annotations
 
@@ -44,10 +48,6 @@ class TrainState:
 class MAPPO:
     def __init__(self, cfg, obs_space, share_obs_space, act_space,
                  total_updates: int = 1):
-        if not cfg.use_recurrent_policy:
-            raise NotImplementedError(
-                "the port trains the recurrent policy (rmappo); feed-forward "
-                "and naive-recurrent policies are ROADMAP.md Queue 1 item A4")
         if cfg.use_popart:
             raise NotImplementedError(
                 "use_popart is not ported yet (ROADMAP.md, Queue 1 item 9)")
@@ -83,33 +83,45 @@ class MAPPO:
             critic_opt_state=self.critic_tx.init(critic_params),
             vnorm=vnorm)
 
-    # ---- rollout-time API (flat [B, ...] batches) --------------------
-    @torch.no_grad()
-    def get_actions(self, state: TrainState, share_obs, obs, rnn_actor,
-                    rnn_critic, masks, generator, available_actions=None,
-                    actions=None):
-        actions, logp, rnn_actor = self.actor.forward(
-            state.actor_params, obs, rnn_actor, masks, generator,
-            available_actions, actions)
-        values, rnn_critic = self.critic.forward(
-            state.critic_params, share_obs, rnn_critic, masks)
-        return values, actions, logp, rnn_actor, rnn_critic
-
-    @torch.no_grad()
-    def get_values(self, state: TrainState, share_obs, rnn_critic, masks):
-        values, _ = self.critic.forward(state.critic_params, share_obs,
-                                        rnn_critic, masks)
-        return values
-
     # ---- training ----------------------------------------------------
+    def _sample_minibatches(self, buf, adv, generator):
+        cfg = self.cfg
+        if cfg.use_recurrent_policy:
+            return buf_lib.recurrent_minibatches(
+                buf, adv, generator, cfg.num_mini_batch, cfg.data_chunk_length)
+        if cfg.use_naive_recurrent_policy:
+            return buf_lib.naive_recurrent_minibatches(
+                buf, adv, generator, cfg.num_mini_batch)
+        return buf_lib.feed_forward_minibatches(buf, adv, generator,
+                                                cfg.num_mini_batch)
+
+    def _critic_flat(self, cp, mb):
+        """Values of flat rows [B, 1]. With `use_critic_dedup` the rows are
+        [T·N, M] in order (the one-minibatch sampler keeps them so) and go
+        through `Critic.forward_dedup`."""
+        args = (mb["share_obs"], mb["rnn_states_critic"], mb["masks"])
+        if not self.cfg.use_critic_dedup:
+            values, _ = self.critic.forward(cp, *args)
+            return values
+        M = self.cfg.num_agents
+        B = mb["share_obs"].shape[0]
+        by_env = lambda x: x.reshape(B // M, M, *x.shape[1:])
+        return self.critic.forward_dedup(cp, *map(by_env, args)).reshape(B, 1)
+
     def _loss(self, ap, cp, vnorm, mb):
         cfg = self.cfg
-        logp, entropy = self.actor.evaluate_seq(
-            ap, mb["obs"], mb["rnn_states"], mb["actions"], mb["masks"],
-            mb.get("available_actions"),
-            mb["active_masks"] if cfg.use_policy_active_masks else None)
-        values = self.critic.forward_seq(
-            cp, mb["share_obs"], mb["rnn_states_critic"], mb["masks"])
+        active = mb["active_masks"] if cfg.use_policy_active_masks else None
+        if cfg.is_recurrent:      # mb holds [L, B, ...] sequences
+            logp, entropy = self.actor.evaluate_seq(
+                ap, mb["obs"], mb["rnn_states"], mb["actions"], mb["masks"],
+                mb.get("available_actions"), active)
+            values = self.critic.forward_seq(
+                cp, mb["share_obs"], mb["rnn_states_critic"], mb["masks"])
+        else:
+            logp, entropy = self.actor.evaluate(
+                ap, mb["obs"], mb["rnn_states"], mb["actions"], mb["masks"],
+                mb.get("available_actions"), active)
+            values = self._critic_flat(cp, mb)
         pol_loss, ratio = losses.ppo_policy_loss(
             logp, mb["old_action_log_probs"], mb["advantages"],
             mb["active_masks"], clip_param=cfg.clip_param,
@@ -167,8 +179,7 @@ class MAPPO:
         adv = losses.normalize_advantages(
             buf.advantages,
             buf.active_masks[:-1] if cfg.use_policy_active_masks else None)
-        sample = lambda: buf_lib.recurrent_minibatches(
-            buf, adv, generator, cfg.num_mini_batch, cfg.data_chunk_length)
+        sample = lambda: self._sample_minibatches(buf, adv, generator)
         # one minibatch is permutation-free: build it once for all epochs
         mbs = sample() if cfg.num_mini_batch == 1 else None
         history = []

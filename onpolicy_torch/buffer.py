@@ -3,9 +3,11 @@
 Port of `onpolicy_tpu/buffer.py`: time-major `[T(+1), N, M, ...]` tensors
 (N = rollout threads, M = agents) assembled once per episode from the
 stacked rollout steps (`from_rollout`), GAE over the whole buffer
-(`compute_returns`) and the chunked-BPTT sampler of the recurrent policy
-(`recurrent_minibatches`). The feed-forward, naive-recurrent and
-transformer samplers come with their algorithms (ROADMAP.md).
+(`compute_returns`) and the samplers of the three policies: chunked BPTT
+(`recurrent_minibatches`), whole episodes (`naive_recurrent_minibatches`)
+and flat rows (`feed_forward_minibatches`). The transformer sampler comes
+with MAT (ROADMAP.md). Each sampler returns a list of `num_mini_batch`
+dicts; with one minibatch no permutation is drawn.
 """
 from __future__ import annotations
 
@@ -116,6 +118,65 @@ def _train_fields(buf: RolloutBuffer) -> dict:
     return d
 
 
+def _minibatch_index(n: int, num_mini_batch: int, generator, device,
+                     perm: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """[num_mini_batch, n // num_mini_batch] indices of a permutation of
+    n rows (or chunks), drawn from `generator` unless `perm` is given."""
+    if n % num_mini_batch != 0:
+        raise ValueError(f"{n} rows not divisible by num_mini_batch "
+                         f"{num_mini_batch}")
+    if perm is None:
+        perm = torch.randperm(n, generator=generator, device=device)
+    return perm.to(device).reshape(num_mini_batch, n // num_mini_batch)
+
+
+def feed_forward_minibatches(buf: RolloutBuffer, advantages: torch.Tensor,
+                             generator: Optional[torch.Generator],
+                             num_mini_batch: int,
+                             perm: Optional[torch.Tensor] = None) -> list:
+    """Flat sampler (the reference's `feed_forward_generator`): the T·N·M
+    rows in [T, N, M] order, one minibatch of them as they lie (views, no
+    copy; the critic dedup relies on that order), or `num_mini_batch`
+    equal parts of a permutation drawn from `generator` (or given as
+    `perm`). Returns a list of dicts of [mb, ...] rows."""
+    d = _train_fields(buf)
+    d["advantages"] = advantages
+    total = buf.T * buf.n_rollout_threads * buf.num_agents
+    flat = {k: x.reshape(total, *x.shape[3:]) for k, x in d.items()}
+    if num_mini_batch == 1:
+        return [flat]
+    idx = _minibatch_index(total, num_mini_batch, generator,
+                           buf.rewards.device, perm)
+    return [{k: x[i] for k, x in flat.items()} for i in idx]
+
+
+def naive_recurrent_minibatches(buf: RolloutBuffer, advantages: torch.Tensor,
+                                generator: Optional[torch.Generator],
+                                num_mini_batch: int,
+                                perm: Optional[torch.Tensor] = None) -> list:
+    """Whole-episode sampler (the reference's `naive_recurrent_generator`):
+    the N·M env-agent sequences at their full length T, the rnn states
+    from t = 0; one minibatch as they lie, or `num_mini_batch` parts of a
+    permutation of the N·M sequences (drawn, or given as `perm`). Returns
+    a list of dicts of [T, mb, ...] sequences ([mb, ...] rnn states)."""
+    d = _train_fields(buf)
+    d["advantages"] = advantages
+    T, total = buf.T, buf.n_rollout_threads * buf.num_agents
+    idx = (None if num_mini_batch == 1 else
+           _minibatch_index(total, num_mini_batch, generator,
+                            buf.rewards.device, perm))
+    out = []
+    for i in range(num_mini_batch):
+        mb = {}
+        for k, x in d.items():
+            seq = x.reshape(T, total, *x.shape[3:])
+            if idx is not None:
+                seq = seq[:, idx[i]]
+            mb[k] = seq[0] if k in ("rnn_states", "rnn_states_critic") else seq
+        out.append(mb)
+    return out
+
+
 def recurrent_minibatches(buf: RolloutBuffer, advantages: torch.Tensor,
                           generator: Optional[torch.Generator],
                           num_mini_batch: int, data_chunk_length: int) -> list:
@@ -134,11 +195,9 @@ def recurrent_minibatches(buf: RolloutBuffer, advantages: torch.Tensor,
     T, N, M = buf.T, buf.n_rollout_threads, buf.num_agents
     L = data_chunk_length
     n_chunks = (T * N * M) // L
-    if n_chunks % num_mini_batch != 0:
-        raise ValueError(f"{n_chunks} chunks not divisible by "
-                         f"num_mini_batch {num_mini_batch}")
-    mb = n_chunks // num_mini_batch
     device = buf.rewards.device
+    idx = (None if num_mini_batch == 1 else
+           _minibatch_index(n_chunks, num_mini_batch, generator, device))
 
     def to_chunks(x):
         # [T,N,M,...] → [N,M,T,...] → flat stream → [n_chunks, L, ...]
@@ -150,12 +209,6 @@ def recurrent_minibatches(buf: RolloutBuffer, advantages: torch.Tensor,
     rem = starts // T
     m_idx = rem % M
     n_idx = rem // M
-
-    if num_mini_batch == 1:
-        idx = None
-    else:
-        perm = torch.randperm(n_chunks, generator=generator, device=device)
-        idx = perm.reshape(num_mini_batch, mb)
 
     out = [{} for _ in range(num_mini_batch)]
     for k, x in d.items():

@@ -4,8 +4,9 @@ The port's own copy of `onpolicy_tpu/config.py` (the port imports nothing
 from the JAX package): the same frozen dataclass with the reference's
 defaults, the same algorithm-name canonicalization and the same strict
 argparse bridge (unknown flags raise). Added: `device`, which defaults to
-the card. `validate()` raises when CUDA is asked for and there is none,
-and for options whose port is still to come (ROADMAP.md names each).
+the card. `validate()` raises when CUDA is asked for and there is none;
+options whose port is still to come are refused by the runner
+(`runner/shared_runner.refuse_unported`, with their ROADMAP.md items).
 """
 from __future__ import annotations
 
@@ -68,7 +69,10 @@ class Config:
     use_device_collect: bool = False
     use_scan_rounds: bool = False
     use_jax_env: bool = False
+    # bf16 mixed precision: the MLP and GRU compute in bf16, the GRU
+    # kernels move their [T, B, H] streams in bf16 (models/common.py)
     use_bf16: bool = False
+    # feed-forward shared mappo: the critic runs once per env row
     use_critic_dedup: bool = False
 
     # ---- optimizer ----
@@ -164,10 +168,6 @@ class Config:
                 raise ValueError(
                     f"use_critic_dedup is invalid for {self.env_name}")
         self._validate_device()
-        if self.use_bf16:
-            raise NotImplementedError(
-                "use_bf16: the bf16 sequence streams of the GRU kernels are "
-                "not ported yet (ROADMAP.md, Queue 2 item 4)")
         return self
 
     def _validate_device(self):

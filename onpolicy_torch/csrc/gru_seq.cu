@@ -32,6 +32,19 @@
 // tensor-core kernels keep f32 accuracy with 3xTF32 products and are bound
 // by bytes.
 //
+// Stream type. Every kernel takes its [T, B, H] sequence streams (gi,
+// outs, and in the backward douts and dgi) as `S`, float or __nv_bfloat16:
+// the JAX package's bf16 mode (pallas_gru.py:310-320) moves only these in
+// bf16. h, h0, hT, dh0, dhT, W_hh, b_hh, the masks, dW/db and all gate math
+// stay f32; a bf16 stream is widened with __bfloat162float as it is read
+// and rounded to nearest even with __float2bfloat16_rn as it is written, as
+// XLA's astype does. The backward's hprev at t = 0 is h0 in the stream type
+// (pallas_gru.py:279-280): the caller passes it rounded, so its `h0` is an
+// S stream. bf16 halves the stream bytes; the products stay 3xTF32 (JAX's
+// are f32 products of f32 h and W), so at T=10, B=122,880, H=64 the
+// forward stays bound by bytes and the backward becomes bound by its
+// products.
+//
 // Design of the CUDA-core forward and backward (gru_fwd_kernel,
 // gru_bwd_kernel), kept simple and right first:
 //   * One block per tile of `bt` batch rows; the block loops over T
@@ -56,6 +69,7 @@
 //     own slice of the global scratch). A second small kernel sums the
 //     partials in a fixed order: the result is deterministic, with no
 //     float atomics.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -70,18 +84,44 @@ __device__ __forceinline__ float sigmoid_(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
+// A stream element widened to f32, and an f32 value stored as one.
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename S>
+__device__ __forceinline__ S from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// Four consecutive stream elements as f32 (16-byte aligned for float,
+// 8-byte aligned for bf16).
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const __nv_bfloat162 a = reinterpret_cast<const __nv_bfloat162*>(p)[0];
+  const __nv_bfloat162 b = reinterpret_cast<const __nv_bfloat162*>(p)[1];
+  return make_float4(__low2float(a), __high2float(a), __low2float(b),
+                     __high2float(b));
+}
+
 // ---------------------------------------------------------------------------
 // forward
 // ---------------------------------------------------------------------------
-template <bool kSmemW>
+template <bool kSmemW, typename S>
 __global__ void __launch_bounds__(kThreads)
-gru_fwd_kernel(const float* __restrict__ gir, const float* __restrict__ giz,
-               const float* __restrict__ gin,
+gru_fwd_kernel(const S* __restrict__ gir, const S* __restrict__ giz,
+               const S* __restrict__ gin,
                const float* __restrict__ masks,  // [T, B]
                const float* __restrict__ h0,     // [B, H]
                const float* __restrict__ w_hh,   // [H, 3H]
                const float* __restrict__ b_hh,   // [3H]
-               float* __restrict__ outs,         // [T, B, H]
+               S* __restrict__ outs,             // [T, B, H]
                float* __restrict__ hT,           // [B, H]
                int T, int B, int H, int bt) {
   extern __shared__ float smem[];
@@ -145,12 +185,12 @@ gru_fwd_kernel(const float* __restrict__ gir, const float* __restrict__ giz,
         const int row = row0 + r;
         if (row >= B) continue;
         const size_t o = (tb + row) * H + j;
-        const float rg = sigmoid_(gir[o] + (ar[rr] + br));
-        const float zg = sigmoid_(giz[o] + (az[rr] + bz));
-        const float ng = tanhf(gin[o] + rg * (an[rr] + bn));
+        const float rg = sigmoid_(to_f32(gir[o]) + (ar[rr] + br));
+        const float zg = sigmoid_(to_f32(giz[o]) + (az[rr] + bz));
+        const float ng = tanhf(to_f32(gin[o]) + rg * (an[rr] + bn));
         const float h = (1.0f - zg) * ng + zg * hm[rr * H + j];
         sH[r * H + j] = h;
-        outs[o] = h;
+        outs[o] = from_f32<S>(h);
       }
     }
   }
@@ -165,19 +205,19 @@ gru_fwd_kernel(const float* __restrict__ gir, const float* __restrict__ giz,
 // ---------------------------------------------------------------------------
 // backward: reverse time, gates recomputed from gi and hprev = [h0, outs[:-1]]
 // ---------------------------------------------------------------------------
-template <bool kSmemW>
+template <bool kSmemW, typename S>
 __global__ void __launch_bounds__(kThreads)
-gru_bwd_kernel(const float* __restrict__ gir, const float* __restrict__ giz,
-               const float* __restrict__ gin,
-               const float* __restrict__ outs,   // [T, B, H]
+gru_bwd_kernel(const S* __restrict__ gir, const S* __restrict__ giz,
+               const S* __restrict__ gin,
+               const S* __restrict__ outs,       // [T, B, H]
                const float* __restrict__ masks,  // [T, B]
-               const float* __restrict__ h0,     // [B, H]
-               const float* __restrict__ douts,  // [T, B, H]
+               const S* __restrict__ h0,         // [B, H], hprev at t = 0
+               const S* __restrict__ douts,      // [T, B, H]
                const float* __restrict__ dhT,    // [B, H]
                const float* __restrict__ w_hh,   // [H, 3H]
                const float* __restrict__ b_hh,   // [3H]
-               float* __restrict__ dgir, float* __restrict__ dgiz,
-               float* __restrict__ dgin,
+               S* __restrict__ dgir, S* __restrict__ dgiz,
+               S* __restrict__ dgin,
                float* __restrict__ dh0,          // [B, H]
                float* __restrict__ partial,      // [gridDim.x, (H+1)*3H]
                int T, int B, int H, int bt) {
@@ -223,11 +263,11 @@ gru_bwd_kernel(const float* __restrict__ gir, const float* __restrict__ giz,
     }
     __syncthreads();
     // hm = hprev * m_t
-    const float* hp = t > 0 ? outs + (tb - B) * H : h0;
+    const S* hp = t > 0 ? outs + (tb - B) * H : h0;
     for (int e = tid; e < tile; e += blockDim.x) {
       const int r = e / H;
       const int row = row0 + r;
-      sHm[e] = row < B ? hp[(size_t)row * H + (e - r * H)] * m[r] : 0.0f;
+      sHm[e] = row < B ? to_f32(hp[(size_t)row * H + (e - r * H)]) * m[r] : 0.0f;
     }
     __syncthreads();
     // gate cotangents for (row, unit j)
@@ -264,17 +304,17 @@ gru_bwd_kernel(const float* __restrict__ gir, const float* __restrict__ giz,
         }
         const size_t o = (tb + row) * H + j;
         const float ghn = an[rr] + bn;
-        const float rg = sigmoid_(gir[o] + (ar[rr] + br));
-        const float zg = sigmoid_(giz[o] + (az[rr] + bz));
-        const float ng = tanhf(gin[o] + rg * ghn);
-        const float dh = sD[s] + douts[o];
+        const float rg = sigmoid_(to_f32(gir[o]) + (ar[rr] + br));
+        const float zg = sigmoid_(to_f32(giz[o]) + (az[rr] + bz));
+        const float ng = tanhf(to_f32(gin[o]) + rg * ghn);
+        const float dh = sD[s] + to_f32(douts[o]);
         const float dz = dh * (hm[rr * H + j] - ng) * zg * (1.0f - zg);
         const float dn = dh * (1.0f - zg) * (1.0f - ng * ng);
         const float dr = dn * ghn * rg * (1.0f - rg);
         const float dghn = dn * rg;
-        dgir[o] = dr;
-        dgiz[o] = dz;
-        dgin[o] = dn;
+        dgir[o] = from_f32<S>(dr);
+        dgiz[o] = from_f32<S>(dz);
+        dgin[o] = from_f32<S>(dn);
         sG[s] = dr;
         sG[tile + s] = dz;
         sG[2 * tile + s] = dghn;
@@ -372,10 +412,20 @@ gru_bwd_kernel(const float* __restrict__ gir, const float* __restrict__ giz,
 //    their column index XORed with (row & 4): every fragment load of the
 //    three products, whether it walks W, hm or dG by rows or by columns,
 //    is free of bank conflicts.
-// Shared memory, in floats: W [H][3H+8]; 2 stages of 5 x [BT][H+4] and BT
-// masks; hm [BT][H+8]; dG [BT][3H+8]. At H = 64 that is 112,256 bytes for
-// BT = 16 (two 256-thread blocks on an SM, 128 registers a thread) and
-// 81,728 for BT = 8 (one block on an SM, up to 255 registers).
+// Shared memory: W [H][3H+8], hm [BT][H+8] and dG [BT][3H+8] in f32; 2
+// stages of 5 x [BT][SS] stream elements and BT f32 masks, SS = H + one
+// 16-byte chunk (H + 4 floats, H + 8 bf16). At H = 64 that is 112,256
+// bytes for BT = 16 (two 256-thread blocks on an SM, 128 registers a
+// thread) and 81,728 for BT = 8 (one block on an SM, up to 255 registers)
+// with f32 streams; 91,776 and 71,488 with bf16 streams.
+//  * Staged bf16 rows: a row of SS = H + 8 elements is 2H + 16 bytes, a
+//    whole number of 16-byte cp.async chunks. The gate math reads element
+//    (n0 + 2q + p % 2, u0 + g + 8 (p / 2)) of a stage: the eight g of one
+//    row lie in four consecutive words (g, g + 1 share one), and row 2q
+//    starts q (H + 8) words on, that is 8q (mod 32) at H = 32, 64 and
+//    24q = 0, 24, 16, 8 (mod 32) at H = 16, 48: 16 distinct banks, no
+//    conflict. With f32 streams the stride H + 4 words puts row 2q at
+//    8q (mod 32) words, followed by the eight words of its g.
 // Rows >= B of the ragged tile are copied in as zeros; their dh, and so
 // their dG, is zero, and they add nothing to dW through K = BT.
 
@@ -426,7 +476,7 @@ __device__ __forceinline__ int swz(int r, int c, int ld) {
   return r * ld + (c ^ (r & 4));
 }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool valid) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d),
@@ -454,19 +504,22 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
-template <int H, int BT>
-struct MmaLayout {  // shared memory of gru_bwd_kernel_mma, in floats
+template <int H, int BT, typename S>
+struct MmaLayout {  // shared memory of gru_bwd_kernel_mma; offsets in bytes
   static constexpr int H3 = 3 * H;
-  static constexpr int WS = H3 + 8;  // W [H][3H], swizzled
-  static constexpr int SS = H + 4;   // a staged [BT][H] stream
-  static constexpr int HS = H + 8;   // hm [BT][H], swizzled
-  static constexpr int GS = H3 + 8;  // dG [BT][3H], swizzled
-  static constexpr int STREAM = BT * SS;
-  static constexpr int STAGE = 5 * STREAM + BT;  // gir giz gin douts hprev m
-  static constexpr int STAGE_OFF = H * WS;
-  static constexpr int HM_OFF = STAGE_OFF + 2 * STAGE;
-  static constexpr int G_OFF = HM_OFF + BT * HS;
-  static constexpr int BYTES = (G_OFF + BT * GS) * 4;
+  static constexpr int WS = H3 + 8;  // W [H][3H] f32 words, swizzled
+  static constexpr int EPC = 16 / sizeof(S);  // stream elements a chunk
+  static constexpr int SS = H + EPC; // a staged [BT][H] stream, elements
+  static constexpr int HS = H + 8;   // hm [BT][H] f32 words, swizzled
+  static constexpr int GS = H3 + 8;  // dG [BT][3H] f32 words, swizzled
+  static constexpr int STREAM = BT * SS;  // elements
+  static constexpr int STREAM_BYTES = STREAM * sizeof(S);
+  // gir giz gin douts hprev, then the masks
+  static constexpr int STAGE_BYTES = 5 * STREAM_BYTES + 4 * BT;
+  static constexpr int STAGE_OFF = 4 * H * WS;
+  static constexpr int HM_OFF = STAGE_OFF + 2 * STAGE_BYTES;
+  static constexpr int G_OFF = HM_OFF + 4 * BT * HS;
+  static constexpr int BYTES = G_OFF + 4 * BT * GS;
   static constexpr int ITEMS = (H / 16) * (BT / 8);  // of the gate/carry products
   // dW [H x 3H] as MT x NT tiles of 16 x 8: a warp keeps NW column tiles
   // (all MT row tiles of each), so it loads a fragment of hm or dG once
@@ -480,62 +533,64 @@ struct MmaLayout {  // shared memory of gru_bwd_kernel_mma, in floats
   static_assert(H % 16 == 0 && BT % 8 == 0, "tile shapes of m16n8k8");
   static_assert(ITEMS <= kThreads / 32, "one gate/carry item per warp");
   static_assert(H3 <= kThreads, "one db entry per thread");
+  static_assert(STREAM_BYTES % 16 == 0 && STAGE_BYTES % 16 == 0,
+                "16-byte cp.async targets");
 };
 
 // Starts the copies of step t of the tile at row0 into `stage`.
-template <int H, int BT>
+template <int H, int BT, typename S>
 __device__ __forceinline__ void stage_step(
-    float* stage, const float* gir, const float* giz, const float* gin,
-    const float* douts, const float* outs, const float* h0,
-    const float* masks, int t, int row0, int B) {
-  using L = MmaLayout<H, BT>;
-  constexpr int CH = H / 4;  // 16-byte chunks in a row
+    char* stage, const S* gir, const S* giz, const S* gin, const S* douts,
+    const S* outs, const S* h0, const float* masks, int t, int row0, int B) {
+  using L = MmaLayout<H, BT, S>;
+  constexpr int CH = H / L::EPC;  // 16-byte chunks in a row
   const size_t tb = (size_t)t * B;
-  const float* hprev = t > 0 ? outs + (tb - B) * H : h0;
+  const S* hprev = t > 0 ? outs + (tb - B) * H : h0;
   for (int e = threadIdx.x; e < 5 * BT * CH; e += kThreads) {
     const int i = e / (BT * CH);  // gir, giz, gin, douts, hprev
     const int r = (e - i * BT * CH) / CH;
-    const int c = (e % CH) * 4;
+    const int c = (e % CH) * L::EPC;
     const int row = row0 + r;
     const bool ok = row < B;
-    const float* src = i == 4 ? hprev
-                     : (i == 0 ? gir : i == 1 ? giz : i == 2 ? gin : douts) + tb * H;
-    cp_async16(stage + i * L::STREAM + r * L::SS + c,
+    const S* src = i == 4 ? hprev
+                 : (i == 0 ? gir : i == 1 ? giz : i == 2 ? gin : douts) + tb * H;
+    cp_async16(reinterpret_cast<S*>(stage + i * L::STREAM_BYTES) + r * L::SS + c,
                src + (size_t)(ok ? row : 0) * H + c, ok);
   }
+  float* m = reinterpret_cast<float*>(stage + 5 * L::STREAM_BYTES);
   for (int r = threadIdx.x; r < BT; r += kThreads) {
     const int row = row0 + r;
-    cp_async4(stage + 5 * L::STREAM + r, masks + tb + (row < B ? row : 0),
-              row < B);
+    cp_async4(m + r, masks + tb + (row < B ? row : 0), row < B);
   }
 }
 
-template <int H, int BT>
-__global__ void __launch_bounds__(kThreads, MmaLayout<H, BT>::MIN_BLOCKS)
-gru_bwd_kernel_mma(const float* __restrict__ gir, const float* __restrict__ giz,
-                   const float* __restrict__ gin,
-                   const float* __restrict__ outs,   // [T, B, H]
+template <int H, int BT, typename S>
+__global__ void __launch_bounds__(kThreads, MmaLayout<H, BT, S>::MIN_BLOCKS)
+gru_bwd_kernel_mma(const S* __restrict__ gir, const S* __restrict__ giz,
+                   const S* __restrict__ gin,
+                   const S* __restrict__ outs,       // [T, B, H]
                    const float* __restrict__ masks,  // [T, B]
-                   const float* __restrict__ h0,     // [B, H]
-                   const float* __restrict__ douts,  // [T, B, H]
+                   const S* __restrict__ h0,         // [B, H], hprev at t = 0
+                   const S* __restrict__ douts,      // [T, B, H]
                    const float* __restrict__ dhT,    // [B, H]
                    const float* __restrict__ w_hh,   // [H, 3H]
                    const float* __restrict__ b_hh,   // [3H]
-                   float* __restrict__ dgir, float* __restrict__ dgiz,
-                   float* __restrict__ dgin,
+                   S* __restrict__ dgir, S* __restrict__ dgiz,
+                   S* __restrict__ dgin,
                    float* __restrict__ dh0,          // [B, H]
                    float* __restrict__ partial,      // [gridDim.x, (H+1)*3H]
                    int T, int B) {
-  using L = MmaLayout<H, BT>;
+  using L = MmaLayout<H, BT, S>;
   constexpr int H3 = L::H3, WS = L::WS, SS = L::SS, HS = L::HS, GS = L::GS;
   // k-steps of the gate and carry products in flight: more spills at 128
   // registers (BT = 16); all of them at 8-row tiles
   constexpr int kUnroll = BT == 16 ? 2 : H / 8;
   extern __shared__ __align__(16) float mma_smem[];
+  char* const base = reinterpret_cast<char*>(mma_smem);
   float* sW = mma_smem;
-  float* sStage = mma_smem + L::STAGE_OFF;
-  float* sHm = mma_smem + L::HM_OFF;
-  float* sG = mma_smem + L::G_OFF;
+  char* sStage = base + L::STAGE_OFF;
+  float* sHm = reinterpret_cast<float*>(base + L::HM_OFF);
+  float* sG = reinterpret_cast<float*>(base + L::G_OFF);
 
   const int tid = threadIdx.x, warp = tid >> 5;
   const int g = (tid & 31) >> 2, q = tid & 3;
@@ -547,8 +602,8 @@ gru_bwd_kernel_mma(const float* __restrict__ gir, const float* __restrict__ giz,
     cp_async16(sW + swz(r, c, WS), w_hh + (size_t)r * H3 + c, true);
   }
   int tile = blockIdx.x;
-  stage_step<H, BT>(sStage, gir, giz, gin, douts, outs, h0, masks, T - 1,
-                    tile * BT, B);
+  stage_step<H, BT, S>(sStage, gir, giz, gin, douts, outs, h0, masks, T - 1,
+                       tile * BT, B);
   cp_async_commit();
 
   // this warp's item of the gate/carry products: units u0.., rows n0..;
@@ -585,18 +640,19 @@ gru_bwd_kernel_mma(const float* __restrict__ gir, const float* __restrict__ giz,
         int nt = t - 1, ntile = tile;
         if (nt < 0) { nt = T - 1; ntile += gridDim.x; }
         if (ntile < ntiles)
-          stage_step<H, BT>(sStage + (s ^ 1) * L::STAGE, gir, giz, gin, douts,
-                            outs, h0, masks, nt, ntile * BT, B);
+          stage_step<H, BT, S>(sStage + (s ^ 1) * L::STAGE_BYTES, gir, giz,
+                               gin, douts, outs, h0, masks, nt, ntile * BT, B);
         cp_async_commit();
       }
-      const float* st = sStage + s * L::STAGE;
-      const float* sM = st + 5 * L::STREAM;
+      const char* stb = sStage + s * L::STAGE_BYTES;
+      const S* st = reinterpret_cast<const S*>(stb);
+      const float* sM = reinterpret_cast<const float*>(stb + 5 * L::STREAM_BYTES);
 
       // hm = hprev * m_t
       for (int e = tid; e < BT * H / 4; e += kThreads) {
         const int r = e / (H / 4);
         const int c = (e - r * (H / 4)) * 4;
-        float4 v = *reinterpret_cast<const float4*>(st + 4 * L::STREAM + r * SS + c);
+        float4 v = load4(st + 4 * L::STREAM + r * SS + c);
         const float m = sM[r];
         v.x *= m; v.y *= m; v.z *= m; v.w *= m;
         *reinterpret_cast<float4*>(sHm + swz(r, c, HS)) = v;
@@ -630,19 +686,20 @@ gru_bwd_kernel_mma(const float* __restrict__ gir, const float* __restrict__ giz,
           const int n = n0 + 2 * q + (p & 1);
           const int o = n * SS + j;
           const float ghn = gh[2][p] + bias[2][hh];
-          const float rg = sigmoid_(st[o] + (gh[0][p] + bias[0][hh]));
-          const float zg = sigmoid_(st[L::STREAM + o] + (gh[1][p] + bias[1][hh]));
-          const float ng = tanhf(st[2 * L::STREAM + o] + rg * ghn);
-          const float dh = carry[p] + st[3 * L::STREAM + o];
+          const float rg = sigmoid_(to_f32(st[o]) + (gh[0][p] + bias[0][hh]));
+          const float zg = sigmoid_(to_f32(st[L::STREAM + o])
+                                    + (gh[1][p] + bias[1][hh]));
+          const float ng = tanhf(to_f32(st[2 * L::STREAM + o]) + rg * ghn);
+          const float dh = carry[p] + to_f32(st[3 * L::STREAM + o]);
           const float dz = dh * (sHm[swz(n, j, HS)] - ng) * zg * (1.0f - zg);
           const float dn = dh * (1.0f - zg) * (1.0f - ng * ng);
           const float dr = dn * ghn * rg * (1.0f - rg);
           const int row = row0 + n;
           if (row < B) {
             const size_t go = (tb + row) * H + j;
-            dgir[go] = dr;
-            dgiz[go] = dz;
-            dgin[go] = dn;
+            dgir[go] = from_f32<S>(dr);
+            dgiz[go] = from_f32<S>(dz);
+            dgin[go] = from_f32<S>(dn);
           }
           sG[swz(n, j, GS)] = dr;
           sG[swz(n, H + j, GS)] = dz;
@@ -763,81 +820,92 @@ gru_bwd_kernel_mma(const float* __restrict__ gir, const float* __restrict__ giz,
 //    block: a block walks the batch tiles blockIdx.x, + gridDim.x, ...
 //  * h of the tile goes to shared memory after each step as the next
 //    step's B operand, double-buffered so that a step needs one barrier;
-//    the B fragment is multiplied by the step's mask as it is loaded. Its
-//    row stride H + 4 makes both the B-fragment loads and the stores from
-//    the accumulator layout free of bank conflicts.
+//    the B fragment is multiplied by the step's mask as it is loaded. It
+//    stays f32 whatever the stream type, and its row stride H + 4 makes
+//    both the B-fragment loads and the stores from the accumulator layout
+//    free of bank conflicts.
 //  * cp.async brings the gir, giz, gin tiles and masks of the next step
 //    (across tile boundaries) into a ring of STAGES shared-memory stages
 //    while this step computes. Two stages are as fast as three or four
 //    (diagnostics/ablate_gru_fwd.py), so the ring keeps one step ahead.
 //  * outs is written from the accumulator layout: a warp's store covers
-//    four rows of 32 bytes, whole sectors.
-// Shared memory, in floats: W^T 3H * H; STAGES = 2 stages of 3 x [BT][H+4]
-// and BT masks; h 2 x [BT][H+4]. At H = 64 that is 84,096 bytes for
-// BT = 16 and 66,624 for BT = 8; two blocks fit an SM.
+//    four rows of 32 bytes (f32), whole sectors, or of 16 bytes (bf16).
+// Shared memory: W^T 3H * H and h 2 x [BT][H+4] in f32; STAGES = 2 stages
+// of 3 x [BT][SS] stream elements and BT f32 masks, SS = H + one 16-byte
+// chunk (H + 4 floats, H + 8 bf16; the bank argument is the backward's).
+// At H = 64 that is 84,096 bytes for
+// BT = 16 and 66,624 for BT = 8; two blocks fit an SM. With bf16 streams
+// it is 71,808 and 60,480.
 // Rows >= B of the ragged tile are copied in as zeros and never written.
 
-template <int H, int BT>
-struct FwdLayout {  // shared memory of gru_fwd_kernel_mma, in floats
+template <int H, int BT, typename S>
+struct FwdLayout {  // shared memory of gru_fwd_kernel_mma; offsets in bytes
   static constexpr int H3 = 3 * H;
   static constexpr int KT = H / 8;   // k-steps of the gate product
-  static constexpr int SS = H + 4;   // row stride of a [BT][H] tile
-  static constexpr int STREAM = BT * SS;
-  static constexpr int STAGE = 3 * STREAM + BT;  // gir giz gin m
+  static constexpr int EPC = 16 / sizeof(S);  // stream elements a chunk
+  static constexpr int SS = H + EPC; // row stride of a staged [BT][H] stream
+  static constexpr int HSS = H + 4;  // row stride of the f32 h tile, words
+  static constexpr int STREAM = BT * SS;    // elements
+  static constexpr int STREAM_BYTES = STREAM * sizeof(S);
+  static constexpr int STAGE_BYTES = 3 * STREAM_BYTES + 4 * BT;  // gir giz gin m
   static constexpr int STAGES = 2;
-  static constexpr int STAGE_OFF = H3 * H;       // after W^T
-  static constexpr int H_OFF = STAGE_OFF + STAGES * STAGE;
-  static constexpr int BYTES = (H_OFF + 2 * STREAM) * 4;
+  static constexpr int STAGE_OFF = 4 * H3 * H;   // after W^T
+  static constexpr int H_OFF = STAGE_OFF + STAGES * STAGE_BYTES;
+  static constexpr int HTILE = BT * HSS;   // words of one h buffer
+  static constexpr int BYTES = H_OFF + 4 * 2 * HTILE;
   static constexpr int THREADS = 32 * (H / 16) * (BT / 8);  // a warp an item
   static constexpr int MIN_BLOCKS = 2;
   static_assert(H % 16 == 0 && BT % 8 == 0, "tile shapes of m16n8k8");
   static_assert(3 * H % BT == 0, "W's copy: 3H / BT float4 a thread");
+  static_assert(STREAM_BYTES % 16 == 0 && STAGE_BYTES % 16 == 0,
+                "16-byte cp.async targets");
 };
 
 // Starts the copies of step t of the tile at row0 into `stage`.
-template <int H, int BT>
-__device__ __forceinline__ void stage_fwd(float* stage, const float* gir,
-                                          const float* giz, const float* gin,
+template <int H, int BT, typename S>
+__device__ __forceinline__ void stage_fwd(char* stage, const S* gir,
+                                          const S* giz, const S* gin,
                                           const float* masks, int t, int row0,
                                           int B) {
-  using L = FwdLayout<H, BT>;
-  constexpr int CH = H / 4;  // 16-byte chunks in a row
+  using L = FwdLayout<H, BT, S>;
+  constexpr int CH = H / L::EPC;  // 16-byte chunks in a row
   const size_t tb = (size_t)t * B;
   for (int e = threadIdx.x; e < 3 * BT * CH; e += L::THREADS) {
     const int i = e / (BT * CH);  // gir, giz, gin
     const int r = (e - i * BT * CH) / CH;
-    const int c = (e % CH) * 4;
+    const int c = (e % CH) * L::EPC;
     const int row = row0 + r;
     const bool ok = row < B;
-    const float* src = i == 0 ? gir : i == 1 ? giz : gin;
-    cp_async16(stage + i * L::STREAM + r * L::SS + c,
+    const S* src = i == 0 ? gir : i == 1 ? giz : gin;
+    cp_async16(reinterpret_cast<S*>(stage + i * L::STREAM_BYTES) + r * L::SS + c,
                src + (tb + (ok ? row : 0)) * H + c, ok);
   }
+  float* m = reinterpret_cast<float*>(stage + 3 * L::STREAM_BYTES);
   for (int r = threadIdx.x; r < BT; r += L::THREADS) {
     const int row = row0 + r;
-    cp_async4(stage + 3 * L::STREAM + r, masks + tb + (row < B ? row : 0),
-              row < B);
+    cp_async4(m + r, masks + tb + (row < B ? row : 0), row < B);
   }
 }
 
-template <int H, int BT>
-__global__ void __launch_bounds__(FwdLayout<H, BT>::THREADS,
-                                  FwdLayout<H, BT>::MIN_BLOCKS)
-gru_fwd_kernel_mma(const float* __restrict__ gir, const float* __restrict__ giz,
-                   const float* __restrict__ gin,
+template <int H, int BT, typename S>
+__global__ void __launch_bounds__(FwdLayout<H, BT, S>::THREADS,
+                                  FwdLayout<H, BT, S>::MIN_BLOCKS)
+gru_fwd_kernel_mma(const S* __restrict__ gir, const S* __restrict__ giz,
+                   const S* __restrict__ gin,
                    const float* __restrict__ masks,  // [T, B]
                    const float* __restrict__ h0,     // [B, H]
                    const float* __restrict__ w_hh,   // [H, 3H]
                    const float* __restrict__ b_hh,   // [3H]
-                   float* __restrict__ outs,         // [T, B, H]
+                   S* __restrict__ outs,             // [T, B, H]
                    float* __restrict__ hT,           // [B, H]
                    int T, int B) {
-  using L = FwdLayout<H, BT>;
-  constexpr int H3 = L::H3, KT = L::KT, SS = L::SS, MT = H / 16;
+  using L = FwdLayout<H, BT, S>;
+  constexpr int H3 = L::H3, KT = L::KT, SS = L::SS, HSS = L::HSS, MT = H / 16;
   extern __shared__ __align__(16) float fwd_smem[];
+  char* const base = reinterpret_cast<char*>(fwd_smem);
   float* sW = fwd_smem;
-  float* sStage = fwd_smem + L::STAGE_OFF;
-  float* sH = fwd_smem + L::H_OFF;
+  char* sStage = base + L::STAGE_OFF;
+  float* sH = reinterpret_cast<float*>(base + L::H_OFF);
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, q = lane & 3;
@@ -848,8 +916,8 @@ gru_fwd_kernel_mma(const float* __restrict__ gir, const float* __restrict__ giz,
   int pt = 0, ptile = blockIdx.x, ps = 0;
   auto issue = [&]() {
     if (ptile < ntiles)
-      stage_fwd<H, BT>(sStage + ps * L::STAGE, gir, giz, gin, masks, pt,
-                       ptile * BT, B);
+      stage_fwd<H, BT, S>(sStage + ps * L::STAGE_BYTES, gir, giz, gin, masks,
+                          pt, ptile * BT, B);
     cp_async_commit();  // one group a step, empty past the last tile
     if (++pt == T) { pt = 0; ptile += gridDim.x; }
     ps = ps + 1 == L::STAGES ? 0 : ps + 1;
@@ -896,18 +964,19 @@ gru_fwd_kernel_mma(const float* __restrict__ gir, const float* __restrict__ giz,
     for (int p = 0; p < 4; ++p) {
       const int n = n0 + 2 * q + (p & 1), j = u0 + g + 8 * (p >> 1);
       h[p] = row0 + n < B ? h0[(size_t)(row0 + n) * H + j] : 0.0f;
-      sH[hb * L::STREAM + n * SS + j] = h[p];
+      sH[hb * L::HTILE + n * HSS + j] = h[p];
     }
     for (int t = 0; t < T; ++t) {
       cp_async_wait<L::STAGES - 2>();
       __syncthreads();  // stage s and h have landed; last step's reads done
       issue();          // into the stage that the last step read
-      const float* stg = sStage + s * L::STAGE;
-      const float* sM = stg + 3 * L::STREAM;
+      const char* stb = sStage + s * L::STAGE_BYTES;
+      const S* stg = reinterpret_cast<const S*>(stb);
+      const float* sM = reinterpret_cast<const float*>(stb + 3 * L::STREAM_BYTES);
 
       // gates: gh^T = W^T . hm^T
       float big[3][4] = {}, small[3][4] = {};
-      const float* hr = sH + hb * L::STREAM + (n0 + g) * SS + q;
+      const float* hr = sH + hb * L::HTILE + (n0 + g) * HSS + q;
       const float mb = sM[n0 + g];  // the mask of this lane's B column
 #pragma unroll
       for (int kt = 0; kt < KT; ++kt) {
@@ -925,7 +994,7 @@ gru_fwd_kernel_mma(const float* __restrict__ gir, const float* __restrict__ giz,
       }
 
       // gate math of this thread's pairs; h to registers, shared, outs
-      float* hn = sH + (hb ^ 1) * L::STREAM;
+      float* hn = sH + (hb ^ 1) * L::HTILE;
       const size_t tb = (size_t)t * B;
 #pragma unroll
       for (int p = 0; p < 4; ++p) {
@@ -933,15 +1002,15 @@ gru_fwd_kernel_mma(const float* __restrict__ gir, const float* __restrict__ giz,
         const int n = n0 + 2 * q + (p & 1), j = u0 + g + 8 * hh;
         const int o = n * SS + j;
         const float hm = h[p] * sM[n];
-        const float rg = sigmoid_(stg[o]
+        const float rg = sigmoid_(to_f32(stg[o])
                                   + ((big[0][p] + small[0][p]) + bias[0][hh]));
-        const float zg = sigmoid_(stg[L::STREAM + o]
+        const float zg = sigmoid_(to_f32(stg[L::STREAM + o])
                                   + ((big[1][p] + small[1][p]) + bias[1][hh]));
         const float ghn = (big[2][p] + small[2][p]) + bias[2][hh];
-        const float ng = tanhf(stg[2 * L::STREAM + o] + rg * ghn);
+        const float ng = tanhf(to_f32(stg[2 * L::STREAM + o]) + rg * ghn);
         h[p] = (1.0f - zg) * ng + zg * hm;
-        hn[o] = h[p];
-        if (row0 + n < B) outs[(tb + row0 + n) * H + j] = h[p];
+        hn[n * HSS + j] = h[p];
+        if (row0 + n < B) outs[(tb + row0 + n) * H + j] = from_f32<S>(h[p]);
       }
       s = s + 1 == L::STAGES ? 0 : s + 1;
       hb ^= 1;
@@ -998,118 +1067,105 @@ size_t simt_bwd_bytes(int H, int bt, bool smem_w) {
   return floats * sizeof(float);
 }
 
-template <bool kSmemW>
-cudaError_t launch_fwd(const float* gir, const float* giz, const float* gin,
+// True when every pointer is 16-byte aligned (cp.async and float4 sources).
+bool aligned16(std::initializer_list<const void*> ptrs) {
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
+  return true;
+}
+
+template <bool kSmemW, typename S>
+cudaError_t launch_fwd(const S* gir, const S* giz, const S* gin,
                        const float* masks, const float* h0, const float* w_hh,
-                       const float* b_hh, float* outs, float* hT, int T,
-                       int B, int H, int bt, size_t bytes,
-                       cudaStream_t stream) {
+                       const float* b_hh, S* outs, float* hT, int T, int B,
+                       int H, int bt, size_t bytes, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      gru_fwd_kernel<kSmemW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      gru_fwd_kernel<kSmemW, S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)bytes);
   if (err != cudaSuccess) return err;
   const int grid = (B + bt - 1) / bt;
-  gru_fwd_kernel<kSmemW><<<grid, kThreads, bytes, stream>>>(
+  gru_fwd_kernel<kSmemW, S><<<grid, kThreads, bytes, stream>>>(
       gir, giz, gin, masks, h0, w_hh, b_hh, outs, hT, T, B, H, bt);
   return cudaGetLastError();
 }
 
-template <int H, int BT>
-cudaError_t launch_fwd_mma(const float* gir, const float* giz,
-                           const float* gin, const float* masks,
-                           const float* h0, const float* w_hh,
-                           const float* b_hh, float* outs, float* hT, int T,
-                           int B, int grid, size_t bytes,
+template <int H, int BT, typename S>
+cudaError_t launch_fwd_mma(const S* gir, const S* giz, const S* gin,
+                           const float* masks, const float* h0,
+                           const float* w_hh, const float* b_hh, S* outs,
+                           float* hT, int T, int B, int grid, size_t bytes,
                            cudaStream_t stream) {
-  using L = FwdLayout<H, BT>;
+  using L = FwdLayout<H, BT, S>;
   if (bytes != (size_t)L::BYTES || grid > (B + BT - 1) / BT)
     return cudaErrorInvalidValue;
   // cp.async and the copy of W move 16-byte chunks of these; refuse before
   // a misaligned access faults the context
-  for (const float* p : {gir, giz, gin, w_hh})
-    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return cudaErrorInvalidValue;
+  if (!aligned16({gir, giz, gin, w_hh})) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      gru_fwd_kernel_mma<H, BT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
+      gru_fwd_kernel_mma<H, BT, S>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
-  gru_fwd_kernel_mma<H, BT><<<grid, L::THREADS, bytes, stream>>>(
+  gru_fwd_kernel_mma<H, BT, S><<<grid, L::THREADS, bytes, stream>>>(
       gir, giz, gin, masks, h0, w_hh, b_hh, outs, hT, T, B);
   return cudaGetLastError();
 }
 
-template <bool kSmemW>
-cudaError_t launch_bwd(const float* gir, const float* giz, const float* gin,
-                       const float* outs, const float* masks, const float* h0,
-                       const float* douts, const float* dhT,
-                       const float* w_hh, const float* b_hh, float* dgir,
-                       float* dgiz, float* dgin, float* dh0, float* partial,
-                       int T, int B, int H, int bt, size_t bytes,
-                       cudaStream_t stream) {
+template <bool kSmemW, typename S>
+cudaError_t launch_bwd(const S* gir, const S* giz, const S* gin,
+                       const S* outs, const float* masks, const S* h0,
+                       const S* douts, const float* dhT, const float* w_hh,
+                       const float* b_hh, S* dgir, S* dgiz, S* dgin,
+                       float* dh0, float* partial, int T, int B, int H,
+                       int bt, size_t bytes, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      gru_bwd_kernel<kSmemW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      gru_bwd_kernel<kSmemW, S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)bytes);
   if (err != cudaSuccess) return err;
-  gru_bwd_kernel<kSmemW><<<(B + bt - 1) / bt, kThreads, bytes, stream>>>(
+  gru_bwd_kernel<kSmemW, S><<<(B + bt - 1) / bt, kThreads, bytes, stream>>>(
       gir, giz, gin, outs, masks, h0, douts, dhT, w_hh, b_hh, dgir, dgiz,
       dgin, dh0, partial, T, B, H, bt);
   return cudaGetLastError();
 }
 
-template <int H, int BT>
-cudaError_t launch_bwd_mma(const float* gir, const float* giz,
-                           const float* gin, const float* outs,
-                           const float* masks, const float* h0,
-                           const float* douts, const float* dhT,
-                           const float* w_hh, const float* b_hh, float* dgir,
-                           float* dgiz, float* dgin, float* dh0,
-                           float* partial, int T, int B, int grid,
-                           size_t bytes, cudaStream_t stream) {
-  if (bytes != (size_t)MmaLayout<H, BT>::BYTES) return cudaErrorInvalidValue;
+template <int H, int BT, typename S>
+cudaError_t launch_bwd_mma(const S* gir, const S* giz, const S* gin,
+                           const S* outs, const float* masks, const S* h0,
+                           const S* douts, const float* dhT,
+                           const float* w_hh, const float* b_hh, S* dgir,
+                           S* dgiz, S* dgin, float* dh0, float* partial,
+                           int T, int B, int grid, size_t bytes,
+                           cudaStream_t stream) {
+  if (bytes != (size_t)MmaLayout<H, BT, S>::BYTES) return cudaErrorInvalidValue;
   // cp.async moves 16-byte chunks of these; refuse before a misaligned copy
   // faults the context
-  for (const float* p : {gir, giz, gin, outs, h0, douts, w_hh})
-    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return cudaErrorInvalidValue;
+  if (!aligned16({gir, giz, gin, outs, h0, douts, w_hh}))
+    return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      gru_bwd_kernel_mma<H, BT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
+      gru_bwd_kernel_mma<H, BT, S>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
-  gru_bwd_kernel_mma<H, BT><<<grid, kThreads, bytes, stream>>>(
+  gru_bwd_kernel_mma<H, BT, S><<<grid, kThreads, bytes, stream>>>(
       gir, giz, gin, outs, masks, h0, douts, dhT, w_hh, b_hh, dgir, dgiz,
       dgin, dh0, partial, T, B);
   return cudaGetLastError();
 }
-
-}  // namespace
-
-extern "C" {
 
 // Kernel variants of both entries, as ops/cuda_gru.py:fwd_plan and
 // bwd_plan choose them: the CUDA-core kernel with W read from global memory
 // or held in shared memory, and the tensor-core one.
 enum { kGlobalW = 0, kSmemW = 1, kMma = 2 };
 
-// Each entry launches on `stream` and returns cudaGetLastError() (0 = ok);
-// 1 (cudaErrorInvalidValue) for a shape or plan the kernels do not take.
-
-// Launches the forward `variant` on `grid` blocks of `bt` batch rows with
-// `smem_bytes` of dynamic shared memory. The CUDA-core variants need
-// grid = ceil(B / bt); the tensor-core one H in {16, 32, 48, 64}, bt in
-// {8, 16}, grid <= ceil(B / bt), 16-byte aligned gi streams and W, and its
-// layout's bytes.
-int gru_seq_fwd(const float* gir, const float* giz, const float* gin,
-                const float* masks, const float* h0, const float* w_hh,
-                const float* b_hh, float* outs, float* hT, int T, int B,
-                int H, int variant, int bt, int grid, int smem_bytes,
-                void* stream) {
-  if (T <= 0 || B <= 0 || H <= 0 || bt <= 0 || grid <= 0)
-    return cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  const size_t bytes = (size_t)smem_bytes;
+template <typename S>
+cudaError_t fwd_entry(const S* gir, const S* giz, const S* gin,
+                      const float* masks, const float* h0, const float* w_hh,
+                      const float* b_hh, S* outs, float* hT, int T, int B,
+                      int H, int variant, int bt, int grid, size_t bytes,
+                      cudaStream_t s) {
   if (variant == kMma) {
 #define GRU_FWD_MMA(HH, BB)                                                  \
   if (H == HH && bt == BB)                                                   \
-    return launch_fwd_mma<HH, BB>(gir, giz, gin, masks, h0, w_hh, b_hh,     \
-                                  outs, hT, T, B, grid, bytes, s);
+    return launch_fwd_mma<HH, BB, S>(gir, giz, gin, masks, h0, w_hh, b_hh,  \
+                                     outs, hT, T, B, grid, bytes, s);
     GRU_FWD_MMA(16, 8) GRU_FWD_MMA(16, 16) GRU_FWD_MMA(32, 8)
     GRU_FWD_MMA(32, 16) GRU_FWD_MMA(48, 8) GRU_FWD_MMA(48, 16)
     GRU_FWD_MMA(64, 8) GRU_FWD_MMA(64, 16)
@@ -1117,9 +1173,84 @@ int gru_seq_fwd(const float* gir, const float* giz, const float* gin,
   } else if ((variant == kGlobalW || variant == kSmemW) &&
              !bad_shape(T, B, H, bt) && grid == (B + bt - 1) / bt &&
              bytes == simt_fwd_bytes(H, bt, variant == kSmemW)) {
-    return (variant == kSmemW ? launch_fwd<true> : launch_fwd<false>)(
+    return (variant == kSmemW ? launch_fwd<true, S> : launch_fwd<false, S>)(
         gir, giz, gin, masks, h0, w_hh, b_hh, outs, hT, T, B, H, bt, bytes,
         s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <typename S>
+cudaError_t bwd_entry(const S* gir, const S* giz, const S* gin,
+                      const S* outs, const float* masks, const S* h0,
+                      const S* douts, const float* dhT, const float* w_hh,
+                      const float* b_hh, S* dgir, S* dgiz, S* dgin,
+                      float* dh0, float* dw_hh, float* db_hh, float* partial,
+                      int T, int B, int H, int variant, int bt, int grid,
+                      size_t bytes, cudaStream_t s) {
+  cudaError_t err = cudaErrorInvalidValue;
+  if (variant == kMma) {
+#define GRU_BWD_MMA(HH, BB)                                                  \
+  if (H == HH && bt == BB)                                                   \
+    err = launch_bwd_mma<HH, BB, S>(gir, giz, gin, outs, masks, h0, douts,  \
+                                    dhT, w_hh, b_hh, dgir, dgiz, dgin, dh0, \
+                                    partial, T, B, grid, bytes, s);
+    GRU_BWD_MMA(16, 8) GRU_BWD_MMA(16, 16) GRU_BWD_MMA(32, 8)
+    GRU_BWD_MMA(32, 16) GRU_BWD_MMA(48, 8) GRU_BWD_MMA(48, 16)
+    GRU_BWD_MMA(64, 8) GRU_BWD_MMA(64, 16)
+#undef GRU_BWD_MMA
+  } else if ((variant == kGlobalW || variant == kSmemW) &&
+             !bad_shape(T, B, H, bt) && grid == (B + bt - 1) / bt &&
+             bytes == simt_bwd_bytes(H, bt, variant == kSmemW)) {
+    err = (variant == kSmemW ? launch_bwd<true, S> : launch_bwd<false, S>)(
+        gir, giz, gin, outs, masks, h0, douts, dhT, w_hh, b_hh, dgir, dgiz,
+        dgin, dh0, partial, T, B, H, bt, bytes, s);
+  }
+  if (err != cudaSuccess) return err;
+  const int nacc = (H + 1) * 3 * H;
+  const int rgrid = (nacc + kThreads - 1) / kThreads;
+  gru_bwd_reduce<<<rgrid, kThreads, 0, s>>>(partial, grid, H, dw_hh, db_hh);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Stream types of both entries' `stream_type`: the element type of the
+// [T, B, H] sequence streams (ops/cuda_gru.py:STREAM_TYPES).
+enum { kF32 = 0, kBF16 = 1 };
+
+// Each entry launches on `stream` and returns cudaGetLastError() (0 = ok);
+// 1 (cudaErrorInvalidValue) for a shape, plan or stream type the kernels do
+// not take.
+
+// Launches the forward `variant` on `grid` blocks of `bt` batch rows with
+// `smem_bytes` of dynamic shared memory. gir, giz, gin and outs are
+// [T, B, H] streams of `stream_type`; everything else is f32. The
+// CUDA-core variants need grid = ceil(B / bt); the tensor-core one H in
+// {16, 32, 48, 64}, bt in {8, 16}, grid <= ceil(B / bt), 16-byte aligned gi
+// streams and W, and its layout's bytes.
+int gru_seq_fwd(const void* gir, const void* giz, const void* gin,
+                const float* masks, const float* h0, const float* w_hh,
+                const float* b_hh, void* outs, float* hT, int T, int B,
+                int H, int variant, int bt, int grid, int smem_bytes,
+                int stream_type, void* stream) {
+  if (T <= 0 || B <= 0 || H <= 0 || bt <= 0 || grid <= 0)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const size_t bytes = (size_t)smem_bytes;
+  if (stream_type == kF32) {
+    using S = float;
+    return fwd_entry<S>((const S*)gir, (const S*)giz, (const S*)gin, masks,
+                        h0, w_hh, b_hh, (S*)outs, hT, T, B, H, variant, bt,
+                        grid, bytes, s);
+  }
+  if (stream_type == kBF16) {
+    using S = __nv_bfloat16;
+    return fwd_entry<S>((const S*)gir, (const S*)giz, (const S*)gin, masks,
+                        h0, w_hh, b_hh, (S*)outs, hT, T, B, H, variant, bt,
+                        grid, bytes, s);
   }
   return cudaErrorInvalidValue;
 }
@@ -1129,43 +1260,40 @@ int gru_smem_optin() { return max_dynamic_smem(); }
 
 // Launches the backward `variant` on `grid` blocks of `bt` batch rows with
 // `smem_bytes` of dynamic shared memory, then the partials' reduction.
-// `partial` holds grid * (H + 1) * 3H floats of scratch. The CUDA-core
-// variants need grid = ceil(B / bt); the tensor-core one H in {16, 32, 48,
-// 64}, bt in {8, 16}, 16-byte aligned streams and W, and its layout's bytes.
-int gru_seq_bwd(const float* gir, const float* giz, const float* gin,
-                const float* outs, const float* masks, const float* h0,
-                const float* douts, const float* dhT, const float* w_hh,
-                const float* b_hh, float* dgir, float* dgiz, float* dgin,
+// gir, giz, gin, outs, h0 (hprev at t = 0: the forward's h0 in the stream
+// type), douts and dgir, dgiz, dgin are of `stream_type`; everything else
+// is f32. `partial` holds grid * (H + 1) * 3H floats of scratch. The
+// CUDA-core variants need grid = ceil(B / bt); the tensor-core one H in
+// {16, 32, 48, 64}, bt in {8, 16}, 16-byte aligned streams and W, and its
+// layout's bytes.
+int gru_seq_bwd(const void* gir, const void* giz, const void* gin,
+                const void* outs, const float* masks, const void* h0,
+                const void* douts, const float* dhT, const float* w_hh,
+                const float* b_hh, void* dgir, void* dgiz, void* dgin,
                 float* dh0, float* dw_hh, float* db_hh, float* partial,
                 int T, int B, int H, int variant, int bt, int grid,
-                int smem_bytes, void* stream) {
+                int smem_bytes, int stream_type, void* stream) {
   if (T <= 0 || B <= 0 || H <= 0 || bt <= 0 || grid <= 0)
     return cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const size_t bytes = (size_t)smem_bytes;
-  cudaError_t err = cudaErrorInvalidValue;
-  if (variant == kMma) {
-#define GRU_BWD_MMA(HH, BB)                                                  \
-  if (H == HH && bt == BB)                                                   \
-    err = launch_bwd_mma<HH, BB>(gir, giz, gin, outs, masks, h0, douts, dhT, \
-                                 w_hh, b_hh, dgir, dgiz, dgin, dh0, partial, \
-                                 T, B, grid, bytes, s);
-    GRU_BWD_MMA(16, 8) GRU_BWD_MMA(16, 16) GRU_BWD_MMA(32, 8)
-    GRU_BWD_MMA(32, 16) GRU_BWD_MMA(48, 8) GRU_BWD_MMA(48, 16)
-    GRU_BWD_MMA(64, 8) GRU_BWD_MMA(64, 16)
-#undef GRU_BWD_MMA
-  } else if ((variant == kGlobalW || variant == kSmemW) &&
-             !bad_shape(T, B, H, bt) && grid == (B + bt - 1) / bt &&
-             bytes == simt_bwd_bytes(H, bt, variant == kSmemW)) {
-    err = (variant == kSmemW ? launch_bwd<true> : launch_bwd<false>)(
-        gir, giz, gin, outs, masks, h0, douts, dhT, w_hh, b_hh, dgir, dgiz,
-        dgin, dh0, partial, T, B, H, bt, bytes, s);
+  if (stream_type == kF32) {
+    using S = float;
+    return bwd_entry<S>((const S*)gir, (const S*)giz, (const S*)gin,
+                        (const S*)outs, masks, (const S*)h0, (const S*)douts,
+                        dhT, w_hh, b_hh, (S*)dgir, (S*)dgiz, (S*)dgin, dh0,
+                        dw_hh, db_hh, partial, T, B, H, variant, bt, grid,
+                        bytes, s);
   }
-  if (err != cudaSuccess) return err;
-  const int nacc = (H + 1) * 3 * H;
-  const int rgrid = (nacc + kThreads - 1) / kThreads;
-  gru_bwd_reduce<<<rgrid, kThreads, 0, s>>>(partial, grid, H, dw_hh, db_hh);
-  return cudaGetLastError();
+  if (stream_type == kBF16) {
+    using S = __nv_bfloat16;
+    return bwd_entry<S>((const S*)gir, (const S*)giz, (const S*)gin,
+                        (const S*)outs, masks, (const S*)h0, (const S*)douts,
+                        dhT, w_hh, b_hh, (S*)dgir, (S*)dgiz, (S*)dgin, dh0,
+                        dw_hh, db_hh, partial, T, B, H, variant, bt, grid,
+                        bytes, s);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -3,9 +3,12 @@
 Port of `onpolicy_tpu/models/actor_critic.py`: `Actor`/`Critic` hold the
 config and spaces and expose init/apply functions over explicit parameter
 trees (nested dicts of tensors in the JAX layout). Two layouts:
-  * flat batch `[B, ...]` — rollout steps (`forward`);
-  * sequence `[L, B, ...]` — chunked-BPTT training through
-    `gru.sequence` (the CUDA kernels on the card).
+  * flat batch `[B, ...]` — rollout steps (`forward`) and the
+    feed-forward policy's training evaluation (`Actor.evaluate`);
+  * sequence `[L, B, ...]` — chunked-BPTT and naive-recurrent training
+    through `gru.sequence` (the CUDA kernels on the card).
+Under `use_bf16` the bases and the GRU compute in bf16 and the heads in
+f32 (`act.py` and the value head take `x.float()`).
 Image observations (`models/cnn.py`) come with Slice B (ROADMAP.md).
 """
 from __future__ import annotations
@@ -58,6 +61,16 @@ class Actor:
             available_actions, actions)
         return actions, log_probs, rnn_states
 
+    def evaluate(self, params, obs, rnn_states, action, masks,
+                 available_actions=None, active_masks=None):
+        """Flat-batch evaluation (feed-forward, or one recurrent step):
+        obs [B, ...] → ([B, 1] log-probs, scalar entropy)."""
+        x = mlp.apply(self.cfg, params["base"], obs)
+        if self.cfg.is_recurrent:
+            x, _ = gru.step(self.cfg, params["rnn"], x, rnn_states, masks)
+        return act_layer.evaluate(self.cfg, params["act"], self.action_space,
+                                  x, action, available_actions, active_masks)
+
     def evaluate_seq(self, params, obs, rnn_states, action, masks,
                      available_actions=None, active_masks=None):
         """obs/action/masks [L, B, ...], rnn_states [B, N, H] at the chunk
@@ -97,6 +110,19 @@ class Critic:
             x, rnn_states = gru.step(self.cfg, params["rnn"], x, rnn_states,
                                      masks)
         return common.linear_apply(params["v_out"], x.float()), rnn_states
+
+    def forward_dedup(self, params, cent_obs, rnn_states, masks):
+        """`use_critic_dedup`: inputs [..., M, ...] whose centralized
+        observation is the same for every one of an env's M agents →
+        values [..., M, 1]. The critic runs on agent 0's row and the value
+        is broadcast to the M agents, which is exact (autograd sums the
+        agents' cotangents through the broadcast). The critic is
+        feed-forward, so the rnn states pass through unused."""
+        lead = cent_obs.dim() - 2       # the agents' axis
+        pick = lambda x: x.select(lead, 0)
+        v, _ = self.forward(params, pick(cent_obs), pick(rnn_states),
+                            pick(masks))
+        return v.unsqueeze(lead).expand(*cent_obs.shape[:lead + 1], 1)
 
     def forward_seq(self, params, cent_obs, rnn_states, masks):
         """[L, B, ...] → values [L, B, 1]."""

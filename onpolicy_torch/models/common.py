@@ -12,6 +12,8 @@ import math
 
 import torch
 
+from onpolicy_torch.utils.tree import tree_map
+
 LN_EPS = 1e-5  # torch nn.LayerNorm default
 
 
@@ -57,12 +59,32 @@ def layer_norm_init(dim: int, device):
 
 
 def layer_norm_apply(p, x):
-    """Biased variance, as `jnp.var` (`common.py:57-61`)."""
-    mean = x.mean(-1, keepdim=True)
-    var = (x - mean).square().mean(-1, keepdim=True)
+    """Biased variance, as `jnp.var` (`common.py:57-61`). The two moments
+    are taken in f32 and rounded to x's type, as `jnp.mean` and `jnp.var`
+    do for bf16; on f32 the casts are the identity."""
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    var = (xf - mean).square().mean(-1, keepdim=True)
+    mean, var = mean.to(x.dtype), var.to(x.dtype)
     y = (x - mean) * torch.rsqrt(var + LN_EPS)
     return y * p["scale"] + p["bias"]
 
 
 def activation_fn(use_relu: bool):
     return torch.relu if use_relu else torch.tanh
+
+
+def compute_dtype(cfg):
+    """bf16 mixed precision (cfg.use_bf16, `common.py:68-71`): the MLP's and
+    the GRU's matmuls and LayerNorms run in bfloat16; parameters, heads,
+    distributions, losses and the optimizer stay float32."""
+    return torch.bfloat16 if getattr(cfg, "use_bf16", False) else torch.float32
+
+
+def cast_floats(tree, dtype):
+    """Float leaves of a parameter subtree cast to the compute dtype (the
+    tree itself for f32); other leaves pass through."""
+    if dtype == torch.float32:
+        return tree
+    return tree_map(lambda x: x.to(dtype) if x.is_floating_point() else x,
+                    tree)

@@ -4,12 +4,16 @@ Port of `onpolicy_tpu/models/gru.py`. Two modes:
 
   * single step (rollout, `step`): the hidden state is multiplied by the
     episode mask before the cell. Plain torch, as in the JAX package,
-    which also computes it outside any kernel;
+    which also computes it outside any kernel; under `use_bf16` in bf16
+    (parameters, state and mask cast), the new state returned in f32;
   * sequence (training, `sequence`): the gated form `h ← h·mask_t` at
     every step over [T, B, ...]. For tensors on the card it runs the CUDA
     kernels of `ops/cuda_gru.py`, always: there is no routing rule by
     width. For tensors on the CPU it runs `scan_sequence`, the plain time
-    loop, which is also the tests' reference.
+    loop, which is also the tests' reference. Under `use_bf16` it follows
+    the kernels' semantics on both devices (bf16 [T, B, H] streams, f32
+    state, weights and gate math, `pallas_gru.py:310-320`): on the CPU
+    through the kernels' plain versions, not a bf16 scan.
 
 Gate math matches torch.nn.GRU (gate order r, z, n; b_ih and b_hh kept
 separate so the r·(W_hn h + b_hn) coupling is exact). Weights are stored
@@ -21,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from onpolicy_torch.models import common as cm
+from onpolicy_torch.ops import cuda_gru
 
 
 def init(cfg, input_dim: int, generator: torch.Generator, device):
@@ -54,14 +59,18 @@ def _cell(layer, x, h):
 
 def step(cfg, params, x, hxs, masks):
     """Single rollout step. x: [B, in]; hxs: [B, recurrent_N, H];
-    masks: [B, 1]. Returns (out [B, H], new_hxs [B, recurrent_N, H])."""
-    hxs = hxs * masks[..., None]
+    masks: [B, 1]. Returns (out [B, H] in the compute dtype, new_hxs
+    [B, recurrent_N, H] f32)."""
+    dt = cm.compute_dtype(cfg)
+    params = cm.cast_floats(params, dt)
+    hxs = hxs.to(dt) * masks[..., None].to(dt)
     new_h = []
-    inp = x
+    inp = x.to(dt)
     for i, layer in enumerate(params["layers"]):
         inp = _cell(layer, inp, hxs[:, i])
         new_h.append(inp)
-    return cm.layer_norm_apply(params["norm"], inp), torch.stack(new_h, 1)
+    return (cm.layer_norm_apply(params["norm"], inp),
+            torch.stack(new_h, 1).float())
 
 
 def scan_sequence(params, xs, hxs, masks):
@@ -85,17 +94,20 @@ def sequence(cfg, params, xs, hxs, masks):
     """xs [T, B, in]; hxs [B, recurrent_N, H]; masks [T, B, 1].
     Returns (outs [T, B, H], final hxs [B, recurrent_N, H]).
 
-    On the card: the CUDA kernels, always. On the CPU: the plain scan;
-    `use_pallas_gru=True` there raises, as the kernels exist only on the
-    card, and `use_pallas_gru=False` on the card raises likewise."""
+    On the card: the CUDA kernels, always. On the CPU: the plain scan in
+    f32, and under `use_bf16` the kernels' plain versions with bf16
+    streams; `use_pallas_gru=True` there raises, as the kernels exist only
+    on the card, and `use_pallas_gru=False` on the card raises likewise."""
     explicit = getattr(cfg, "use_pallas_gru", None)
+    dt = cm.compute_dtype(cfg)
     if xs.is_cuda:
         if explicit is False:
             raise ValueError("use_pallas_gru=False: the plain GRU scan is "
                              "the CPU path, not a path on the card")
-        from onpolicy_torch.ops import cuda_gru
-        return cuda_gru.sequence(params, xs, hxs, masks)
+        return cuda_gru.sequence(params, xs, hxs, masks, dt)
     if explicit:
         raise ValueError("use_pallas_gru=True on CPU tensors: the GRU "
                          "kernels run on the card only")
+    if dt != torch.float32:
+        return cuda_gru.sequence(params, xs, hxs, masks, dt)
     return scan_sequence(params, xs, hxs, masks)

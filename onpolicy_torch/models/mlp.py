@@ -32,7 +32,11 @@ def init(cfg, input_dim: int, generator: torch.Generator, device):
 
 
 def apply(cfg, params, x: torch.Tensor) -> torch.Tensor:
+    """Features in the compute dtype (`cm.compute_dtype`)."""
     act = cm.activation_fn(cfg.use_ReLU)
+    dt = cm.compute_dtype(cfg)
+    params = cm.cast_floats(params, dt)
+    x = x.to(dt)
     if cfg.use_feature_normalization:
         x = cm.layer_norm_apply(params["feature_norm"], x)
     for layer in params["layers"]:

@@ -16,10 +16,16 @@ with the same seed. `rollout` takes optional per-step injections (the
 actions and the reset states), so a test can hold it in lockstep with
 another implementation.
 
+It trains the shared-policy algorithms rmappo, mappo and ippo. With
+`use_critic_dedup` (feed-forward mappo, centralized V) the critic runs on
+one row per env in the rollout step and in the bootstrap, since
+share_obs is the same for every agent of an env, and the value is
+broadcast to the agents.
+
 Not ported yet, and refused here with their ROADMAP.md items: eval
 (`use_eval`), `episodes_per_call > 1`, the profiler trace
-(`profile_dir`), multi-device meshes, `use_critic_dedup`, and every
-algorithm but rmappo.
+(`profile_dir`), multi-device meshes, and the separated-policy and
+transformer algorithms.
 """
 from __future__ import annotations
 
@@ -40,9 +46,9 @@ from onpolicy_torch.utils import spaces as sp
 def refuse_unported(cfg):
     """Raise NotImplementedError for options whose port is still to come."""
     todo = []
-    if cfg.algorithm_name != "rmappo":
+    if cfg.algorithm_name not in ("rmappo", "mappo", "ippo"):
         todo.append(f"algorithm {cfg.algorithm_name!r} (ROADMAP.md Queue 1 "
-                    "items A4 and 10-14; the port trains rmappo)")
+                    "items 11-14; the port trains rmappo, mappo and ippo)")
     if cfg.use_eval:
         todo.append("use_eval (ROADMAP.md Queue 1 item A2)")
     if cfg.episodes_per_call > 1:
@@ -51,8 +57,6 @@ def refuse_unported(cfg):
         todo.append("profile_dir (ROADMAP.md Queue 1 item A3)")
     if int(np.prod(cfg.mesh_shape)) > 1:
         todo.append("multi-device mesh_shape (ROADMAP.md Queue 1 item 18)")
-    if cfg.use_critic_dedup:
-        todo.append("use_critic_dedup (ROADMAP.md Queue 1 item A4)")
     if todo:
         raise NotImplementedError("not ported yet: " + "; ".join(todo))
 
@@ -121,6 +125,20 @@ class SharedRunner:
         N, M, D = obs.shape
         return obs.reshape(N, 1, M * D).expand(N, M, M * D)
 
+    def _values(self, train_state, share_obs, rnn_critic, masks):
+        """Critic values [N, M, 1] and its next rnn states [N, M, L, H].
+        With `use_critic_dedup` they come from `Critic.forward_dedup` (one
+        critic row per env) and the rnn states pass through."""
+        N, M = self.N, self.num_agents
+        critic, params = self.algo.critic, train_state.critic_params
+        if self.cfg.use_critic_dedup:
+            return critic.forward_dedup(params, share_obs, rnn_critic,
+                                        masks), rnn_critic
+        flat = lambda x: x.reshape(N * M, *x.shape[2:])
+        v, rnn = critic.forward(params, flat(share_obs), flat(rnn_critic),
+                                flat(masks))
+        return v.reshape(N, M, 1), rnn.reshape(rnn_critic.shape)
+
     # ---- one training episode ----------------------------------------
     @torch.no_grad()
     def rollout(self, train_state, carry, inject: Optional[Sequence[dict]] = None):
@@ -139,10 +157,12 @@ class SharedRunner:
             given = inj.get("actions")
             obs = c["obs"]
             share_obs = self._share_obs(obs)
-            values, actions, logp, rnn_a, rnn_c = self.algo.get_actions(
-                train_state, flat(share_obs), flat(obs), flat(c["rnn_actor"]),
-                flat(c["rnn_critic"]), flat(c["masks"]), self.generator,
+            actions, logp, rnn_a = self.algo.actor.forward(
+                train_state.actor_params, flat(obs), flat(c["rnn_actor"]),
+                flat(c["masks"]), self.generator,
                 actions=None if given is None else flat(given))
+            values, rnn_c = self._values(train_state, share_obs,
+                                         c["rnn_critic"], c["masks"])
             actions_env = unflat(actions)
             env_states, obs2, rewards, dones = self.envs.step(
                 c["env_states"], actions_env, inj.get("reset_states"))
@@ -151,11 +171,11 @@ class SharedRunner:
                 "rnn_states": c["rnn_actor"],
                 "rnn_states_critic": c["rnn_critic"],
                 "actions": actions_env, "action_log_probs": unflat(logp),
-                "value_preds": unflat(values), "rewards": rewards,
+                "value_preds": values, "rewards": rewards,
                 "masks": c["masks"], "active_masks": torch.ones_like(c["masks"]),
             })
             c = {"env_states": env_states, "obs": torch.stack(obs2, 1),
-                 "rnn_actor": unflat(rnn_a), "rnn_critic": unflat(rnn_c),
+                 "rnn_actor": unflat(rnn_a), "rnn_critic": rnn_c,
                  "masks": 1.0 - dones[..., None].float()}
 
         traj = {k: torch.stack([s[k] for s in staged]) for k in staged[0]}
@@ -163,9 +183,8 @@ class SharedRunner:
                 "rnn_states": c["rnn_actor"], "rnn_states_critic": c["rnn_critic"],
                 "masks": c["masks"], "active_masks": torch.ones_like(c["masks"])}
         buf = buf_lib.from_rollout(traj, last)
-        next_values = unflat(self.algo.get_values(
-            train_state, flat(last["share_obs"]), flat(c["rnn_critic"]),
-            flat(c["masks"])))
+        next_values, _ = self._values(train_state, last["share_obs"],
+                                      c["rnn_critic"], c["masks"])
         buf = buf.compute_returns(
             next_values, train_state.vnorm, gamma=cfg.gamma,
             gae_lambda=cfg.gae_lambda, use_gae=cfg.use_gae,

@@ -1,9 +1,12 @@
-"""Where one flagship rMAPPO episode spends its time on the card.
+"""Where one training episode spends its time on the card.
 
-    python -m onpolicy_torch.scripts.profile_episode [--episodes 3] [--warmup 2]
+    python -m onpolicy_torch.scripts.profile_episode \
+        [--config flagship|bench_mappo|bench_rmappo] [--episodes 3] [--warmup 2]
 
-Runs the flagship simple_spread configuration (128 rollout threads,
-T=25, L=10, 10 PPO epochs, hidden 64) on the card and prints one JSON
+Runs one of `train_mpe.CONFIGS` on the card: the flagship simple_spread
+rMAPPO (128 rollout threads, T=25, L=10, 10 PPO epochs, hidden 64; the
+default), or the JAX package's bench MAPPO (feed-forward, critic dedup)
+or bench rMAPPO at 16,384 rollout threads in bf16. Prints one JSON
 object:
   * host wall time per episode, split into rollout (T env steps + the
     policy's acts + GAE) and update (ppo_epoch PPO steps), each phase
@@ -25,14 +28,8 @@ import time
 
 import torch
 
-FLAGSHIP = [
-    "--algorithm_name", "rmappo", "--scenario_name", "simple_spread",
-    "--num_agents", "3", "--num_landmarks", "3", "--seed", "1",
-    "--n_rollout_threads", "128", "--num_mini_batch", "1",
-    "--episode_length", "25", "--ppo_epoch", "10", "--use_ReLU", "false",
-    "--gain", "0.01", "--lr", "7e-4", "--critic_lr", "7e-4",
-    "--device", "cuda",
-]
+from onpolicy_torch.scripts.train_mpe import CONFIGS
+
 GRU_KERNELS = ("gru_fwd_kernel", "gru_bwd_kernel", "gru_bwd_reduce")
 
 
@@ -49,6 +46,7 @@ def _is_kernel(ev) -> bool:
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--config", choices=sorted(CONFIGS), default="flagship")
     ap.add_argument("--episodes", type=int, default=3)
     ap.add_argument("--warmup", type=int, default=2)
     args = ap.parse_args(argv)
@@ -59,7 +57,7 @@ def main(argv=None):
     from onpolicy_torch.config import config_from_args
     from onpolicy_torch.runner.shared_runner import SharedRunner
 
-    cfg = config_from_args(FLAGSHIP)
+    cfg = config_from_args(CONFIGS[args.config] + ["--device", "cuda"])
     runner = SharedRunner(cfg)
     state, carry = runner.init()
     for _ in range(args.warmup):
@@ -91,6 +89,7 @@ def main(argv=None):
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     out = {
+        "config": args.config,
         "card": card,
         "env_steps_per_episode": cfg.episode_length * cfg.n_rollout_threads,
         "rollout_ms": rollout_ms, "update_ms": update_ms,
