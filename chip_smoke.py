@@ -13,9 +13,13 @@ Phases, each of which fails the run (non-zero exit) if it fails:
               blocks walk two), T=1, masked, T=25/B=384 (naive-recurrent)
               and H=16/32/48 shapes (tensor-core kernels, every (H, tile)
               instantiation), and ragged, T=1, masked and H=40/128/256
-              shapes of the CUDA-core kernels; each line names the forward
-              and backward variants, tiles and grids; dW bitwise
-              repeatable at the flagship, bench, T=25 and H=128 shapes.
+              shapes of the CUDA-core kernels, and the shapes of the JAX
+              package's other MPE scripts: T=10 B=640 (simple_reference),
+              T=10 B=320 (separated runner, per agent) and T=25 B=128
+              (HAPPO's whole-episode log-probs, forward only); each line
+              names the forward and backward variants, tiles and grids;
+              dW bitwise repeatable at the flagship, bench, T=25 and
+              H=128 shapes.
               Then recurrent_N=2 through the autograd path on the card
               against the CPU path, in each stream type.
   4. times:   kernel, plain version and cuDNN's nn.GRU (yardstick only)
@@ -28,14 +32,17 @@ Phases, each of which fails the run (non-zero exit) if it fails:
               tensor-core, tensor-core, CUDA-core).
   5. train:   one episode at 8 rollout threads on the card against the
               CPU path from the same state (rMAPPO in f32, rMAPPO and
-              MAPPO with the critic dedup in bf16): rollout, update
+              MAPPO with the critic dedup in bf16, HAPPO with 3 agents
+              in f32 through the separated runner): rollout, update
               metrics, and the parameters' change; then the port's
-              `scripts/train_mpe.main`: the flagship rMAPPO for 10
-              episodes (each kernel launched 20 times an episode), and
-              the JAX package's two bench configurations at 16,384
-              rollout threads for 3 episodes each: MAPPO with the critic
-              dedup in bf16 (no GRU kernel launched) and rMAPPO in bf16
-              (each kernel launched 20 times an episode). Every logged
+              `scripts/train_mpe.main` for each run of `TRAIN_RUNS`: the
+              flagship rMAPPO for 10 episodes, the JAX package's two
+              bench configurations at 16,384 rollout threads for 3
+              episodes each (MAPPO with the critic dedup and rMAPPO, in
+              bf16), simple_reference, simple_speaker_listener and HAPPO
+              on simple_spread for 5 each, and 3 flagship episodes with
+              an eval after each. Each run's kernel launches per episode
+              are asserted (derived beside `TRAIN_RUNS`); every logged
               metric finite; env-steps/s printed for each.
 The last three lines are one JSON object with a row per kernel and
 stream type, the card's name and power limit, and the result line
@@ -64,10 +71,26 @@ TF32_FLOP_S = 495e12
 
 FLAGSHIP = dict(T=10, B=960, H=64)       # 25*128*3/10 chunks of L=10
 BENCH = dict(T=10, B=122880, H=64)       # 16384 rollout threads
-# (config of train_mpe.CONFIGS, episodes); launches of each GRU kernel
-# an episode: ppo_epoch 10 x (actor + critic) x recurrent_N 1
-TRAIN_RUNS = (("flagship", 10, 20), ("bench_mappo", 3, 0),
-              ("bench_rmappo", 3, 20))
+# (name, config of train_mpe.CONFIGS, extra flags, episodes, forward and
+# backward launches an episode). One PPO update of a recurrent policy
+# launches each kernel once for the actor and once for the critic
+# (recurrent_N 1, one minibatch), ppo_epoch times per trainer:
+#   flagship, bench_rmappo: 10 epochs x 2                      = 20, 20
+#   reference (shared, 15 epochs): 15 x 2                      = 30, 30
+#   comm (separated, 2 agents, 15 epochs): 2 x 15 x 2          = 60, 60
+#   happo_spread (3 agents, 10 epochs): 3 x 10 x 2 = 60, plus per agent
+#     two forward-only evaluate_full_logp (before and after its update)
+#                                                              = 66, 60
+#   eval: the rollout step's GRU cell is plain torch           = +0
+#   bench_mappo: feed-forward                                  = 0, 0
+TRAIN_RUNS = (("flagship", "flagship", (), 10, 20, 20),
+              ("bench_mappo", "bench_mappo", (), 3, 0, 0),
+              ("bench_rmappo", "bench_rmappo", (), 3, 20, 20),
+              ("reference", "reference", (), 5, 30, 30),
+              ("comm", "comm", (), 5, 60, 60),
+              ("happo_spread", "happo_spread", (), 5, 66, 60),
+              ("flagship+eval", "flagship",
+               ("--use_eval", "--eval_interval", "1"), 3, 20, 20))
 # phase 3's layer shapes, each run with f32 and with bf16 streams:
 # (case, T, B, H, options of check_layer)
 SHAPES = (
@@ -80,6 +103,9 @@ SHAPES = (
     ("T=1", 1, 960, 64, {}),
     ("all-ones masks", 10, 960, 64, dict(mask_mode="ones")),
     ("T=25 B=384 (naive-recurrent)", 25, 384, 64, dict(repeat=True)),
+    ("T=10 B=640 (simple_reference)", 10, 640, 64, {}),
+    ("T=10 B=320 (separated, per agent)", 10, 320, 64, {}),
+    ("T=25 B=128 (HAPPO episode log-probs)", 25, 128, 64, {}),
     ("H=48 (tensor core, 8-row tiles)", 10, 960, 48, {}),
     ("H=48 (tensor core, 16-row tiles)", 4, 2200, 48, {}),
     ("H=32 (tensor core, 16-row tiles)", 4, 2200, 32, {}),
@@ -427,18 +453,20 @@ def compare_forwards(torch, cg, shape, card):
 
 def check_small_against_cpu(torch, name, tol, update_tol, **flags):
     """One episode at 8 rollout threads, on the card (kernels) and on the
-    CPU (plain versions) from the same parameters, carry and actions.
-    Each rollout field must agree within `tol` (rtol, atol) relative to
-    its largest entry; the update's value loss, entropy and gradient norms
-    within rtol `tol[0]`; the trained parameters within `tol`. In f32 the
-    sums reorder between cuBLAS/the kernels and the CPU, and the
-    differences pass through 25 env steps and 2 PPO epochs of Adam:
-    1e-3 / 1e-4. In bf16 the two devices may round a bf16 value to its
-    neighbour, as tests/test_bf16.py allows between JAX's bf16 model and
-    its f32 one: 5e-2 / 5e-2.
+    CPU (plain versions) from the same parameters, carry and actions;
+    through the separated runner (every agent's buffer, trainer and
+    update; HAPPO's agents in the order 2, 1, 0) when the flags ask for
+    separated policies. Each rollout field must agree within `tol` (rtol,
+    atol) relative to its largest entry; the update's value loss, entropy
+    and gradient norms within rtol `tol[0]`; the trained parameters within
+    `tol`. In f32 the sums reorder between cuBLAS/the kernels and the CPU,
+    and the differences pass through 25 env steps and 2 PPO epochs of
+    Adam: 1e-3 / 1e-4. In bf16 the two devices may round a bf16 value to
+    its neighbour, as tests/test_bf16.py allows between JAX's bf16 model
+    and its f32 one: 5e-2 / 5e-2.
     Two Adam steps at lr 7e-4 move a parameter by at most ~1.4e-3, below
     those tolerances, so the update itself (new - old parameters, all
-    leaves of the actor, then of the critic) is held to the CPU's by the
+    leaves of the actors, then of the critics) is held to the CPU's by the
     norm of the difference over the norm of the CPU's update: at most
     `update_tol`. A missing update reads 1, one of the wrong sign 2. On
     an H100 the readings were 2.7e-6 (actor) and 7.5e-6 (critic) in f32,
@@ -447,13 +475,14 @@ def check_small_against_cpu(torch, name, tol, update_tol, **flags):
     Adam's first step for a parameter of near-zero gradient, hence 0.25."""
     from onpolicy_torch.config import Config, canonicalize_algorithm
     from onpolicy_torch.envs.mpe.world import WorldState
-    from onpolicy_torch.runner.shared_runner import SharedRunner
+    from onpolicy_torch.scripts.train_mpe import make_runner
     from onpolicy_torch.utils.tree import tree_leaves, tree_map
     base = canonicalize_algorithm(Config(
         n_rollout_threads=8, episode_length=25, num_env_steps=200,
         ppo_epoch=2, use_ReLU=False, lr=7e-4, critic_lr=7e-4, **flags))
-    gpu = SharedRunner(base.replace(device="cuda"))
-    cpu = SharedRunner(base.replace(device="cpu"))
+    separated = not base.share_policy
+    gpu = make_runner(base.replace(device="cuda"))
+    cpu = make_runner(base.replace(device="cpu"))
     ts_g, carry_g = gpu.init()
     ts_c, _ = cpu.init()
     to_cpu = lambda c: {**tree_map(lambda t: t.cpu(), {
@@ -462,39 +491,54 @@ def check_small_against_cpu(torch, name, tol, update_tol, **flags):
             tree_map(lambda t: t.cpu(), c["env_states"].tensors()))}
     carry_c = to_cpu(carry_g)
     after_g, buf_g = gpu.rollout(ts_g, carry_g)
+    bufs_g = buf_g if separated else [buf_g]
     T = base.episode_length
-    inject = [{"actions": buf_g.actions[t].cpu()} for t in range(T)]
+    inject = [{"actions": [b.actions[t, :, 0].cpu() for b in bufs_g]
+               if separated else buf_g.actions[t].cpu()} for t in range(T)]
     inject[-1]["reset_states"] = to_cpu(after_g)["env_states"]
     _, buf_c = cpu.rollout(ts_c, carry_c, inject)
+    bufs_c = buf_c if separated else [buf_c]
     err = 0.0
-    for k in ("obs", "rewards", "action_log_probs", "value_preds",
-              "rnn_states", "returns", "advantages"):
-        a, b = getattr(buf_g, k).cpu(), getattr(buf_c, k)
-        scale = float(b.abs().max()) or 1.0
-        assert_close(torch, f"{name} rollout {k}", a, b, *tol, scale)
-        err = max(err, max_err(a, b, scale))
-    new_g, m_g = gpu.algo.train(ts_g, buf_g, gpu.generator)
-    new_c, m_c = cpu.algo.train(ts_c, buf_c, cpu.generator)
+    for i, (bg, bc) in enumerate(zip(bufs_g, bufs_c)):
+        for k in ("obs", "rewards", "action_log_probs", "value_preds",
+                  "rnn_states", "returns", "advantages"):
+            a, b = getattr(bg, k).cpu(), getattr(bc, k)
+            scale = float(b.abs().max()) or 1.0
+            assert_close(torch, f"{name} rollout {i} {k}", a, b, *tol, scale)
+            err = max(err, max_err(a, b, scale))
+    if separated:
+        order = tuple(reversed(range(gpu.num_agents)))
+        new_g, m_g = gpu.update(ts_g, bufs_g, order)
+        new_c, m_c = cpu.update(ts_c, bufs_c, order)
+    else:
+        (new_g, m_g), (new_c, m_c) = (
+            gpu.algo.train(ts_g, buf_g, gpu.generator),
+            cpu.algo.train(ts_c, buf_c, cpu.generator))
+        ts_g, ts_c, new_g, new_c = ((x,) for x in (ts_g, ts_c, new_g, new_c))
     torch.cuda.synchronize()
-    for k in ("value_loss", "dist_entropy", "actor_grad_norm",
-              "critic_grad_norm"):
+    for k in m_c:
+        if k.split("/")[-1] not in ("value_loss", "dist_entropy",
+                                    "actor_grad_norm", "critic_grad_norm"):
+            continue
         a, b = float(m_g[k]), float(m_c[k])
         if not abs(a - b) <= tol[0] * abs(b):
             raise AssertionError(f"{name} train {k}: card {a:.6g}, CPU "
                                  f"{b:.6g} (rtol {tol[0]})")
     moved = {}
+    leaves = lambda states, part: [x for s in states
+                                   for x in tree_leaves(getattr(s, part))]
     for part in ("actor_params", "critic_params"):
         step = lambda new, old: torch.cat([
-            (n - o).flatten().cpu() for n, o in zip(
-                tree_leaves(getattr(new, part)), tree_leaves(getattr(old, part)))])
+            (n - o).flatten().cpu() for n, o in zip(leaves(new, part),
+                                                    leaves(old, part))])
         d_g, d_c = step(new_g, ts_g), step(new_c, ts_c)
         moved[part] = float((d_g - d_c).norm() / d_c.norm())
         if not moved[part] <= update_tol:
             raise AssertionError(
                 f"{name} train {part}: card's update differs from the CPU's "
                 f"by {moved[part]:.3e} of its norm (limit {update_tol})")
-        for i, (a, b) in enumerate(zip(tree_leaves(getattr(new_g, part)),
-                                       tree_leaves(getattr(new_c, part)))):
+        for i, (a, b) in enumerate(zip(leaves(new_g, part),
+                                       leaves(new_c, part))):
             assert_close(torch, f"{name} train {part}[{i}]", a.cpu(), b, *tol)
             err = max(err, max_err(a.cpu(), b))
     log(f"  card vs CPU, {name}, 1 episode at N=8: max err {err:.2e} "
@@ -503,15 +547,16 @@ def check_small_against_cpu(torch, name, tol, update_tol, **flags):
         f"{moved['critic_params']:.3e} (critic) of its norm  ok")
 
 
-def train_main_path(torch, cg, config, episodes, launches_per_episode):
-    """`scripts/train_mpe.main` with `train_mpe.CONFIGS[config]` for
-    `episodes` episodes, the launch counts set to 0 just before and read
-    just after. Every logged metric must be finite, and each GRU kernel
-    launched `launches_per_episode` times an episode. Returns
-    (fwd launches, bwd launches, env-steps/s over the run, env-steps/s of
-    the last episode)."""
+def train_main_path(torch, cg, name, config, extra, episodes, fwd_per_episode,
+                    bwd_per_episode):
+    """`scripts/train_mpe.main` with `train_mpe.CONFIGS[config]` and the
+    `extra` flags for `episodes` episodes, the launch counts set to 0 just
+    before and read just after. Every logged metric must be finite, and
+    each GRU kernel launched its given count an episode (an eval logged
+    each episode with `--use_eval`). Returns (fwd launches, bwd launches,
+    env-steps/s over the run, env-steps/s of the last episode)."""
     from onpolicy_torch.scripts import train_mpe
-    argv = train_mpe.CONFIGS[config] + [
+    argv = train_mpe.CONFIGS[config] + list(extra) + [
         "--experiment_name", f"chip_smoke_{config}", "--log_interval", "1",
         "--device", "cuda"]
     flag = lambda name: int(argv[argv.index(name) + 1])
@@ -527,32 +572,40 @@ def train_main_path(torch, cg, config, episodes, launches_per_episode):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         fwd, bwd = cg.FWD_LAUNCHES, cg.BWD_LAUNCHES
-    logged = len([r for r in history if "value_loss" in r])
+    logged = len([r for r in history if "average_episode_rewards" in r])
     if logged != episodes:
-        raise AssertionError(f"{config}: {logged} episodes logged, want "
+        raise AssertionError(f"{name}: {logged} episodes logged, want "
                              f"{episodes}")
+    if "--use_eval" in extra and not all(
+            "eval_average_episode_rewards" in r for r in history):
+        raise AssertionError(f"{name}: an episode without its eval")
     for r in history:
         for k, v in r.items():
             if isinstance(v, float) and not math.isfinite(v):
-                raise AssertionError(f"{config} episode {r['episode']}: "
+                raise AssertionError(f"{name} episode {r['episode']}: "
                                      f"{k}={v}")
-    want = launches_per_episode * episodes
-    if fwd != want or bwd != want:
-        raise AssertionError(f"{config}: launches fwd={fwd} bwd={bwd}, "
+    want = (fwd_per_episode * episodes, bwd_per_episode * episodes)
+    if (fwd, bwd) != want:
+        raise AssertionError(f"{name}: launches fwd={fwd} bwd={bwd}, "
                              f"want {want}")
     # the runner's fps is cumulative: episode i ends at (i+1)*steps/fps_i
     ends = [(r["episode"] + 1) * steps / r["fps"] for r in history]
     last_rate = steps / (ends[-1] - ends[-2])
     mean_rew = sum(r["average_episode_rewards"] for r in history) / logged
-    log(f"  {config}: {threads} threads, {episodes} episodes, wall "
+    evals = [r["eval_average_episode_rewards"] for r in history
+             if "eval_average_episode_rewards" in r]
+    log(f"  {name}: {threads} threads, {episodes} episodes, wall "
         f"{wall:.2f} s, launches fwd {fwd} bwd {bwd}, env-steps/s "
         f"{history[-1]['fps']:.1f} over the run (first episode included), "
-        f"{last_rate:.1f} in the last episode, mean reward {mean_rew:.4f}")
+        f"{last_rate:.1f} in the last episode, mean reward {mean_rew:.4f}"
+        + (f", eval returns {evals}" if evals else ""))
     return fwd, bwd, history[-1]["fps"], last_rate
 
 
 def kernel_rows(times, launches, errs, shape, streams):
-    """The `kernels` line's rows of both kernels for one stream type."""
+    """The `kernels` line's rows of both kernels for one stream type;
+    `launches` maps each run of that stream type to its counts, and a
+    row's `launches` is their sum."""
     src = "onpolicy_torch/csrc/gru_seq.cu"
     rows = []
     for d, name, line in (("fwd", "gru_seq_fwd", 122),
@@ -563,7 +616,9 @@ def kernel_rows(times, launches, errs, shape, streams):
             "replaces": f"onpolicy_tpu/ops/pallas_gru.py:{line}",
             "streams": streams, "shape": shape,
             "variant": times[f"{d}_variant"],
-            "launches": launches[d], "max_abs_err": errs[d],
+            "launches": sum(n[d] for n in launches.values()),
+            "launches_by_run": {k: n[d] for k, n in launches.items()},
+            "max_abs_err": errs[d],
             "ms": times[f"{d}_ms"], "device_ms": times[f"{d}_device_ms"],
             "plain_ms": times[f"{d}_plain_ms"],
             "bound_ms": times[f"{d}_bound_{tc}_ms"],
@@ -633,17 +688,20 @@ def main() -> int:
     check_small_against_cpu(torch, "mappo dedup bf16", (5e-2, 5e-2), 0.25,
                             algorithm_name="mappo", use_bf16=True,
                             use_critic_dedup=True)
-    launches = {}
-    for config, episodes, per_episode in TRAIN_RUNS:
-        fwd, bwd, _, _ = train_main_path(torch, cg, config, episodes,
-                                         per_episode)
-        launches[config] = {"fwd": fwd, "bwd": bwd}
+    check_small_against_cpu(torch, "happo f32 (3 agents)", (1e-3, 1e-4),
+                            1e-3, algorithm_name="happo")
+    launches = {"f32": {}, "bf16": {}}
+    for name, config, extra, episodes, fwd_pe, bwd_pe in TRAIN_RUNS:
+        fwd, bwd, _, _ = train_main_path(torch, cg, name, config, extra,
+                                         episodes, fwd_pe, bwd_pe)
+        streams = "bf16" if config.startswith("bench") else "f32"
+        launches[streams][name] = {"fwd": fwd, "bwd": bwd}
 
     row_errs = lambda case, streams: dict(zip(("fwd", "bwd"),
                                               errs[case, streams]))
-    kernels = kernel_rows(t_flag, launches["flagship"],
+    kernels = kernel_rows(t_flag, launches["f32"],
                           row_errs("flagship", "f32"), FLAGSHIP, "f32")
-    kernels += kernel_rows(t_bench16, launches["bench_rmappo"],
+    kernels += kernel_rows(t_bench16, launches["bf16"],
                            row_errs("bench (16384 threads)", "bf16"), BENCH,
                            "bf16")
     print(json.dumps({"kernels": kernels}))

@@ -16,14 +16,17 @@ episodes (`use_naive_recurrent_policy`) and flat rows (feed-forward).
 The recurrent policies' update runs `evaluate_seq` / `forward_seq`
 through the sequence GRU, which on the card is the CUDA kernels; the
 feed-forward update evaluates flat rows, with `use_critic_dedup` running
-the critic once per env. PopArt comes in a later slice (ROADMAP.md) and
-raises here.
+the critic once per env. HAPPO (`algorithms/happo.py`) is this trainer
+with the joint ratio over action heads; its sequential-update `factor`
+goes through `train` to the sampler and the loss, and
+`evaluate_full_logp` gives the whole-episode log-probs it is built from.
+PopArt is ROADMAP.md item B4 and raises here.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any, Optional, Tuple
+from typing import Any, Optional, Sequence, Tuple
 
 import torch
 
@@ -46,11 +49,16 @@ class TrainState:
 
 
 class MAPPO:
+    # HAPPO overrides: the joint ratio over heads, and (under PopArt) the
+    # stats-only normalizer
+    prod_ratio_heads = False
+    popart_rescales_head = True
+
     def __init__(self, cfg, obs_space, share_obs_space, act_space,
                  total_updates: int = 1):
         if cfg.use_popart:
             raise NotImplementedError(
-                "use_popart is not ported yet (ROADMAP.md, Queue 1 item 9)")
+                "use_popart is not ported yet (ROADMAP.md, item B4)")
         self.cfg = cfg
         self.act_space = act_space
         self.actor = actor_critic.Actor(cfg, obs_space, act_space)
@@ -83,17 +91,35 @@ class MAPPO:
             critic_opt_state=self.critic_tx.init(critic_params),
             vnorm=vnorm)
 
+    # ---- rollout-time API (flat [B, ...] batches) --------------------
+    def get_values(self, state: TrainState, share_obs, rnn_critic, masks):
+        values, _ = self.critic.forward(state.critic_params, share_obs,
+                                        rnn_critic, masks)
+        return values
+
+    def act(self, state: TrainState, obs, rnn_actor, masks, generator=None,
+            available_actions=None, deterministic=True):
+        """→ (actions, new rnn states); the mode of each head unless
+        `deterministic` is false (then a draw from `generator`)."""
+        actions, _, rnn_actor = self.actor.forward(
+            state.actor_params, obs, rnn_actor, masks, generator,
+            available_actions, deterministic=deterministic)
+        return actions, rnn_actor
+
     # ---- training ----------------------------------------------------
-    def _sample_minibatches(self, buf, adv, generator):
+    def _sample_minibatches(self, buf, adv, generator, perm=None,
+                            factor=None):
         cfg = self.cfg
+        kw = dict(perm=perm, factor=factor)
         if cfg.use_recurrent_policy:
             return buf_lib.recurrent_minibatches(
-                buf, adv, generator, cfg.num_mini_batch, cfg.data_chunk_length)
+                buf, adv, generator, cfg.num_mini_batch, cfg.data_chunk_length,
+                **kw)
         if cfg.use_naive_recurrent_policy:
             return buf_lib.naive_recurrent_minibatches(
-                buf, adv, generator, cfg.num_mini_batch)
+                buf, adv, generator, cfg.num_mini_batch, **kw)
         return buf_lib.feed_forward_minibatches(buf, adv, generator,
-                                                cfg.num_mini_batch)
+                                                cfg.num_mini_batch, **kw)
 
     def _critic_flat(self, cp, mb):
         """Values of flat rows [B, 1]. With `use_critic_dedup` the rows are
@@ -125,7 +151,8 @@ class MAPPO:
         pol_loss, ratio = losses.ppo_policy_loss(
             logp, mb["old_action_log_probs"], mb["advantages"],
             mb["active_masks"], clip_param=cfg.clip_param,
-            use_policy_active_masks=cfg.use_policy_active_masks)
+            use_policy_active_masks=cfg.use_policy_active_masks,
+            factor=mb.get("factor"), prod_ratio_heads=self.prod_ratio_heads)
         v_loss = losses.value_loss(
             values, mb["value_preds"], mb["returns"], mb["active_masks"],
             vnorm, clip_param=cfg.clip_param,
@@ -171,22 +198,47 @@ class MAPPO:
 
     @torch.no_grad()
     def train(self, state: TrainState, buf: buf_lib.RolloutBuffer,
-              generator: Optional[torch.Generator] = None
+              generator: Optional[torch.Generator] = None,
+              factor: Optional[torch.Tensor] = None,
+              perms: Optional[Sequence[torch.Tensor]] = None
               ) -> Tuple[TrainState, dict]:
         """Full PPO update over a collected buffer (`r_mappo.train`).
-        Metrics are 0-dim tensors, means over all updates."""
+        `factor` is HAPPO's sequential-update weight [T, N, M, 1]. With
+        several minibatches each epoch draws its permutation from
+        `generator`, or takes `perms[epoch]` (e.g. from a test). Metrics
+        are 0-dim tensors, means over all updates."""
         cfg = self.cfg
         adv = losses.normalize_advantages(
             buf.advantages,
             buf.active_masks[:-1] if cfg.use_policy_active_masks else None)
-        sample = lambda: self._sample_minibatches(buf, adv, generator)
+        sample = lambda epoch: self._sample_minibatches(
+            buf, adv, generator, None if perms is None else perms[epoch],
+            factor)
         # one minibatch is permutation-free: build it once for all epochs
-        mbs = sample() if cfg.num_mini_batch == 1 else None
+        mbs = sample(0) if cfg.num_mini_batch == 1 else None
         history = []
-        for _ in range(cfg.ppo_epoch):
-            for mb in (mbs if mbs is not None else sample()):
+        for epoch in range(cfg.ppo_epoch):
+            for mb in (mbs if mbs is not None else sample(epoch)):
                 state, aux = self._update(state, mb)
                 history.append(aux)
         metrics = {k: torch.stack([h[k] for h in history]).mean()
                    for k in history[0]}
         return state, metrics
+
+    # ---- whole-episode log-probs (HAPPO's factor) ---------------------
+    @torch.no_grad()
+    def evaluate_full_logp(self, state: TrainState,
+                           buf: buf_lib.RolloutBuffer) -> torch.Tensor:
+        """Log-probs of the buffer's actions under the current actor over
+        the whole [T, N·M] episode, the sequence GRU run from the t = 0
+        hidden state (on the card: the forward kernel, at T = episode
+        length, B = N·M). Returns [T, N, M, heads]."""
+        T, N, M = buf.T, buf.n_rollout_threads, buf.num_agents
+        fold = lambda x: x.reshape(T, N * M, *x.shape[3:])
+        avail = (fold(buf.available_actions[:-1])
+                 if buf.available_actions is not None else None)
+        h0 = buf.rnn_states[0].reshape(N * M, *buf.rnn_states.shape[3:])
+        logp, _ = self.actor.evaluate_seq(
+            state.actor_params, fold(buf.obs[:-1]), h0, fold(buf.actions),
+            fold(buf.masks[:-1]), avail, fold(buf.active_masks[:-1]))
+        return logp.reshape(T, N, M, -1)

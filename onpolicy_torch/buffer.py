@@ -7,7 +7,9 @@ stacked rollout steps (`from_rollout`), GAE over the whole buffer
 (`recurrent_minibatches`), whole episodes (`naive_recurrent_minibatches`)
 and flat rows (`feed_forward_minibatches`). The transformer sampler comes
 with MAT (ROADMAP.md). Each sampler returns a list of `num_mini_batch`
-dicts; with one minibatch no permutation is drawn.
+dicts; with one minibatch no permutation is drawn. Each takes a given
+permutation (`perm`) in place of a draw, and HAPPO's optional `factor`
+[T, N, M, 1], which is cut as the other per-step fields are.
 """
 from __future__ import annotations
 
@@ -98,8 +100,10 @@ def from_rollout(traj: dict, last: dict) -> RolloutBuffer:
     )
 
 
-def _train_fields(buf: RolloutBuffer) -> dict:
-    """The per-step training arrays [T, N, M, ...]."""
+def _train_fields(buf: RolloutBuffer, advantages: torch.Tensor,
+                 factor: Optional[torch.Tensor]) -> dict:
+    """The per-step training arrays [T, N, M, ...], with the sampler's
+    `advantages` and, when given, HAPPO's `factor`."""
     d = {
         "share_obs": buf.share_obs[:-1],
         "obs": buf.obs[:-1],
@@ -111,10 +115,12 @@ def _train_fields(buf: RolloutBuffer) -> dict:
         "returns": buf.returns,
         "masks": buf.masks[:-1],
         "active_masks": buf.active_masks[:-1],
-        "advantages": buf.advantages,
+        "advantages": advantages,
     }
     if buf.available_actions is not None:
         d["available_actions"] = buf.available_actions[:-1]
+    if factor is not None:
+        d["factor"] = factor
     return d
 
 
@@ -133,14 +139,14 @@ def _minibatch_index(n: int, num_mini_batch: int, generator, device,
 def feed_forward_minibatches(buf: RolloutBuffer, advantages: torch.Tensor,
                              generator: Optional[torch.Generator],
                              num_mini_batch: int,
-                             perm: Optional[torch.Tensor] = None) -> list:
+                             perm: Optional[torch.Tensor] = None,
+                             factor: Optional[torch.Tensor] = None) -> list:
     """Flat sampler (the reference's `feed_forward_generator`): the T·N·M
     rows in [T, N, M] order, one minibatch of them as they lie (views, no
     copy; the critic dedup relies on that order), or `num_mini_batch`
     equal parts of a permutation drawn from `generator` (or given as
     `perm`). Returns a list of dicts of [mb, ...] rows."""
-    d = _train_fields(buf)
-    d["advantages"] = advantages
+    d = _train_fields(buf, advantages, factor)
     total = buf.T * buf.n_rollout_threads * buf.num_agents
     flat = {k: x.reshape(total, *x.shape[3:]) for k, x in d.items()}
     if num_mini_batch == 1:
@@ -153,14 +159,14 @@ def feed_forward_minibatches(buf: RolloutBuffer, advantages: torch.Tensor,
 def naive_recurrent_minibatches(buf: RolloutBuffer, advantages: torch.Tensor,
                                 generator: Optional[torch.Generator],
                                 num_mini_batch: int,
-                                perm: Optional[torch.Tensor] = None) -> list:
+                                perm: Optional[torch.Tensor] = None,
+                                factor: Optional[torch.Tensor] = None) -> list:
     """Whole-episode sampler (the reference's `naive_recurrent_generator`):
     the N·M env-agent sequences at their full length T, the rnn states
     from t = 0; one minibatch as they lie, or `num_mini_batch` parts of a
     permutation of the N·M sequences (drawn, or given as `perm`). Returns
     a list of dicts of [T, mb, ...] sequences ([mb, ...] rnn states)."""
-    d = _train_fields(buf)
-    d["advantages"] = advantages
+    d = _train_fields(buf, advantages, factor)
     T, total = buf.T, buf.n_rollout_threads * buf.num_agents
     idx = (None if num_mini_batch == 1 else
            _minibatch_index(total, num_mini_batch, generator,
@@ -179,7 +185,9 @@ def naive_recurrent_minibatches(buf: RolloutBuffer, advantages: torch.Tensor,
 
 def recurrent_minibatches(buf: RolloutBuffer, advantages: torch.Tensor,
                           generator: Optional[torch.Generator],
-                          num_mini_batch: int, data_chunk_length: int) -> list:
+                          num_mini_batch: int, data_chunk_length: int,
+                          perm: Optional[torch.Tensor] = None,
+                          factor: Optional[torch.Tensor] = None) -> list:
     """Chunked-BPTT sampler (the reference's `recurrent_generator`).
 
     The episodes are laid out env-major ([N, M, T] order) and the flat
@@ -189,15 +197,16 @@ def recurrent_minibatches(buf: RolloutBuffer, advantages: torch.Tensor,
     chunk's first rnn state is gathered. Returns a list of
     `num_mini_batch` dicts of [L, mb, ...] sequences ([mb, ...] for the
     rnn states); with one minibatch the chunks keep their order and no
-    permutation is drawn."""
-    d = _train_fields(buf)
-    d["advantages"] = advantages
+    permutation is drawn, else `num_mini_batch` parts of a permutation of
+    the chunks (drawn, or given as `perm`)."""
+    d = _train_fields(buf, advantages, factor)
     T, N, M = buf.T, buf.n_rollout_threads, buf.num_agents
     L = data_chunk_length
     n_chunks = (T * N * M) // L
     device = buf.rewards.device
     idx = (None if num_mini_batch == 1 else
-           _minibatch_index(n_chunks, num_mini_batch, generator, device))
+           _minibatch_index(n_chunks, num_mini_batch, generator, device,
+                            perm))
 
     def to_chunks(x):
         # [T,N,M,...] → [N,M,T,...] → flat stream → [n_chunks, L, ...]

@@ -6,7 +6,7 @@ defaults, the same algorithm-name canonicalization and the same strict
 argparse bridge (unknown flags raise). Added: `device`, which defaults to
 the card. `validate()` raises when CUDA is asked for and there is none;
 options whose port is still to come are refused by the runner
-(`runner/shared_runner.refuse_unported`, with their ROADMAP.md items).
+(`runner/base_runner.refuse_unported`, with their ROADMAP.md items).
 """
 from __future__ import annotations
 

@@ -46,3 +46,16 @@ def others_concat(values: torch.Tensor, agent_idx: int) -> torch.Tensor:
     M = values.shape[1]
     keep = [j for j in range(M) if j != agent_idx]
     return values[:, keep].reshape(values.shape[0], -1)
+
+
+def colors(table, n_landmarks: int, like: torch.Tensor) -> torch.Tensor:
+    """The first `n_landmarks` rows of a scenario's landmark colour table,
+    in `like`'s dtype and device."""
+    return torch.tensor(table[:n_landmarks], dtype=like.dtype,
+                        device=like.device)
+
+
+def gather_landmarks(state: WorldState, idx: torch.Tensor) -> torch.Tensor:
+    """Positions of the landmarks `idx` [N, P] of each world → [N, P, 2]."""
+    return state.landmark_pos.gather(
+        1, idx.long()[..., None].expand(*idx.shape, 2))

@@ -168,7 +168,7 @@ def physics_step(spec: WorldSpec, state: WorldState, u: torch.Tensor,
     if spec.walls or any(spec.agent_u_noise) or any(spec.agent_c_noise):
         raise NotImplementedError(
             "MPE walls and action/comm noise are not ported yet; no ported "
-            "scenario has them (ROADMAP.md, Queue 1 item 8)")
+            "scenario has them (ROADMAP.md, item B3)")
     M = spec.n_agents
     like = state.agent_pos
     accel = np.array([a if a is not None else np.nan

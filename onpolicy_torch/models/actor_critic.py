@@ -9,7 +9,7 @@ trees (nested dicts of tensors in the JAX layout). Two layouts:
     through `gru.sequence` (the CUDA kernels on the card).
 Under `use_bf16` the bases and the GRU compute in bf16 and the heads in
 f32 (`act.py` and the value head take `x.float()`).
-Image observations (`models/cnn.py`) come with Slice B (ROADMAP.md).
+Image observations (`models/cnn.py`) are ROADMAP.md item B4 and raise.
 """
 from __future__ import annotations
 
@@ -27,7 +27,7 @@ def _flat_obs_shape(space):
     if len(shape) != 1:
         raise NotImplementedError(
             "image observations (cnn base) are not ported yet "
-            "(ROADMAP.md, Queue 1 item 9)")
+            "(ROADMAP.md, item B4)")
     return shape
 
 
@@ -48,17 +48,18 @@ class Actor:
         return params
 
     def forward(self, params, obs, rnn_states, masks, generator,
-                available_actions=None, actions=None
+                available_actions=None, actions=None, deterministic=False
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """obs [B, ...] → (actions, log_probs, new_rnn_states). Given
-        `actions`, they are taken instead of a draw."""
+        `actions`, they are taken instead of a draw; `deterministic` takes
+        the mode of each head."""
         x = mlp.apply(self.cfg, params["base"], obs)
         if self.cfg.is_recurrent:
             x, rnn_states = gru.step(self.cfg, params["rnn"], x, rnn_states,
                                      masks)
         actions, log_probs = act_layer.sample(
             self.cfg, params["act"], self.action_space, x, generator,
-            available_actions, actions)
+            available_actions, actions, deterministic)
         return actions, log_probs, rnn_states
 
     def evaluate(self, params, obs, rnn_states, action, masks,

@@ -7,7 +7,7 @@ conventions, which the PPO losses depend on:
   * ``log_prob`` keeps a trailing singleton axis (shape ``[..., 1]``);
   * ``entropy`` reduces the event axis to shape ``[...]``, with the rule
     0·log 0 := 0 for fully masked entries;
-  * ``sample`` returns integer actions ``[..., 1]``;
+  * ``sample`` and ``mode`` return integer actions ``[..., 1]``;
   * unavailable actions get the logit ``MASK_NEG = -1e10``.
 
 Sampling is the Gumbel-max rule of `jax.random.categorical`, with the
@@ -56,6 +56,9 @@ class Categorical:
         tiny = torch.finfo(self.logits.dtype).tiny
         gumbel = -torch.log(-torch.log(u.clamp_min(tiny)))
         return (self.logits + gumbel).argmax(-1, keepdim=True)
+
+    def mode(self) -> torch.Tensor:
+        return self.logits.argmax(-1, keepdim=True)
 
     def log_prob(self, actions: torch.Tensor) -> torch.Tensor:
         """actions: [..., 1] integer-valued. Returns [..., 1]."""

@@ -55,15 +55,24 @@ def value_loss(values, value_preds_old, returns, active_masks,
 
 
 def ppo_policy_loss(log_prob_new, log_prob_old, advantages, active_masks, *,
-                    clip_param: float, use_policy_active_masks: bool = True
+                    clip_param: float, use_policy_active_masks: bool = True,
+                    factor: Optional[torch.Tensor] = None,
+                    prod_ratio_heads: bool = False
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Clipped surrogate. Returns (loss, mean_ratio). Action heads are
-    summed (keepdim) before the batch reduction. HAPPO's sequential
-    factor and joint ratio come with its slice (ROADMAP.md)."""
-    ratio = torch.exp(log_prob_new - log_prob_old)
+    """Clipped surrogate. Returns (loss, mean_ratio). The ratio is taken
+    per action head, or with `prod_ratio_heads` (HAPPO) jointly as
+    exp(Σ_heads Δlogp), keepdim. The surrogate is summed over heads
+    (keepdim) before the batch reduction, then weighted by HAPPO's
+    sequential-update `factor` when one is given."""
+    delta = log_prob_new - log_prob_old
+    if prod_ratio_heads:
+        delta = delta.sum(-1, keepdim=True)
+    ratio = torch.exp(delta)
     surr1 = ratio * advantages
     surr2 = torch.clamp(ratio, 1.0 - clip_param, 1.0 + clip_param) * advantages
     surr = torch.minimum(surr1, surr2).sum(-1, keepdim=True)
+    if factor is not None:
+        surr = factor * surr
     mask = active_masks if use_policy_active_masks else None
     return -masked_mean(surr, mask), ratio.mean()
 

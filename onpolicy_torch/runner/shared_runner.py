@@ -9,105 +9,58 @@ Port of `onpolicy_tpu/runner/shared_runner.py` (the reference's
     update  = ppo_epoch × num_mini_batch PPO steps    (GRU kernels on the card)
 
 The carry (env states, obs, rnn states, masks) flows straight into the
-next episode. All randomness on the path (action draws, env resets,
-minibatch permutations) comes from one `torch.Generator` on the run's
-device, seeded with cfg.seed; parameters are drawn from a CPU generator
-with the same seed. `rollout` takes optional per-step injections (the
-actions and the reset states), so a test can hold it in lockstep with
-another implementation.
+next episode. `rollout` takes optional per-step injections (the actions
+and the reset states), and `eval_episode` optional initial worlds, so a
+test can hold them in lockstep with another implementation. The host
+loop, checkpoints, eval schedule, `episodes_per_call` and the profiler
+trace are `base_runner.BaseRunner`'s.
 
 It trains the shared-policy algorithms rmappo, mappo and ippo. With
 `use_critic_dedup` (feed-forward mappo, centralized V) the critic runs on
 one row per env in the rollout step and in the bootstrap, since
 share_obs is the same for every agent of an env, and the value is
-broadcast to the agents.
-
-Not ported yet, and refused here with their ROADMAP.md items: eval
-(`use_eval`), `episodes_per_call > 1`, the profiler trace
-(`profile_dir`), multi-device meshes, and the separated-policy and
-transformer algorithms.
+broadcast to the agents. Eval (`eval_episode`) takes each head's mode for
+one episode of the eval env.
 """
 from __future__ import annotations
 
-import time
 from typing import Optional, Sequence
 
-import numpy as np
 import torch
 
 from onpolicy_torch import buffer as buf_lib
 from onpolicy_torch.algorithms.mappo import MAPPO
-from onpolicy_torch.envs.mpe import make_vec_env
 from onpolicy_torch.envs.mpe.world import WorldState
-from onpolicy_torch.utils import checkpoint as ckpt_lib
+from onpolicy_torch.runner.base_runner import BaseRunner
 from onpolicy_torch.utils import spaces as sp
 
 
-def refuse_unported(cfg):
-    """Raise NotImplementedError for options whose port is still to come."""
-    todo = []
-    if cfg.algorithm_name not in ("rmappo", "mappo", "ippo"):
-        todo.append(f"algorithm {cfg.algorithm_name!r} (ROADMAP.md Queue 1 "
-                    "items 11-14; the port trains rmappo, mappo and ippo)")
-    if cfg.use_eval:
-        todo.append("use_eval (ROADMAP.md Queue 1 item A2)")
-    if cfg.episodes_per_call > 1:
-        todo.append("episodes_per_call > 1 (ROADMAP.md Queue 1 item A6)")
-    if cfg.profile_dir is not None:
-        todo.append("profile_dir (ROADMAP.md Queue 1 item A3)")
-    if int(np.prod(cfg.mesh_shape)) > 1:
-        todo.append("multi-device mesh_shape (ROADMAP.md Queue 1 item 18)")
-    if todo:
-        raise NotImplementedError("not ported yet: " + "; ".join(todo))
-
-
-class SharedRunner:
-    def __init__(self, cfg, vec_env=None):
-        cfg = cfg.validate()
-        refuse_unported(cfg)
-        self.cfg = cfg
-        self.device = torch.device(cfg.device)
-        self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(cfg.seed)
-        self.init_generator = torch.Generator().manual_seed(cfg.seed)
-        self.envs = vec_env if vec_env is not None else make_vec_env(
-            cfg, self.device, self.generator)
-        self.num_agents = self.envs.num_agents
-        self.N = self.envs.n_envs
-
+class SharedRunner(BaseRunner):
+    def __init__(self, cfg, vec_env=None, eval_env=None):
+        super().__init__(cfg, vec_env, eval_env)
+        cfg = self.cfg
+        if cfg.algorithm_name == "happo":
+            raise ValueError("happo trains through the separated runner "
+                             "(runner/separated_runner.py)")
         if len({sp.obs_shape(s) for s in self.envs.observation_space}) != 1 \
                 or len(set(self.envs.action_space)) != 1:
             raise ValueError("shared policy requires homogeneous obs and "
-                             "action spaces")
+                             "action spaces; use the separated runner "
+                             "(share_policy false)")
         obs_space = self.envs.observation_space[0]
         share_obs_space = (self.envs.share_observation_space[0]
                            if cfg.use_centralized_V else obs_space)
         self.act_space = self.envs.action_space[0]
-        self.episodes = int(cfg.num_env_steps) // cfg.episode_length // self.N
         self.algo = MAPPO(cfg, obs_space, share_obs_space, self.act_space,
                           total_updates=self.episodes)
-        self.start_episode = 0
 
     # ------------------------------------------------------------------
-    def _generators(self) -> dict:
-        return {"device": self.generator, "init": self.init_generator}
-
     def init(self):
         """→ (train_state, carry). With cfg.model_dir, the train state,
         carry, generators and episode counter come from its checkpoint."""
         train_state = self.algo.init_state(self.init_generator, self.device)
         env_states, obs = self.envs.reset()
-        carry = self._fresh_carry(env_states, obs)
-        self.start_episode = 0
-        if self.cfg.model_dir:
-            train_state, step, saved = ckpt_lib.restore(
-                self.cfg.model_dir, train_state, self.device,
-                self._generators())
-            self.start_episode = step
-            if saved is not None:
-                carry = {**saved,
-                         "env_states": WorldState.from_tensors(saved["env_states"])}
-        return train_state, carry
+        return self._restore(train_state, self._fresh_carry(env_states, obs))
 
     def _fresh_carry(self, env_states, obs):
         N, M, cfg = self.N, self.num_agents, self.cfg
@@ -143,7 +96,7 @@ class SharedRunner:
     @torch.no_grad()
     def rollout(self, train_state, carry, inject: Optional[Sequence[dict]] = None):
         """Collect T steps and compute returns. `inject[t]` may hold
-        "actions" [N, M, 1] to take instead of a draw and "reset_states"
+        "actions" [N, M, heads] to take instead of a draw and "reset_states"
         (a `WorldState` of N worlds) for the envs that finish at step t.
         → (carry after the last step, buffer with returns/advantages)."""
         cfg = self.cfg
@@ -202,36 +155,31 @@ class SharedRunner:
             metrics[f"agent{i}/individual_rewards"] = per_agent[i]
         return train_state, carry2, metrics
 
-    # ---- host training loop ------------------------------------------
-    def _save(self, save_dir, train_state, carry, step):
-        flat_carry = {**carry, "env_states": carry["env_states"].tensors()}
-        ckpt_lib.save(save_dir, train_state, step, self._generators(),
-                      flat_carry)
-
-    def run(self, log_fn=print, save_dir=None):
-        cfg = self.cfg
-        train_state, carry = self.init()
-        start_episode = self.start_episode
-        start = time.perf_counter()
-        history = []
-        for episode in range(start_episode, self.episodes):
-            train_state, carry, metrics = self.episode(train_state, carry)
-            last = episode + 1 >= self.episodes
-            if episode % cfg.log_interval == 0 or last:
-                metrics = {k: float(v) for k, v in metrics.items()}
-                steps = cfg.episode_length * self.N
-                fps = (episode + 1 - start_episode) * steps \
-                    / (time.perf_counter() - start)
-                row = {"episode": episode, "steps": (episode + 1) * steps,
-                       "fps": fps, **metrics}
-                history.append(row)
-                if log_fn is print:
-                    print(f"ep {episode} steps {row['steps']} fps {fps:,.0f} "
-                          f"rew {row['average_episode_rewards']:.2f} "
-                          f"vloss {row['value_loss']:.3f} "
-                          f"ploss {row['policy_loss']:.3f}")
-                elif log_fn is not None:
-                    log_fn(row)
-            if save_dir and (episode % max(cfg.save_interval, 1) == 0 or last):
-                self._save(save_dir, train_state, carry, episode + 1)
-        return train_state, history
+    # ---- evaluation --------------------------------------------------
+    @torch.no_grad()
+    def eval_episode(self, train_state,
+                     init_states: Optional[WorldState] = None) -> torch.Tensor:
+        """One episode of the eval env from fresh worlds (its own draw, or
+        `init_states`), each head's mode taken; → the mean over envs and
+        agents of the episode's return (JAX `_eval_episode`)."""
+        cfg, env = self.cfg, self.eval_envs
+        N, M = env.n_envs, self.num_agents
+        flat = lambda x: x.reshape(N * M, *x.shape[2:])
+        if init_states is None:
+            env_states, obs = env.reset()
+        else:
+            env_states, obs = init_states, env.env.observation(init_states)
+        obs = torch.stack(obs, 1)
+        rnn = torch.zeros(N, M, cfg.recurrent_N, cfg.hidden_size,
+                          device=self.device)
+        masks = torch.ones(N, M, 1, device=self.device)
+        total = torch.zeros(N, M, 1, device=self.device)
+        for _ in range(cfg.episode_length):
+            actions, rnn = self.algo.act(train_state, flat(obs), flat(rnn),
+                                         flat(masks), deterministic=True)
+            env_states, obs, rewards, dones = env.step(
+                env_states, actions.reshape(N, M, -1))
+            obs, rnn = torch.stack(obs, 1), rnn.reshape(N, M, *rnn.shape[1:])
+            masks = 1.0 - dones[..., None].float()
+            total = total + rewards
+        return total.mean()

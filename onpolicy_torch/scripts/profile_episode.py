@@ -1,13 +1,14 @@
 """Where one training episode spends its time on the card.
 
     python -m onpolicy_torch.scripts.profile_episode \
-        [--config flagship|bench_mappo|bench_rmappo] [--episodes 3] [--warmup 2]
+        [--config flagship|bench_mappo|bench_rmappo|reference] \
+        [--episodes 3] [--warmup 2]
 
-Runs one of `train_mpe.CONFIGS` on the card: the flagship simple_spread
-rMAPPO (128 rollout threads, T=25, L=10, 10 PPO epochs, hidden 64; the
-default), or the JAX package's bench MAPPO (feed-forward, critic dedup)
-or bench rMAPPO at 16,384 rollout threads in bf16. Prints one JSON
-object:
+Runs one of the shared-policy `train_mpe.CONFIGS` on the card: the
+flagship simple_spread rMAPPO (128 rollout threads, T=25, L=10, 10 PPO
+epochs, hidden 64; the default), the JAX package's bench MAPPO
+(feed-forward, critic dedup) or bench rMAPPO at 16,384 rollout threads in
+bf16, or simple_reference. Prints one JSON object:
   * host wall time per episode, split into rollout (T env steps + the
     policy's acts + GAE) and update (ppo_epoch PPO steps), each phase
     ended by `torch.cuda.synchronize()`;
@@ -46,7 +47,10 @@ def _is_kernel(ev) -> bool:
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--config", choices=sorted(CONFIGS), default="flagship")
+    from onpolicy_torch.config import config_from_args
+    shared = [k for k, v in CONFIGS.items()
+              if config_from_args(v + ["--device", "cpu"]).share_policy]
+    ap.add_argument("--config", choices=sorted(shared), default="flagship")
     ap.add_argument("--episodes", type=int, default=3)
     ap.add_argument("--warmup", type=int, default=2)
     args = ap.parse_args(argv)
@@ -54,7 +58,6 @@ def main(argv=None):
         raise SystemExit("profile_episode: needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from onpolicy_torch.config import config_from_args
     from onpolicy_torch.runner.shared_runner import SharedRunner
 
     cfg = config_from_args(CONFIGS[args.config] + ["--device", "cuda"])

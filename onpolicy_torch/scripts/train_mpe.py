@@ -29,8 +29,25 @@ critic dedup, and rMAPPO.
         --num_mini_batch 1 --data_chunk_length 10 --lr 7e-4 \
         --critic_lr 7e-4 --hidden_size 64 --use_bf16
 
-`CONFIGS` holds these three as flag lists (without a step count), for
-`chip_smoke.py` and `profile_episode.py`.
+The rest of the JAX package's MPE launch scripts: simple_reference
+(`scripts/train_mpe_scripts/train_mpe_reference.sh`: shared rMAPPO,
+MultiDiscrete (5, 10) actions), simple_speaker_listener through separated
+policies (`train_mpe_comm.sh`) and HAPPO on simple_spread
+(`scripts/train_other_algo/train_mpe_happo.sh`), e.g.
+
+    python -m onpolicy_torch.scripts.train_mpe \
+        --env_name MPE --algorithm_name rmappo --experiment_name check \
+        --scenario_name simple_speaker_listener --num_agents 2 \
+        --num_landmarks 3 --seed 1 --n_rollout_threads 128 \
+        --num_mini_batch 1 --episode_length 25 --num_env_steps 2000000 \
+        --ppo_epoch 15 --gain 0.01 --lr 7e-4 --critic_lr 7e-4 \
+        --share_policy false
+
+`share_policy false` (and happo, which implies it) trains through
+`runner/separated_runner.py`, everything else through
+`runner/shared_runner.py`; `--use_eval` adds an eval env of
+`n_eval_rollout_threads` worlds. `CONFIGS` holds these six as flag lists
+(without a step count), for `chip_smoke.py` and `profile_episode.py`.
 """
 from __future__ import annotations
 
@@ -57,7 +74,41 @@ CONFIGS = {
     "bench_rmappo": _SPREAD + ["--algorithm_name", "rmappo",
                                "--n_rollout_threads", "16384",
                                "--data_chunk_length", "10", "--use_bf16"],
+    # scripts/train_other_algo/train_mpe_happo.sh
+    "happo_spread": _SPREAD + ["--algorithm_name", "happo",
+                               "--n_rollout_threads", "128"],
 }
+_TWO_AGENTS = ["--env_name", "MPE", "--algorithm_name", "rmappo",
+               "--num_agents", "2", "--num_landmarks", "3", "--seed", "1",
+               "--n_rollout_threads", "128", "--num_mini_batch", "1",
+               "--episode_length", "25", "--ppo_epoch", "15", "--gain",
+               "0.01", "--lr", "7e-4", "--critic_lr", "7e-4"]
+# scripts/train_mpe_scripts/train_mpe_reference.sh
+CONFIGS["reference"] = _TWO_AGENTS + ["--scenario_name", "simple_reference"]
+# scripts/train_mpe_scripts/train_mpe_comm.sh
+CONFIGS["comm"] = _TWO_AGENTS + ["--scenario_name", "simple_speaker_listener",
+                                 "--share_policy", "false"]
+
+
+def make_runner(cfg):
+    """The shared or the separated runner for `cfg`, with an eval env of
+    `n_eval_rollout_threads` worlds (drawing from its own generator,
+    seeded with cfg.seed + 1) under `use_eval`."""
+    import torch
+
+    from onpolicy_torch.envs.mpe import make_vec_env
+    if cfg.share_policy:
+        from onpolicy_torch.runner.shared_runner import SharedRunner as Runner
+    else:
+        from onpolicy_torch.runner.separated_runner import \
+            SeparatedRunner as Runner
+    eval_env = None
+    if cfg.use_eval:
+        device = torch.device(cfg.device)
+        generator = torch.Generator(device=device).manual_seed(cfg.seed + 1)
+        eval_env = make_vec_env(cfg, device, generator,
+                                n_envs=cfg.n_eval_rollout_threads)
+    return Runner(cfg, eval_env=eval_env)
 
 
 def main(argv=None):
@@ -65,13 +116,7 @@ def main(argv=None):
     if cfg.env_name != "MPE":
         raise NotImplementedError(
             f"env {cfg.env_name!r}: the port's MPE entry point takes MPE")
-    if not cfg.share_policy:
-        raise NotImplementedError(
-            "separated policies are not ported yet (ROADMAP.md, Queue 1 "
-            "item 11)")
-    from onpolicy_torch.runner.shared_runner import SharedRunner
-
-    runner = SharedRunner(cfg)
+    runner = make_runner(cfg)
     run_dir = make_run_dir(cfg)
     logger = MetricsLogger(run_dir, cfg)
     try:

@@ -2,8 +2,9 @@
 
 Port of `onpolicy_tpu/utils/checkpoint.py`. The reference saves only the
 actor/critic weights; here the whole `TrainState` (parameters, both
-optimizer states, ValueNorm), the episode counter, the generators' states
-and the rollout carry (env states, obs, rnn states, masks) round-trip, so
+optimizer states, ValueNorm) or the separated runner's tuple of per-agent
+`TrainState`s, the episode counter, the generators' states and the
+rollout carry (env states, obs, rnn states, masks) round-trip, so
 training resumes exactly. Everything is stored as plain containers of
 tensors, loadable with `weights_only=True`.
 
@@ -20,7 +21,9 @@ import torch
 from onpolicy_torch.utils.tree import tree_map
 
 
-def _state_dict(train_state) -> dict:
+def _state_dict(train_state):
+    if isinstance(train_state, tuple):
+        return [_state_dict(s) for s in train_state]
     d = {f.name: getattr(train_state, f.name)
          for f in dataclasses.fields(train_state)}
     if train_state.vnorm is not None:
@@ -63,23 +66,32 @@ def latest_path(ckpt_dir) -> Optional[Path]:
     return cands[-1] if cands else None
 
 
+def _from_state_dict(s: dict, template, device):
+    s = tree_map(lambda t: t.to(device), s)
+    if s["vnorm"] is not None:
+        s["vnorm"] = template.vnorm.replace(**s["vnorm"])
+    return template.replace(**s)
+
+
 def restore(ckpt_dir, template, device, generators: dict):
     """→ (train_state, step, carry or None). `template` is a `TrainState`
-    giving the ValueNorm's static fields; the generators named in
-    `generators` get their saved state back."""
+    (or a tuple of them) giving the ValueNorm's static fields; the
+    generators named in `generators` get their saved state back."""
     path = Path(ckpt_dir)
     if path.is_dir():
         path = latest_path(path)
         if path is None:
             raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
     payload = torch.load(path, map_location="cpu", weights_only=True)
-    s = tree_map(lambda t: t.to(device), payload["state"])
-    if s["vnorm"] is not None:
-        s["vnorm"] = template.vnorm.replace(**s["vnorm"])
+    if isinstance(template, tuple):
+        state = tuple(_from_state_dict(s, t, device)
+                      for s, t in zip(payload["state"], template))
+    else:
+        state = _from_state_dict(payload["state"], template, device)
     for k, g in generators.items():
         g.set_state(payload["generators"][k])
     carry = payload["carry"]
     if carry is not None:
         carry = tree_map(lambda t: t.to(device), carry)
-    return template.replace(**s), payload["step"], carry
+    return state, payload["step"], carry
 

@@ -34,3 +34,12 @@ def obs_shape(space) -> Tuple[int, ...]:
     if isinstance(space, Discrete):
         return (space.n,)
     raise TypeError(f"unsupported obs space {space!r}")
+
+
+def action_storage_dim(space) -> int:
+    """Width of the stored action array (`get_shape_from_act_space`)."""
+    if isinstance(space, Discrete):
+        return 1
+    if isinstance(space, MultiDiscrete):
+        return len(space.nvec)
+    raise TypeError(f"unsupported action space {space!r}")

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from onpolicy_tpu.config import Config as JaxConfig
+from onpolicy_tpu.models import act as j_act
 from onpolicy_tpu.models import actor_critic as j_ac
 from onpolicy_tpu.models import gru as j_gru
 from onpolicy_tpu.models import mlp as j_mlp
@@ -21,7 +22,7 @@ from onpolicy_tpu.ops import distributions as j_dist
 from onpolicy_tpu.utils import spaces as j_sp
 
 from onpolicy_torch.config import Config
-from onpolicy_torch.models import actor_critic, gru, mlp
+from onpolicy_torch.models import act, actor_critic, gru, mlp
 from onpolicy_torch.ops import distributions as dist
 from onpolicy_torch.utils import spaces as sp
 from onpolicy_torch.utils.params import to_torch
@@ -205,3 +206,71 @@ def test_categorical_sampling_frequencies():
     np.testing.assert_allclose(freq.numpy(), d.probs[0].numpy(), atol=0.02)
     assert torch.equal(a, dist.Categorical.create(logits.expand(20000, 5))
                        .sample(torch.Generator().manual_seed(0)))
+
+
+def test_multidiscrete_head_matches():
+    """simple_reference's (5, 10) head: per-head log-probs [B, 2] of
+    injected actions (JAX's draws) and of each head's mode, and the
+    entropy as the mean of the heads' active-mask-reduced entropies."""
+    jc, tc = _cfgs(gain=1.0)
+    j_space, t_space = j_sp.MultiDiscrete((5, 10)), sp.MultiDiscrete((5, 10))
+    params = jax.device_get(j_act.init(jax.random.PRNGKey(3), jc, j_space,
+                                       16))
+    assert [p["w"].shape for p in params["heads"]] == [(16, 5), (16, 10)]
+    tp = to_torch(params)
+    r = _rng(20)
+    x = r.standard_normal((33, 16)).astype(np.float32)
+    active = (r.random((33, 1)) > 0.3).astype(np.float32)
+    j_a, j_lp = j_act.sample(jc, params, j_space, x, jax.random.PRNGKey(4))
+    t_a, t_lp = act.sample(tc, tp, t_space, torch.tensor(x), None,
+                           actions=torch.tensor(np.asarray(j_a)))
+    assert t_a.shape == t_lp.shape == (33, 2)
+    np.testing.assert_array_equal(t_a.numpy(), _np(j_a))
+    np.testing.assert_allclose(t_lp.numpy(), _np(j_lp), **FWD)
+    j_m, j_mlp = j_act.sample(jc, params, j_space, x, jax.random.PRNGKey(0),
+                              deterministic=True)
+    t_m, t_mlp = act.sample(tc, tp, t_space, torch.tensor(x), None,
+                            deterministic=True)
+    np.testing.assert_array_equal(t_m.numpy(), _np(j_m))
+    np.testing.assert_allclose(t_mlp.numpy(), _np(j_mlp), **FWD)
+    # a draw from the port's generator gives valid indices of each head
+    t_d, _ = act.sample(tc, tp, t_space, torch.tensor(x),
+                        torch.Generator().manual_seed(0))
+    assert (t_d[:, 0] < 5).all() and (t_d[:, 1] < 10).all()
+    assert len(set(t_d[:, 1].tolist())) > 1
+    j_lp2, j_ent = j_act.evaluate(jc, params, j_space, x, j_a, None, active)
+    t_lp2, t_ent = act.evaluate(tc, tp, t_space, torch.tensor(x), t_a, None,
+                                torch.tensor(active))
+    np.testing.assert_allclose(t_lp2.numpy(), _np(j_lp2), **FWD)
+    np.testing.assert_allclose(float(t_ent), float(j_ent), **FWD)
+
+
+@pytest.mark.parametrize("space", ["discrete", "multidiscrete"])
+def test_actor_deterministic_forward_matches(space):
+    """`Actor.forward(deterministic=True)`: the mode of each head after
+    the MLP and the GRU step, its log-probs and the new rnn state."""
+    jc, tc = _cfgs()
+    j_space, t_space = ((j_sp.Discrete(5), sp.Discrete(5)) if space ==
+                        "discrete" else (j_sp.MultiDiscrete((5, 10)),
+                                         sp.MultiDiscrete((5, 10))))
+    ja = j_ac.Actor(jc, j_sp.Box((21,)), j_space)
+    ta = actor_critic.Actor(tc, sp.Box((21,)), t_space)
+    params = jax.device_get(ja.init(jax.random.PRNGKey(5)))
+    r = _rng(21)
+    obs = r.standard_normal((17, 21)).astype(np.float32)
+    h = r.standard_normal((17, 1, 16)).astype(np.float32)
+    m = (r.random((17, 1)) > 0.3).astype(np.float32)
+    j_a, j_lp, j_h = ja.forward(params, obs, h, m, jax.random.PRNGKey(0),
+                                None, True)
+    t_a, t_lp, t_h = ta.forward(to_torch(params), torch.tensor(obs),
+                                torch.tensor(h), torch.tensor(m), None,
+                                deterministic=True)
+    np.testing.assert_array_equal(t_a.numpy(), _np(j_a))
+    np.testing.assert_allclose(t_lp.numpy(), _np(j_lp), **FWD)
+    np.testing.assert_allclose(t_h.numpy(), _np(j_h), **FWD)
+
+
+def test_unported_heads_name_their_roadmap_item():
+    _, tc = _cfgs()
+    with pytest.raises(NotImplementedError, match="item B4"):
+        act.init(tc, sp.Box((2,)), 16, torch.Generator(), "cpu")

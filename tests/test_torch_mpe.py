@@ -1,13 +1,15 @@
-"""The port's batched MPE (simple_spread) against the JAX env.
+"""The port's batched MPE scenarios against the JAX env.
 
-From `envs/mpe/golden.reference_reset` states (the reference's numpy draw
-order), 30 steps of the same random actions must give the same
-observations, rewards and dones, across an auto-reset at step 25 whose
-fresh states are the JAX env's own draws injected into the port (every
-env finishes there, since all start at t=0). The
-comparison runs in float64 at atol 1e-9, in a subprocess: float64 needs
-`jax_enable_x64`, which flips global JAX state for every later test of
-the same worker (as in tests/test_mpe_golden_exact.py).
+For simple_spread, simple_reference (MultiDiscrete (5, 10) actions, comm)
+and simple_speaker_listener (Discrete(3) speaker, Discrete(5) listener,
+actions padded to the widest head): from `envs/mpe/golden.reference_reset`
+states (the reference's numpy draw order), 30 steps of the same random
+actions must give the same observations, rewards and dones, across an
+auto-reset at step 25 whose fresh states are the JAX env's own draws
+injected into the port (every env finishes there, since all start at
+t=0). The comparison runs in float64 at atol 1e-9, in a subprocess:
+float64 needs `jax_enable_x64`, which flips global JAX state for every
+later test of the same worker (as in tests/test_mpe_golden_exact.py).
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 WORKER = r"""
 import json
+import sys
 import jax
 jax.config.update('jax_platforms', 'cpu')
 jax.config.update('jax_enable_x64', True)
@@ -40,19 +43,26 @@ from onpolicy_tpu.envs.mpe.env import MPEEnv as JEnv, MPEVecEnv as JVec
 from onpolicy_torch.envs.mpe.env import MPEEnv, MPEVecEnv
 from onpolicy_torch.utils.params import world_state_from_jax
 
-N, M, K, T, STEPS = 6, 3, 3, 25, 30
+SCENARIO, M = sys.argv[1], int(sys.argv[2])
+N, K, T, STEPS = 6, 3, 25, 30
 f64 = torch.float64
-jenv = JEnv("simple_spread", M, K, T)
+jenv = JEnv(SCENARIO, M, K, T)
 jvec = JVec(jenv, N)
 j_step = jax.jit(jvec.step)
 j_resets = jax.jit(lambda k: jax.vmap(jenv.reset)(jax.random.split(k, N)))
 j_observe = jax.jit(jax.vmap(lambda s: jenv.scenario.observation(jenv.spec, s)))
-tenv = MPEEnv("simple_spread", M, K, T)
+tenv = MPEEnv(SCENARIO, M, K, T)
+assert list(map(repr, tenv.action_space)) == list(map(repr, jenv.action_space))
+heads = [getattr(s, "nvec", None) or (s.n,) for s in tenv.action_space]
+width = max(len(h) for h in heads)
+highs = np.ones((M, width), np.int64)          # padding columns draw 0
+for i, h in enumerate(heads):
+    highs[i, :len(h)] = h
 tvec = MPEVecEnv(tenv, N, "cpu", torch.Generator().manual_seed(0), f64)
 conv = lambda s: world_state_from_jax(jax.device_get(s), dtype=f64)
 
 np.random.seed(0)
-resets = [golden.reference_reset("simple_spread", jenv.spec, jnp.float64)
+resets = [golden.reference_reset(SCENARIO, jenv.spec, jnp.float64)
           for _ in range(N)]
 js = jax.tree_util.tree_map(lambda *x: jnp.stack(x), *resets)
 ts = conv(js)
@@ -65,7 +75,7 @@ dones_seen, reset_seen = 0, 0
 rng = np.random.default_rng(1)
 key = jax.random.PRNGKey(2)
 for step in range(STEPS):
-    acts = rng.integers(0, 5, (N, M, 1)).astype(np.int32)
+    acts = rng.integers(0, highs, (N, M, width)).astype(np.int32)
     key, k = jax.random.split(key)
     _, k_reset = jax.random.split(k)                  # as JVec.step splits
     j_reset, _ = j_resets(k_reset)
@@ -99,8 +109,9 @@ print(json.dumps(err))
 """
 
 
-def test_simple_spread_matches_jax_float64():
-    res = subprocess.run([sys.executable, "-c", WORKER], cwd=REPO,
+def _matches_jax_float64(scenario, num_agents):
+    res = subprocess.run([sys.executable, "-c", WORKER, scenario,
+                          str(num_agents)], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
     err = json.loads(res.stdout.strip().splitlines()[-1])
@@ -108,6 +119,16 @@ def test_simple_spread_matches_jax_float64():
     for k in ("obs", "rew", "state"):
         assert err[k] < 1e-9, err
     assert err["obs_reset_f32"] < 1e-7, err
+
+
+def test_simple_spread_matches_jax_float64():
+    _matches_jax_float64("simple_spread", 3)
+
+
+@pytest.mark.parametrize("scenario", ["simple_reference",
+                                      "simple_speaker_listener"])
+def test_comm_scenarios_match_jax_float64(scenario):
+    _matches_jax_float64(scenario, 2)
 
 
 def test_env_spaces_and_decode():
@@ -122,9 +143,32 @@ def test_env_spaces_and_decode():
     assert c.abs().sum() == 0            # silent agents send nothing
 
 
+def test_comm_scenario_spaces_and_decode():
+    """simple_reference: MultiDiscrete (5, 10), comm one-hot of the second
+    head. simple_speaker_listener: the speaker's only head is its comm,
+    the listener's its move; actions padded to one column."""
+    from onpolicy_torch.envs.mpe.env import MPEEnv
+    from onpolicy_torch.utils import spaces as sp
+    ref = MPEEnv("simple_reference", 2, 3, 25)
+    assert ref.action_space == [sp.MultiDiscrete((5, 10))] * 2
+    assert [s.shape for s in ref.observation_space] == [(21,)] * 2
+    like = torch.zeros(1, dtype=torch.float32)
+    u, c = ref._decode_actions(torch.tensor([[[1, 7], [0, 2]]]), like)
+    assert u.tolist() == [[[5.0, 0.0], [0.0, 0.0]]]
+    assert c[0, 0].argmax() == 7 and c[0, 1].argmax() == 2
+    assert c.sum() == 2
+    sl = MPEEnv("simple_speaker_listener", 2, 3, 25)
+    assert sl.action_space == [sp.Discrete(3), sp.Discrete(5)]
+    assert [s.shape for s in sl.observation_space] == [(3,), (11,)]
+    assert sl.share_observation_space[0].shape == (14,)
+    u, c = sl._decode_actions(torch.tensor([[[2], [3]]]), like)
+    assert u.tolist() == [[[0.0, 0.0], [0.0, 5.0]]]  # the speaker stays
+    assert c[0, 0].tolist() == [0.0, 0.0, 1.0] and c[0, 1].sum() == 0
+
+
 def test_other_scenarios_name_their_roadmap_item():
     from onpolicy_torch.envs.mpe import scenarios
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, item B3"):
         scenarios.load("simple_tag")
     with pytest.raises(ValueError):
         scenarios.load("no_such_scenario")
@@ -145,8 +189,9 @@ def test_config_refuses_what_it_cannot_run():
 
 
 @pytest.mark.parametrize("override", [
-    dict(use_eval=True), dict(algorithm_name="happo"),
-    dict(episodes_per_call=2), dict(profile_dir="p"), dict(mesh_shape=(2,))])
+    dict(mesh_shape=(2,)), dict(algorithm_name="hatrpo"),
+    dict(algorithm_name="mat"), dict(algorithm_name="mat_dec"),
+    dict(use_popart=True, use_valuenorm=False)])
 def test_runner_refuses_unported_options(override):
     from onpolicy_torch.runner.shared_runner import SharedRunner
     cfg = canonicalize_algorithm(Config(

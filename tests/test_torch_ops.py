@@ -224,6 +224,56 @@ def test_recurrent_minibatches_permute_whole_chunks():
         sorted(map(tuple, whole["rnn_states"].reshape(30, -1).tolist()))
 
 
+@pytest.mark.parametrize("nmb", [1, 3])
+def test_recurrent_minibatches_perm_and_factor_match_jax(nmb):
+    """The chunked sampler handed JAX's permutation (from JAX's key) and
+    HAPPO's factor [T, N, M, 1]: the same minibatches as JAX's, the factor
+    cut into the same env-major chunks as the advantages (a relayout:
+    exact; the returns and advantages were computed on each side, 1e-5)."""
+    jb, tb = _buffers(seed=13)
+    adv = np.asarray(jb.advantages)
+    factor = np.exp(_f32(_r(14), 25, 4, 3, 1, scale=0.1))
+    key = jax.random.PRNGKey(5)
+    j_mb = j_buf.recurrent_minibatches(jb, jnp.asarray(adv), key, nmb, 10,
+                                       factor=jnp.asarray(factor))
+    perm = None if nmb == 1 else torch.tensor(
+        np.asarray(jax.random.permutation(key, 30)))
+    t_mbs = t_buf.recurrent_minibatches(tb, torch.tensor(adv), None, nmb, 10,
+                                        perm=perm,
+                                        factor=torch.tensor(factor))
+    assert len(t_mbs) == nmb
+    for i, t_mb in enumerate(t_mbs):
+        assert set(t_mb) == set(j_mb) and "factor" in t_mb
+        for k, v in t_mb.items():
+            want = np.asarray(j_mb[k])[i]
+            assert v.shape == want.shape, k
+            if k in ("returns", "advantages"):
+                np.testing.assert_allclose(v.numpy(), want, **TOL)
+            else:
+                np.testing.assert_array_equal(v.numpy(), want, err_msg=k)
+
+
+@pytest.mark.parametrize("heads,prod,with_factor", [
+    (1, False, True), (2, False, True), (2, True, True), (2, True, False)])
+def test_policy_loss_happo_options_match(heads, prod, with_factor):
+    """HAPPO's factor and joint ratio over the heads, and MAPPO's per-head
+    ratio, with the surrogate summed over heads before the batch mean."""
+    r = _r(15 + heads)
+    new, old = (_f32(r, 64, heads, scale=0.3) for _ in range(2))
+    adv = _f32(r, 64, 1)
+    active = (r.random((64, 1)) > 0.2).astype(np.float32)
+    factor = np.exp(_f32(r, 64, 1, scale=0.2)) if with_factor else None
+    kw = dict(clip_param=0.2, prod_ratio_heads=prod)
+    want, want_ratio = j_losses.ppo_policy_loss(new, old, adv, active,
+                                                factor=factor, **kw)
+    got, got_ratio = losses.ppo_policy_loss(
+        *map(torch.tensor, (new, old, adv, active)),
+        factor=None if factor is None else torch.tensor(factor), **kw)
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(float(got_ratio), float(want_ratio),
+                               rtol=1e-6, atol=1e-6)
+
+
 def test_valuenorm_carries_across():
     js, ts = _vn_pair(11)
     back = valuenorm_from_jax(jax.device_get(js))
