@@ -21,7 +21,10 @@ Phases, each of which fails the run (non-zero exit) if it fails:
               dW bitwise repeatable at the flagship, bench, T=25 and
               H=128 shapes.
               Then recurrent_N=2 through the autograd path on the card
-              against the CPU path, in each stream type.
+              against the CPU path, in each stream type. Then, in f32,
+              the Hanabi width H=512 (`HANABI_SHAPES`: T=10 B=20,000 as
+              train_hanabi_device.sh gives it, ragged B=37, T=1, all-ones
+              masks; dW bitwise repeatable) and recurrent_N=2 at H=512.
   4. times:   kernel, plain version and cuDNN's nn.GRU (yardstick only)
               at the flagship and bench shapes, with CUDA events (`ms`),
               in f32 and with bf16 streams (cuDNN then in bf16); the
@@ -29,21 +32,27 @@ Phases, each of which fails the run (non-zero exit) if it fails:
               (`device_ms`, null where the profiler saw no device time);
               then the CUDA-core forward and the tensor-core one on the
               same inputs through explicit plans, in turns (CUDA-core,
-              tensor-core, tensor-core, CUDA-core).
+              tensor-core, tensor-core, CUDA-core); and the Hanabi shape
+              T=10 B=20,000 H=512 in f32, with the backward's scratch.
   5. train:   one episode at 8 rollout threads on the card against the
               CPU path from the same state (rMAPPO in f32, rMAPPO and
               MAPPO with the critic dedup in bf16, HAPPO with 3 agents
-              in f32 through the separated runner): rollout, update
-              metrics, and the parameters' change; then the port's
-              `scripts/train_mpe.main` for each run of `TRAIN_RUNS`: the
+              in f32 through the separated runner; Hanabi-Small rMAPPO at
+              H=128, an untrained episode and a trained one, from the same
+              decks): rollout, update metrics, and the parameters' change;
+              then the port's `scripts/train_mpe.main` or
+              `scripts/train_hanabi.main` for each run of `TRAIN_RUNS`: the
               flagship rMAPPO for 10 episodes, the JAX package's two
               bench configurations at 16,384 rollout threads for 3
               episodes each (MAPPO with the critic dedup and rMAPPO, in
               bf16), simple_reference, simple_speaker_listener and HAPPO
-              on simple_spread for 5 each, and 3 flagship episodes with
-              an eval after each. Each run's kernel launches per episode
-              are asserted (derived beside `TRAIN_RUNS`); every logged
-              metric finite; env-steps/s printed for each.
+              on simple_spread for 5 each, 3 flagship episodes with an
+              eval after each, train_hanabi_device.sh (rMAPPO, Hanabi-Full,
+              hidden 512x2, 1000 fleets, T=100) for 3 episodes and the JAX
+              package's Hanabi bench configuration (feed-forward MAPPO,
+              bf16) for 2. Each run's kernel launches are asserted
+              (derived beside `TRAIN_RUNS`); every logged metric finite;
+              env-steps/s printed for each.
 The last three lines are one JSON object with a row per kernel and
 stream type, the card's name and power limit, and the result line
 `{"ok": true, "device": {...}}`.
@@ -71,7 +80,8 @@ TF32_FLOP_S = 495e12
 
 FLAGSHIP = dict(T=10, B=960, H=64)       # 25*128*3/10 chunks of L=10
 BENCH = dict(T=10, B=122880, H=64)       # 16384 rollout threads
-# (name, config of train_mpe.CONFIGS, extra flags, episodes, forward and
+HANABI = dict(T=10, B=20000, H=512)      # 100*1000*2/10 chunks of L=10
+# (name, script, config of its CONFIGS, extra flags, episodes, forward and
 # backward launches an episode). One PPO update of a recurrent policy
 # launches each kernel once for the actor and once for the critic
 # (recurrent_N 1, one minibatch), ppo_epoch times per trainer:
@@ -83,14 +93,21 @@ BENCH = dict(T=10, B=122880, H=64)       # 16384 rollout threads
 #                                                              = 66, 60
 #   eval: the rollout step's GRU cell is plain torch           = +0
 #   bench_mappo: feed-forward                                  = 0, 0
-TRAIN_RUNS = (("flagship", "flagship", (), 10, 20, 20),
-              ("bench_mappo", "bench_mappo", (), 3, 0, 0),
-              ("bench_rmappo", "bench_rmappo", (), 3, 20, 20),
-              ("reference", "reference", (), 5, 30, 30),
-              ("comm", "comm", (), 5, 60, 60),
-              ("happo_spread", "happo_spread", (), 5, 66, 60),
-              ("flagship+eval", "flagship",
-               ("--use_eval", "--eval_interval", "1"), 3, 20, 20))
+#   hanabi_device (15 epochs), a trained episode: 15 x 2       = 30, 30
+#     its first episode only collects (training is deferred one
+#     episode): 3 episodes launch 2 x 30 = 60 of each
+#   bench_hanabi_width: feed-forward                           = 0, 0
+TRAIN_RUNS = (("flagship", "train_mpe", "flagship", (), 10, 20, 20),
+              ("bench_mappo", "train_mpe", "bench_mappo", (), 3, 0, 0),
+              ("bench_rmappo", "train_mpe", "bench_rmappo", (), 3, 20, 20),
+              ("reference", "train_mpe", "reference", (), 5, 30, 30),
+              ("comm", "train_mpe", "comm", (), 5, 60, 60),
+              ("happo_spread", "train_mpe", "happo_spread", (), 5, 66, 60),
+              ("flagship+eval", "train_mpe", "flagship",
+               ("--use_eval", "--eval_interval", "1"), 3, 20, 20),
+              ("hanabi_device", "train_hanabi", "hanabi_device", (), 3, 30, 30),
+              ("bench_hanabi_width", "train_hanabi", "bench_hanabi_width", (),
+               2, 0, 0))
 # phase 3's layer shapes, each run with f32 and with bf16 streams:
 # (case, T, B, H, options of check_layer)
 SHAPES = (
@@ -119,6 +136,16 @@ SHAPES = (
     ("H=256 (weights in L2)", 10, 960, 256, {}),
     ("H=128 (backward weights in L2)", 5, 333, 128, dict(repeat=True)),
     ("H=128 T=1 all-ones", 1, 37, 128, dict(mask_mode="ones")),
+)
+# Hanabi width, f32 streams only (train_hanabi_device.sh trains in f32;
+# the Hanabi bench configuration is feed-forward): W (3.15 MB) fits no
+# block's shared memory, so both CUDA-core kernels read it from device
+# memory
+HANABI_SHAPES = (
+    ("Hanabi T=10 B=20000 H=512", *HANABI.values(), dict(bench_scale=True)),
+    ("H=512 B=37 (ragged single tile)", 10, 37, 512, {}),
+    ("H=512 T=1", 1, 20000, 512, {}),
+    ("H=512 all-ones masks", 10, 803, 512, dict(mask_mode="ones")),
 )
 
 
@@ -235,7 +262,7 @@ def check_layer(torch, cg, case, T, B, H, mask_mode="sprinkled",
     return fwd_err, bwd_err
 
 
-def check_sequence_layers(torch, cg, stream_dtype=None):
+def check_sequence_layers(torch, cg, stream_dtype=None, H=64):
     """recurrent_N=2 through `cuda_gru.sequence` (the autograd path, the
     kernels for both layers) on the card, outputs and every gradient,
     against a plain path. In f32 that is the plain scan
@@ -247,10 +274,13 @@ def check_sequence_layers(torch, cg, stream_dtype=None):
     devices may round a value to its neighbour, and such a difference
     passes through two layers: rtol/atol 2e-2 on the bf16 outputs and on
     each gradient relative to its largest entry, 1e-2 on the f32 final
-    states."""
+    states. At H=512 (f32) the weight gradients sum T·B products of
+    512-long dot products, large against the absolute tolerance, so each
+    f32 gradient is compared relative to its largest entry, as
+    `check_layer` compares dW at the bench scale."""
     from onpolicy_torch.models import gru as gru_mod
     bf16 = stream_dtype is not None
-    T, B, D, H, N = 10, 300, 24, 64, 2
+    T, B, D, N = 10, 300, 24, 2
     gen_device = "cpu" if bf16 else "cuda"
     g = torch.Generator(device=gen_device).manual_seed(6 if bf16 else 5)
     rn = lambda *s, scale=1.0: torch.randn(*s, generator=g,
@@ -296,7 +326,7 @@ def check_sequence_layers(torch, cg, stream_dtype=None):
     assert_close(torch, f"{name} hT", got[1], ref[1], *h_tol)
     err = max(max_err(got[0], ref[0]), max_err(got[1], ref[1]))
     for i, (a, b) in enumerate(zip(got[2:], ref[2:])):
-        scale = max(1.0, float(b.abs().max())) if bf16 else 1.0
+        scale = max(1.0, float(b.abs().max())) if (bf16 or H > 64) else 1.0
         assert_close(torch, f"{name} grad {i}", a, b,
                      *((2e-2, 2e-2) if bf16 else (2e-4, 2e-5)), scale)
         err = max(err, max_err(a, b, scale))
@@ -349,13 +379,15 @@ def bounds(T, B, H, itemsize=4):
     the backward reads outs at steps 0..T-2 and h0 in their place at t = 0
     (hprev), also in the stream type. h0, hT, dhT, dh0, the masks, W and
     dW are f32. The products count on the f32 CUDA cores ("fwd",
-    "bwd_f32") or, for the tensor-core kernels ("fwd_tc", "bwd_tc"), in
-    TF32 passes over the dense TF32 peak. 3xTF32 takes three passes
+    "bwd_f32") and in TF32 passes over the dense TF32 peak ("fwd_tc",
+    "bwd_tc"). 3xTF32 takes three passes
     (hi·hi, hi·lo, lo·hi), one fewer where an operand is exact in TF32:
     the forward's h and W are f32, three passes each; in the backward
     with bf16 streams hm = hprev·m is bf16, so hm·W (gate recompute) and
     hm^T·dG (dW) take two passes and dG·W^T (carry) three, seven in all
-    against nine with f32 streams. Gate elementwise math is not counted."""
+    against nine with f32 streams. Gate elementwise math is not counted.
+    The TF32 bounds are the card's best for the function at f32 accuracy,
+    so they are the ones a kernel, CUDA-core or not, is held against."""
     seq, st, w = T * B * H * itemsize, B * H * 4, (3 * H * H + 3 * H) * 4
     m, hprev = T * B * 4, T * B * H * itemsize
     fwd_bytes = 3 * seq + m + st + w + seq + st
@@ -420,6 +452,8 @@ def time_shape(torch, cg, shape, card, stream_dtype=None):
     res["bwd_variant"] = cg.device_bwd_plan(torch.device("cuda"), B, H,
                                             itemsize).name
     res["streams"] = "bf16" if itemsize == 2 else "f32"
+    res["bwd_scratch_bytes"] = 4 * cg.device_bwd_plan(
+        torch.device("cuda"), B, H, itemsize).partial_floats
     log(f"  times {res['streams']} T={T} B={B} H={H} [{card}]: "
         + json.dumps(res))
     return res
@@ -547,16 +581,97 @@ def check_small_against_cpu(torch, name, tol, update_tol, **flags):
         f"{moved['critic_params']:.3e} (critic) of its norm  ok")
 
 
-def train_main_path(torch, cg, name, config, extra, episodes, fwd_per_episode,
-                    bwd_per_episode):
-    """`scripts/train_mpe.main` with `train_mpe.CONFIGS[config]` and the
-    `extra` flags for `episodes` episodes, the launch counts set to 0 just
-    before and read just after. Every logged metric must be finite, and
-    each GRU kernel launched its given count an episode (an eval logged
-    each episode with `--use_eval`). Returns (fwd launches, bwd launches,
-    env-steps/s over the run, env-steps/s of the last episode)."""
-    from onpolicy_torch.scripts import train_mpe
-    argv = train_mpe.CONFIGS[config] + list(extra) + [
+def check_hanabi_against_cpu(torch, cg, tol=(1e-3, 1e-4), update_tol=1e-3):
+    """Hanabi-Small rMAPPO at 8 fleets, T=20 and hidden 128, so that the
+    CUDA-core kernels carry its update (T=10, B=32, H=128): an untrained
+    episode, then a trained one (the deferred update on the first
+    episode's buffer, 2 PPO epochs), on the card and on the CPU from the
+    same parameters and decks, each policy's mode taken. Each buffer field
+    must agree within `tol` relative to its largest entry; the update's
+    metrics within rtol `tol[0]`; the update itself (new - old
+    parameters) differs by at most `update_tol` of its norm, and the
+    trained parameters agree within `tol`, as `check_small_against_cpu`
+    holds the f32 MPE runs."""
+    from onpolicy_torch.envs.hanabi import torch_engine as te
+    from onpolicy_torch.runner.hanabi_runner import HanabiRunner
+    from onpolicy_torch.scripts.train_hanabi import config_from_args
+    from onpolicy_torch.utils.tree import tree_leaves
+    argv = ["--algorithm_name", "rmappo", "--hanabi_name", "Hanabi-Small",
+            "--num_agents", "2", "--n_rollout_threads", "8",
+            "--episode_length", "20", "--num_env_steps", "320",
+            "--hidden_size", "128", "--ppo_epoch", "2", "--use_jax_env",
+            "--use_scan_rounds"]
+    gpu = HanabiRunner(config_from_args(argv + ["--device", "cuda"]))
+    cpu = HanabiRunner(config_from_args(argv + ["--device", "cpu"]))
+    gpu.det_collect = cpu.det_collect = True
+    T = gpu.cfg.episode_length
+    g = torch.Generator().manual_seed(3)
+    decks = [te.shuffled_decks(gpu.envs.game, gpu.N, g, "cpu")
+             for _ in range(2 * T + 1)]
+    ts_g, c_g, b_g = gpu.init(decks[0].cuda())
+    ts_c, c_c, b_c = cpu.init(decks[0])
+    err, moved = 0.0, {}
+    launches = cg.BWD_LAUNCHES
+    for ep, do_train in enumerate((False, True)):
+        ds = decks[1 + ep * T:1 + (ep + 1) * T]
+        old_g, old_c = ts_g, ts_c
+        ts_g, c_g, b_g, m_g = gpu._device_episode(
+            ts_g, c_g, b_g, do_train, [d.cuda() for d in ds])
+        ts_c, c_c, b_c, m_c = cpu._device_episode(ts_c, c_c, b_c, do_train, ds)
+        torch.cuda.synchronize()
+        for k, b in b_c.items():
+            a = b_g[k].cpu()
+            scale = float(b.abs().max()) or 1.0
+            assert_close(torch, f"hanabi episode {ep} buffer {k}", a, b,
+                         *tol, scale)
+            err = max(err, max_err(a, b, scale))
+        if not do_train:
+            continue
+        for k in ("value_loss", "dist_entropy", "actor_grad_norm",
+                  "critic_grad_norm"):
+            a, b = float(m_g[k]), float(m_c[k])
+            if not abs(a - b) <= tol[0] * abs(b):
+                raise AssertionError(f"hanabi train {k}: card {a:.6g}, CPU "
+                                     f"{b:.6g} (rtol {tol[0]})")
+        for part in ("actor_params", "critic_params"):
+            pairs = list(zip(tree_leaves(getattr(ts_g, part)),
+                             tree_leaves(getattr(ts_c, part)),
+                             tree_leaves(getattr(old_g, part)),
+                             tree_leaves(getattr(old_c, part))))
+            d_g = torch.cat([(n - o).flatten().cpu() for n, _, o, _ in pairs])
+            d_c = torch.cat([(n - o).flatten() for _, n, _, o in pairs])
+            moved[part] = float((d_g - d_c).norm() / d_c.norm())
+            if not moved[part] <= update_tol:
+                raise AssertionError(
+                    f"hanabi train {part}: card's update differs from the "
+                    f"CPU's by {moved[part]:.3e} of its norm (limit "
+                    f"{update_tol})")
+            for i, (a, b, _, _) in enumerate(pairs):
+                assert_close(torch, f"hanabi train {part}[{i}]", a.cpu(), b,
+                             *tol)
+                err = max(err, max_err(a.cpu(), b))
+    if cg.BWD_LAUNCHES - launches != 2 * gpu.cfg.ppo_epoch:
+        raise AssertionError("the Hanabi update did not run the kernels")
+    log(f"  card vs CPU, hanabi rmappo f32 H=128, 2 episodes at N=8: max err "
+        f"{err:.2e} (buffer relative to each field's largest entry), update "
+        f"differs by {moved['actor_params']:.3e} (actor) / "
+        f"{moved['critic_params']:.3e} (critic) of its norm  ok")
+
+
+def train_main_path(torch, cg, name, script, config, extra, episodes,
+                    fwd_per_episode, bwd_per_episode):
+    """`scripts/<script>.main` with its `CONFIGS[config]` and the `extra`
+    flags for `episodes` episodes, the launch counts set to 0 just before
+    and read just after. Every logged metric must be finite, and each GRU
+    kernel launched its given count a trained episode: every episode of
+    train_mpe (an eval logged each episode with `--use_eval`), all but the
+    first of train_hanabi (training is deferred one episode, and the first
+    is not logged). Returns (fwd launches, bwd launches, env-steps/s over
+    the run, env-steps/s of the last episode)."""
+    import importlib
+    module = importlib.import_module(f"onpolicy_torch.scripts.{script}")
+    hanabi = script == "train_hanabi"
+    argv = module.CONFIGS[config] + list(extra) + [
         "--experiment_name", f"chip_smoke_{config}", "--log_interval", "1",
         "--device", "cuda"]
     flag = lambda name: int(argv[argv.index(name) + 1])
@@ -568,14 +683,16 @@ def train_main_path(torch, cg, name, config, extra, episodes, fwd_per_episode,
         cg.FWD_LAUNCHES = 0
         cg.BWD_LAUNCHES = 0
         t0 = time.perf_counter()
-        _, history = train_mpe.main(argv)
+        _, history = module.main(argv)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         fwd, bwd = cg.FWD_LAUNCHES, cg.BWD_LAUNCHES
-    logged = len([r for r in history if "average_episode_rewards" in r])
-    if logged != episodes:
+    reward = "average_score" if hanabi else "average_episode_rewards"
+    trained = episodes - 1 if hanabi else episodes
+    logged = len([r for r in history if reward in r])
+    if logged != trained:
         raise AssertionError(f"{name}: {logged} episodes logged, want "
-                             f"{episodes}")
+                             f"{trained}")
     if "--use_eval" in extra and not all(
             "eval_average_episode_rewards" in r for r in history):
         raise AssertionError(f"{name}: an episode without its eval")
@@ -584,33 +701,42 @@ def train_main_path(torch, cg, name, config, extra, episodes, fwd_per_episode,
             if isinstance(v, float) and not math.isfinite(v):
                 raise AssertionError(f"{name} episode {r['episode']}: "
                                      f"{k}={v}")
-    want = (fwd_per_episode * episodes, bwd_per_episode * episodes)
+    want = (fwd_per_episode * trained, bwd_per_episode * trained)
     if (fwd, bwd) != want:
         raise AssertionError(f"{name}: launches fwd={fwd} bwd={bwd}, "
                              f"want {want}")
     # the runner's fps is cumulative: episode i ends at (i+1)*steps/fps_i
     ends = [(r["episode"] + 1) * steps / r["fps"] for r in history]
-    last_rate = steps / (ends[-1] - ends[-2])
-    mean_rew = sum(r["average_episode_rewards"] for r in history) / logged
+    # (a run that logs one row, as 2 Hanabi episodes do, has no last rate)
+    last_rate = steps / (ends[-1] - ends[-2]) if len(ends) > 1 else None
+    mean_rew = sum(r[reward] for r in history) / logged
     evals = [r["eval_average_episode_rewards"] for r in history
              if "eval_average_episode_rewards" in r]
+    more = ""
+    if hanabi:
+        more = (f", true steps/s {history[-1]['true_steps'] / ends[-1]:.1f} "
+                f"over the run, average_score by episode "
+                f"{[round(r[reward], 4) for r in history]}")
     log(f"  {name}: {threads} threads, {episodes} episodes, wall "
         f"{wall:.2f} s, launches fwd {fwd} bwd {bwd}, env-steps/s "
         f"{history[-1]['fps']:.1f} over the run (first episode included), "
-        f"{last_rate:.1f} in the last episode, mean reward {mean_rew:.4f}"
-        + (f", eval returns {evals}" if evals else ""))
+        + (f"{last_rate:.1f} in the last episode, " if last_rate else "")
+        + f"mean {reward} {mean_rew:.4f}"
+        + (f", eval returns {evals}" if evals else "") + more)
     return fwd, bwd, history[-1]["fps"], last_rate
 
 
 def kernel_rows(times, launches, errs, shape, streams):
     """The `kernels` line's rows of both kernels for one stream type;
     `launches` maps each run of that stream type to its counts, and a
-    row's `launches` is their sum."""
+    row's `launches` is their sum. `bound_ms` is the best the card can do
+    for the function, whichever variant ran: the products in 3xTF32 passes
+    on the tensor cores, which hold f32 accuracy. `bound_f32_ms` keeps the
+    bound on the f32 CUDA cores beside it."""
     src = "onpolicy_torch/csrc/gru_seq.cu"
     rows = []
     for d, name, line in (("fwd", "gru_seq_fwd", 122),
                           ("bwd", "gru_seq_bwd", 219)):
-        tc = "tc" if times[f"{d}_variant"] == "tensor_core" else "f32"
         rows.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": f"onpolicy_tpu/ops/pallas_gru.py:{line}",
@@ -621,8 +747,8 @@ def kernel_rows(times, launches, errs, shape, streams):
             "max_abs_err": errs[d],
             "ms": times[f"{d}_ms"], "device_ms": times[f"{d}_device_ms"],
             "plain_ms": times[f"{d}_plain_ms"],
-            "bound_ms": times[f"{d}_bound_{tc}_ms"],
-            "bound_by": times[f"{d}_bound_{tc}_by"],
+            "bound_ms": times[f"{d}_bound_tc_ms"],
+            "bound_by": times[f"{d}_bound_tc_by"],
             "bound_f32_ms": times[f"{d}_bound_f32_ms"],
             "bound_f32_by": times[f"{d}_bound_f32_by"],
             "library_ms": times[f"{d}_library_ms"]})
@@ -671,6 +797,11 @@ def main() -> int:
             errs[case, streams] = check_layer(
                 torch, cg, case, T, B, H, stream_dtype=stream_dtype, **opts)
         check_sequence_layers(torch, cg, stream_dtype)
+    log("== 3. kernels against their plain versions at the Hanabi width "
+        "(f32 streams)")
+    for case, T, B, H, opts in HANABI_SHAPES:
+        errs[case, "f32"] = check_layer(torch, cg, case, T, B, H, **opts)
+    check_sequence_layers(torch, cg, None, H=512)
 
     log("== 4. times (CUDA events)")
     t_flag = time_shape(torch, cg, FLAGSHIP, card)
@@ -679,8 +810,9 @@ def main() -> int:
     t_bench16 = time_shape(torch, cg, BENCH, card, torch.bfloat16)
     compare_forwards(torch, cg, FLAGSHIP, card)
     compare_forwards(torch, cg, BENCH, card)
+    t_hanabi = time_shape(torch, cg, HANABI, card)
 
-    log("== 5. main path: train_mpe, flagship and bench configurations")
+    log("== 5. main path: train_mpe and train_hanabi configurations")
     check_small_against_cpu(torch, "rmappo f32", (1e-3, 1e-4), 1e-3,
                             algorithm_name="rmappo")
     check_small_against_cpu(torch, "rmappo bf16", (5e-2, 5e-2), 0.25,
@@ -690,12 +822,15 @@ def main() -> int:
                             use_critic_dedup=True)
     check_small_against_cpu(torch, "happo f32 (3 agents)", (1e-3, 1e-4),
                             1e-3, algorithm_name="happo")
-    launches = {"f32": {}, "bf16": {}}
-    for name, config, extra, episodes, fwd_pe, bwd_pe in TRAIN_RUNS:
-        fwd, bwd, _, _ = train_main_path(torch, cg, name, config, extra,
-                                         episodes, fwd_pe, bwd_pe)
-        streams = "bf16" if config.startswith("bench") else "f32"
-        launches[streams][name] = {"fwd": fwd, "bwd": bwd}
+    check_hanabi_against_cpu(torch, cg)
+    # each run's launches go to the kernel rows of its GRU shape
+    launches = {"f32": {}, "bf16": {}, "hanabi": {}}
+    for name, script, config, extra, episodes, fwd_pe, bwd_pe in TRAIN_RUNS:
+        fwd, bwd, _, _ = train_main_path(torch, cg, name, script, config,
+                                         extra, episodes, fwd_pe, bwd_pe)
+        shape = ("bf16" if config.startswith("bench")
+                 else "hanabi" if script == "train_hanabi" else "f32")
+        launches[shape][name] = {"fwd": fwd, "bwd": bwd}
 
     row_errs = lambda case, streams: dict(zip(("fwd", "bwd"),
                                               errs[case, streams]))
@@ -704,6 +839,9 @@ def main() -> int:
     kernels += kernel_rows(t_bench16, launches["bf16"],
                            row_errs("bench (16384 threads)", "bf16"), BENCH,
                            "bf16")
+    kernels += kernel_rows(t_hanabi, launches["hanabi"],
+                           row_errs("Hanabi T=10 B=20000 H=512", "f32"), HANABI,
+                           "f32")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -66,6 +66,10 @@ class Config:
     # tensors on the CPU. True asks for the kernels (refused on the CPU);
     # False asks for the plain scan (refused on the card).
     use_pallas_gru: Optional[bool] = None
+    # Hanabi: `use_jax_env` runs the device-resident engine (in the port a
+    # tensor engine, envs/hanabi/torch_engine.py; the flag keeps its name so
+    # the launch scripts run unchanged), and either collect flag the
+    # device episode loop (runner/hanabi_runner.py)
     use_device_collect: bool = False
     use_scan_rounds: bool = False
     use_jax_env: bool = False

@@ -1,17 +1,22 @@
 """Where one training episode spends its time on the card.
 
     python -m onpolicy_torch.scripts.profile_episode \
-        [--config flagship|bench_mappo|bench_rmappo|reference] \
+        [--config flagship|bench_mappo|bench_rmappo|reference|
+                  hanabi_device|bench_hanabi_width] \
         [--episodes 3] [--warmup 2]
 
-Runs one of the shared-policy `train_mpe.CONFIGS` on the card: the
-flagship simple_spread rMAPPO (128 rollout threads, T=25, L=10, 10 PPO
-epochs, hidden 64; the default), the JAX package's bench MAPPO
-(feed-forward, critic dedup) or bench rMAPPO at 16,384 rollout threads in
-bf16, or simple_reference. Prints one JSON object:
-  * host wall time per episode, split into rollout (T env steps + the
-    policy's acts + GAE) and update (ppo_epoch PPO steps), each phase
-    ended by `torch.cuda.synchronize()`;
+Runs one of the shared-policy `train_mpe.CONFIGS` or one of
+`train_hanabi.CONFIGS` on the card: the flagship simple_spread rMAPPO
+(128 rollout threads, T=25, L=10, 10 PPO epochs, hidden 64; the
+default), the JAX package's bench MAPPO (feed-forward, critic dedup) or
+bench rMAPPO at 16,384 rollout threads in bf16, simple_reference,
+train_hanabi_device.sh (rMAPPO, Hanabi-Full, hidden 512x2, 1000 fleets,
+T=100, 15 PPO epochs) or the JAX package's Hanabi bench configuration
+(the same in feed-forward MAPPO, bf16). Prints one JSON object:
+  * host wall time per episode, split into rollout (T env steps, or T
+    Hanabi seat rounds, with the policy's acts) and update (GAE and
+    ppo_epoch PPO steps; for Hanabi the deferred update on the previous
+    episode), each phase ended by `torch.cuda.synchronize()`;
   * from `torch.profiler` over one more episode: the device's busy time
     (sum of kernel times; one stream, so kernels do not overlap), its idle
     share of the unprofiled episode time, kernel launches per episode, the
@@ -22,14 +27,16 @@ Refuses to run without a CUDA device.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
-import time
 
 import torch
 
+from onpolicy_torch.scripts import train_hanabi
 from onpolicy_torch.scripts.train_mpe import CONFIGS
+from onpolicy_torch.utils.profiling import PhaseTimer
 
 GRU_KERNELS = ("gru_fwd_kernel", "gru_bwd_kernel", "gru_bwd_reduce")
 
@@ -45,12 +52,63 @@ def _is_kernel(ev) -> bool:
     return str(getattr(ev, "device_type", "")).endswith("CUDA")
 
 
+class _CardTimer(PhaseTimer):
+    """A PhaseTimer whose phases start and end with the card's queue
+    drained, so each phase holds its own device work."""
+
+    @contextlib.contextmanager
+    def phase(self, name):
+        torch.cuda.synchronize()
+        with super().phase(name):
+            yield
+            torch.cuda.synchronize()
+
+    def milliseconds(self, name) -> float:
+        return self._acc.get(name, 0.0) * 1e3
+
+
+def _shared_episodes(config):
+    """(cfg, one episode (timer) -> None) for a `train_mpe.CONFIGS` run."""
+    from onpolicy_torch.config import config_from_args
+    from onpolicy_torch.runner.shared_runner import SharedRunner
+    cfg = config_from_args(CONFIGS[config] + ["--device", "cuda"])
+    runner = SharedRunner(cfg)
+    box = list(runner.init())
+
+    def episode(timer):
+        state, carry = box
+        with timer.phase("rollout"):
+            carry, buf = runner.rollout(state, carry)
+        with timer.phase("update"):
+            state, _ = runner.algo.train(state, buf, runner.generator)
+        box[:] = state, carry
+    return cfg, episode
+
+
+def _hanabi_episodes(config):
+    """(cfg, one episode (timer) -> None) for a `train_hanabi.CONFIGS` run;
+    the first episode only collects, every later one trains first."""
+    from onpolicy_torch.runner.hanabi_runner import HanabiRunner
+    cfg = train_hanabi.config_from_args(train_hanabi.CONFIGS[config]
+                                        + ["--device", "cuda"])
+    runner = HanabiRunner(cfg)
+    box = [*runner.init(), False]
+
+    def episode(timer):
+        state, carry, dbuf, trained = box
+        state, carry, dbuf, _ = runner._device_episode(
+            state, carry, dbuf, do_train=trained, timer=timer)
+        box[:] = state, carry, dbuf, True
+    return cfg, episode
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     from onpolicy_torch.config import config_from_args
     shared = [k for k, v in CONFIGS.items()
               if config_from_args(v + ["--device", "cpu"]).share_policy]
-    ap.add_argument("--config", choices=sorted(shared), default="flagship")
+    ap.add_argument("--config", choices=sorted(shared)
+                    + sorted(train_hanabi.CONFIGS), default="flagship")
     ap.add_argument("--episodes", type=int, default=3)
     ap.add_argument("--warmup", type=int, default=2)
     args = ap.parse_args(argv)
@@ -58,31 +116,24 @@ def main(argv=None):
         raise SystemExit("profile_episode: needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from onpolicy_torch.runner.shared_runner import SharedRunner
-
-    cfg = config_from_args(CONFIGS[args.config] + ["--device", "cuda"])
-    runner = SharedRunner(cfg)
-    state, carry = runner.init()
+    make = (_hanabi_episodes if args.config in train_hanabi.CONFIGS
+            else _shared_episodes)
+    cfg, episode = make(args.config)
     for _ in range(args.warmup):
-        state, carry, _ = runner.episode(state, carry)
+        episode(PhaseTimer())
     torch.cuda.synchronize()
 
     rollout_ms, update_ms = [], []
     for _ in range(args.episodes):
-        t0 = time.perf_counter()
-        carry, buf = runner.rollout(state, carry)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        state, _ = runner.algo.train(state, buf, runner.generator)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        rollout_ms.append((t1 - t0) * 1e3)
-        update_ms.append((t2 - t1) * 1e3)
+        timer = _CardTimer()
+        episode(timer)
+        rollout_ms.append(timer.milliseconds("rollout"))
+        update_ms.append(timer.milliseconds("update"))
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        state, carry, _ = runner.episode(state, carry)
+        episode(PhaseTimer())
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages() if _is_kernel(e)]
     busy_us = sum(_device_time_us(e) for e in kernels)
@@ -104,6 +155,8 @@ def main(argv=None):
         "kernel_launches": sum(e.count for e in kernels),
         "gru_kernels_ms": sum(_device_time_us(e) for e in kernels
                               if any(k in e.key for k in GRU_KERNELS)) / 1e3,
+        "gru_kernel_launches": sum(e.count for e in kernels
+                                   if any(k in e.key for k in GRU_KERNELS)),
         "top_kernels": [{"name": e.key[:90], "count": e.count,
                          "ms": _device_time_us(e) / 1e3} for e in top],
     }

@@ -1,0 +1,87 @@
+"""Hanabi training entry point of the PyTorch port.
+
+Port of `onpolicy_tpu/scripts/train_hanabi.py` (the reference's
+`train_hanabi_forward.py`: flags `--hanabi_name`, `--num_agents`); runs
+on the card unless `--device cpu` is given. The device path
+(`--use_jax_env` with `--use_scan_rounds` or `--use_device_collect`) runs
+the port's tensor engine and episode loop (`runner/hanabi_runner.py`);
+the C++ engine and the host seat loop are ROADMAP.md item E2 and raise.
+`scripts/train_hanabi_scripts/train_hanabi_device.sh`, rMAPPO on
+Hanabi-Full at hidden 512x2 over 1000 fleets:
+
+    python -m onpolicy_torch.scripts.train_hanabi --env_name Hanabi \
+        --algorithm_name rmappo --experiment_name device \
+        --hanabi_name Hanabi-Full --num_agents 2 --seed 1 \
+        --n_rollout_threads 1000 --num_mini_batch 1 --episode_length 100 \
+        --num_env_steps 10000000000 --ppo_epoch 15 --gain 0.01 \
+        --lr 7e-4 --critic_lr 1e-3 --hidden_size 512 --layer_N 2 \
+        --entropy_coef 0.015 --use_scan_rounds --use_jax_env \
+        --log_interval 1 --save_interval 5
+
+`CONFIGS` holds that script's flags and the JAX package's Hanabi bench
+configuration (`bench.py:188-244`: feed-forward MAPPO in bf16 at the same
+width, fleets, T and epochs), without a step count, for `chip_smoke.py`,
+`profile_episode.py` and `learning_check.py`.
+"""
+from __future__ import annotations
+
+import sys
+
+from onpolicy_torch.config import (Config, apply_wandb_sweep,
+                                   canonicalize_algorithm, get_config)
+from onpolicy_torch.utils.run_dir import MetricsLogger, make_run_dir
+
+_FULL_WIDTH = ["--env_name", "Hanabi", "--hanabi_name", "Hanabi-Full",
+               "--num_agents", "2", "--n_rollout_threads", "1000",
+               "--num_mini_batch", "1", "--episode_length", "100",
+               "--ppo_epoch", "15", "--gain", "0.01", "--lr", "7e-4",
+               "--critic_lr", "1e-3", "--hidden_size", "512",
+               "--layer_N", "2", "--entropy_coef", "0.015",
+               "--use_scan_rounds", "--use_jax_env"]
+CONFIGS = {
+    # scripts/train_hanabi_scripts/train_hanabi_device.sh
+    "hanabi_device": _FULL_WIDTH + ["--algorithm_name", "rmappo", "--seed",
+                                    "1", "--log_interval", "1",
+                                    "--save_interval", "5"],
+    # bench.py:188-244
+    "bench_hanabi_width": _FULL_WIDTH + ["--algorithm_name", "mappo",
+                                         "--use_bf16"],
+}
+
+
+def parse_args(argv):
+    p = get_config()
+    p.add_argument("--hanabi_name", type=str, default="Hanabi-Small")
+    return p.parse_args(argv)
+
+
+def config_from_args(argv) -> Config:
+    ns = parse_args(argv)
+    overrides = {k: v for k, v in vars(ns).items()
+                 if k in Config.__dataclass_fields__}
+    overrides.update(env_name="Hanabi", scenario_name=ns.hanabi_name)
+    return canonicalize_algorithm(
+        apply_wandb_sweep(Config(**overrides))).validate()
+
+
+def main(argv=None):
+    from onpolicy_torch.runner.hanabi_runner import E2, HanabiRunner
+    cfg = config_from_args(argv if argv is not None else sys.argv[1:])
+    if cfg.use_eval:
+        raise NotImplementedError(
+            "training-time Hanabi eval runs on the C++ engine, which is not "
+            f"ported yet ({E2}); evaluate a checkpoint with "
+            "scripts/eval_hanabi.py --use_jax_env")
+    runner = HanabiRunner(cfg)
+    run_dir = make_run_dir(cfg)
+    logger = MetricsLogger(run_dir, cfg)
+    try:
+        state, history = runner.run(log_fn=logger,
+                                    save_dir=run_dir / "models")
+    finally:
+        logger.close()
+    return state, history
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

@@ -71,7 +71,10 @@ def _close_bf16(got, want, streams):
                                    (4, 2200, 16), (4, 300, 16),
                                    # CUDA-core kernels, W in shared memory:
                                    # full tiles, a ragged single tile, T=1
-                                   (10, 960, 40), (10, 37, 40), (1, 300, 40)])
+                                   (10, 960, 40), (10, 37, 40), (1, 300, 40),
+                                   # Hanabi width, W read from device
+                                   # memory: ragged tiles, T=1
+                                   (3, 37, 512), (1, 1003, 512)])
 def test_kernels_match_plain_versions_on_the_card(T, B, H):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels run on the card only")
@@ -101,7 +104,8 @@ def test_kernels_match_plain_versions_on_the_card(T, B, H):
     (960, 48, "tensor_core", 8), (300, 16, "tensor_core", 8),
     (2200, 32, "tensor_core", 16),
     (960, 40, "cuda_core_smem_w", 8), (333, 128, "cuda_core_smem_w", 8),
-    (200, 256, "cuda_core_global_w", 8)])
+    (200, 256, "cuda_core_global_w", 8),
+    (20_000, 512, "cuda_core_global_w", 16)])
 def test_forward_variant_by_width_on_the_card(B, H, variant, bt):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels run on the card only")
@@ -136,7 +140,8 @@ def test_cuda_core_forward_at_tensor_core_widths_on_the_card(T, B, H):
     (5003, 64, "tensor_core"),
     (960, 48, "tensor_core"), (960, 40, "cuda_core_smem_w"),
     (37, 40, "cuda_core_smem_w"), (300, 40, "cuda_core_smem_w"),
-    (333, 128, "cuda_core_global_w"), (200, 256, "cuda_core_global_w")])
+    (333, 128, "cuda_core_global_w"), (200, 256, "cuda_core_global_w"),
+    (20_000, 512, "cuda_core_global_w")])
 def test_backward_variant_by_width_on_the_card(B, H, variant):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels run on the card only")
