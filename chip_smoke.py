@@ -19,7 +19,14 @@ Phases, each of which fails the run (non-zero exit) if it fails:
               (HAPPO's whole-episode log-probs, forward only); each line
               names the forward and backward variants, tiles and grids;
               dW bitwise repeatable at the flagship, bench, T=25 and
-              H=128 shapes.
+              H=128 shapes. Where the backward is `tensor_core_wide`
+              (64 < H <= 512, H % 32 == 0: the H=128/256 shapes here, the
+              H=512 ones below) its three pieces are also held against
+              their plain pieces on the same inputs (gate GEMM, carry,
+              dW GEMM with its reduction). The CUDA-core backward that
+              reads W from device memory (`cuda_core_global_w`), which
+              no shape of the main paths takes any longer, runs at H=128
+              through an explicit plan (`cuda_core_bwd_plan`).
               Then recurrent_N=2 through the autograd path on the card
               against the CPU path, in each stream type. Then, in f32,
               the Hanabi width H=512 (`HANABI_SHAPES`: T=10 B=20,000 as
@@ -33,7 +40,11 @@ Phases, each of which fails the run (non-zero exit) if it fails:
               then the CUDA-core forward and the tensor-core one on the
               same inputs through explicit plans, in turns (CUDA-core,
               tensor-core, tensor-core, CUDA-core); and the Hanabi shape
-              T=10 B=20,000 H=512 in f32, with the backward's scratch.
+              T=10 B=20,000 H=512 in f32, with the backward's scratch;
+              then at that shape the old CUDA-core backward and the wide
+              one on the same inputs through explicit plans, each held
+              against the plain version and timed in turns (old, wide,
+              wide, old), with each wide kernel's device ms.
   5. train:   one episode at 8 rollout threads on the card against the
               CPU path from the same state (rMAPPO in f32, rMAPPO and
               MAPPO with the critic dedup in bf16, HAPPO with 3 agents
@@ -136,11 +147,13 @@ SHAPES = (
     ("H=256 (weights in L2)", 10, 960, 256, {}),
     ("H=128 (backward weights in L2)", 5, 333, 128, dict(repeat=True)),
     ("H=128 T=1 all-ones", 1, 37, 128, dict(mask_mode="ones")),
+    ("H=128 CUDA-core bwd (W in memory)", 10, 803, 128,
+     dict(repeat=True, cuda_core_bwd=True)),
 )
 # Hanabi width, f32 streams only (train_hanabi_device.sh trains in f32;
 # the Hanabi bench configuration is feed-forward): W (3.15 MB) fits no
-# block's shared memory, so both CUDA-core kernels read it from device
-# memory
+# block's shared memory, so the CUDA-core forward reads it from device
+# memory and the wide backward streams it from L2 in chunks
 HANABI_SHAPES = (
     ("Hanabi T=10 B=20000 H=512", *HANABI.values(), dict(bench_scale=True)),
     ("H=512 B=37 (ragged single tile)", 10, 37, 512, {}),
@@ -209,14 +222,19 @@ BF16_STREAM_TOL = (2 ** -7, 2e-5)
 
 
 def check_layer(torch, cg, case, T, B, H, mask_mode="sprinkled",
-                bench_scale=False, repeat=False, stream_dtype=None):
+                bench_scale=False, repeat=False, stream_dtype=None,
+                cuda_core_bwd=False):
     """Kernel vs plain version for one layer; with `repeat` (or
     `bench_scale`) the backward also runs twice and must give the same
     bits. `stream_dtype` bf16 moves gi, outs, douts and dgi in bf16.
-    Returns (fwd_err, bwd_err)."""
+    `cuda_core_bwd` runs the CUDA-core backward (`cuda_core_bwd_plan`)
+    where the shape would take another. Returns (fwd_err, bwd_err)."""
     bf16 = stream_dtype is not None
     itemsize = 2 if bf16 else 4
-    plan = cg.device_bwd_plan(torch.device("cuda"), B, H, itemsize)
+    plan = cg.device_bwd_plan(torch.device("cuda"), B, H, itemsize, T)
+    if cuda_core_bwd:
+        plan = cg.cuda_core_bwd_plan(
+            B, H, *cg.device_limits(torch.cuda.current_device()))
     fplan = cg.device_fwd_plan(torch.device("cuda"), B, H, itemsize)
     x = make_inputs(torch, T, B, H, seed=T * 7919 + B * 31 + H,
                     mask_mode=mask_mode, stream_dtype=stream_dtype)
@@ -235,31 +253,81 @@ def check_layer(torch, cg, case, T, B, H, mask_mode="sprinkled",
 
     bargs = (x["gir"], x["giz"], x["gin"], r_outs, x["h0"], x["masks"],
              x["douts"], x["dhT"], x["w_hh"], x["b_hh"])
-    got = cg.gru_layer_bwd(*bargs)
+    got = cg.gru_layer_bwd(*bargs, plan=plan)
     ref = cg.gru_layer_bwd_ref(*bargs)
     torch.cuda.synchronize()
     names = ("dgir", "dgiz", "dgin", "dh0", "dw_hh", "db_hh")
-    bwd_err = 0.0
-    for n, a, b in zip(names, got, ref):
-        # a sum of T*B products per entry reorders between the two
-        # versions; at bench scale (1.2M terms) compare relative to |ref|
+    bwd_errs = check_bwd_outputs(torch, case, got, ref, bf16, bench_scale)
+    bwd_err = max(bwd_errs.values())
+    worst = max(bwd_errs, key=bwd_errs.get)
+    if bench_scale or repeat:
+        again = cg.gru_layer_bwd(*bargs, plan=plan)
+        torch.cuda.synchronize()
+        for n, a, b in zip(names, got, again):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{case} {n}: backward not deterministic")
+    if plan.variant == cg.WIDE:
+        bwd_err = max(bwd_err, check_wide_pieces(torch, cg, case, x, r_outs,
+                                                 bf16, bench_scale))
+    log(f"  {case:<34} {'bf16' if bf16 else 'f32 '} T={T:<3} B={B:<7} H={H:<4} "
+        f"fwd {fplan.name:<18} (tile {fplan.bt}, {fplan.grid} blocks)  "
+        f"bwd {plan.name:<18} (tile {plan.bt}, {plan.grid} blocks)  "
+        f"fwd err {fwd_err:.2e}  bwd err {bwd_err:.2e} (whole: {worst} "
+        f"{bwd_errs[worst]:.2e})  ok")
+    return fwd_err, bwd_err
+
+
+def check_bwd_outputs(torch, case, got, ref, bf16, bench_scale):
+    """The backward's six outputs against the plain version's: dgi within
+    one bf16 ulp with bf16 streams, the rest at rtol 2e-4 / atol 2e-5;
+    with `bench_scale` dW and db relative to their largest entry (a sum
+    of T*B products per entry reorders between the two versions).
+    Returns {output: max err}."""
+    errs = {}
+    for n, a, b in zip(("dgir", "dgiz", "dgin", "dh0", "dw_hh", "db_hh"),
+                       got, ref):
         scale = max(1.0, float(b.abs().max())) \
             if (bench_scale and n in ("dw_hh", "db_hh")) else 1.0
         tol = BF16_STREAM_TOL if (bf16 and n.startswith("dgi")) \
             else (2e-4, 2e-5)
         assert_close(torch, f"{case} {n}", a, b, *tol, scale)
-        bwd_err = max(bwd_err, max_err(a, b, scale))
-    if bench_scale or repeat:
-        again = cg.gru_layer_bwd(*bargs)
-        torch.cuda.synchronize()
-        for n, a, b in zip(names, got, again):
-            if not torch.equal(a, b):
-                raise AssertionError(f"{case} {n}: backward not deterministic")
-    log(f"  {case:<34} {'bf16' if bf16 else 'f32 '} T={T:<3} B={B:<7} H={H:<4} "
-        f"fwd {fplan.name:<18} (tile {fplan.bt}, {fplan.grid} blocks)  "
-        f"bwd {plan.name:<18} (tile {plan.bt}, {plan.grid} blocks)  "
-        f"fwd err {fwd_err:.2e}  bwd err {bwd_err:.2e}  ok")
-    return fwd_err, bwd_err
+        errs[n] = max_err(a, b, scale)
+    return errs
+
+
+def check_wide_pieces(torch, cg, case, x, outs, bf16, bench_scale):
+    """The wide backward's three pieces against their plain pieces, each
+    on the same inputs: GH at the forward's tolerance (1e-5); the carry,
+    given the plain GH, its dgi (one bf16 ulp with bf16 streams), dh0 and
+    dG at the gradients' (2e-4 / 2e-5); the dW GEMM with its reduction,
+    given the plain dG, at the gradients', relative to the largest entry
+    at the bench scale. Returns the largest error."""
+    hprev0 = x["h0"].to(outs.dtype)
+    common = (outs, hprev0, x["masks"])
+    gh = cg.gru_bwd_gates(*common, x["w_hh"], x["b_hh"])
+    gh_ref = cg.gru_bwd_gates_ref(*common, x["w_hh"], x["b_hh"])
+    cargs = (x["gir"], x["giz"], x["gin"], outs, hprev0, x["masks"],
+             x["douts"], x["dhT"], x["w_hh"])
+    carry = cg.gru_bwd_carry(*cargs, gh_ref.clone())
+    carry_ref = cg.gru_bwd_carry_ref(*cargs, gh_ref)
+    dw = cg.gru_bwd_dw(*common, carry_ref[4])
+    dw_ref = cg.gru_bwd_dw_ref(*common, carry_ref[4])
+    torch.cuda.synchronize()
+    assert_close(torch, f"{case} gates GH", gh, gh_ref, 1e-5, 1e-5)
+    errs = {"GH": max_err(gh, gh_ref)}
+    for n, a, b in zip(("dgir", "dgiz", "dgin", "dh0", "dG"), carry,
+                       carry_ref):
+        tol = BF16_STREAM_TOL if (bf16 and n.startswith("dgi")) \
+            else (2e-4, 2e-5)
+        assert_close(torch, f"{case} carry {n}", a, b, *tol)
+        errs[f"carry {n}"] = max_err(a, b)
+    for n, a, b in zip(("dw_hh", "db_hh"), dw, dw_ref):
+        scale = max(1.0, float(b.abs().max())) if bench_scale else 1.0
+        assert_close(torch, f"{case} dW GEMM {n}", a, b, 2e-4, 2e-5, scale)
+        errs[f"dW GEMM {n}"] = max_err(a, b, scale)
+    log(f"  {'':<34} wide pieces against their plain pieces, max err: "
+        + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()) + "  ok")
+    return max(errs.values())
 
 
 def check_sequence_layers(torch, cg, stream_dtype=None, H=64):
@@ -353,11 +421,12 @@ def time_ms(torch, fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(torch, fn, names, iters=20):
-    """Device time per call of the kernels whose names contain one of
-    `names`, summed from torch.profiler; None if it saw no device time.
-    At the flagship width the kernels take less than the host needs to
-    launch them, so CUDA events around back-to-back calls read the host."""
+def device_ms_each(torch, fn, names, iters=20):
+    """Device time per call of the kernels whose names contain each of
+    `names`, from torch.profiler: {name: ms}, None where it saw no device
+    time. At the flagship width the kernels take less than the host needs
+    to launch them, so CUDA events around back-to-back calls read the
+    host."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -365,10 +434,27 @@ def device_ms(torch, fn, names, iters=20):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    us = sum(float(getattr(e, "self_device_time_total", 0.0)
-                   or getattr(e, "self_cuda_time_total", 0.0))
-             for e in prof.key_averages() if any(n in e.key for n in names))
-    return us / iters / 1e3 if us > 0 else None
+    out = {}
+    for n in names:
+        us = sum(float(getattr(e, "self_device_time_total", 0.0)
+                       or getattr(e, "self_cuda_time_total", 0.0))
+                 for e in prof.key_averages() if n in e.key)
+        out[n] = us / iters / 1e3 if us > 0 else None
+    return out
+
+
+def device_ms(torch, fn, names, iters=20):
+    """Device time per call of the kernels whose names contain one of
+    `names`, summed; None if the profiler saw no device time."""
+    ms = [v for v in device_ms_each(torch, fn, names, iters).values() if v]
+    return sum(ms) if ms else None
+
+
+# the backward's kernels, all named gru_bwd_*: the tensor-core and
+# CUDA-core kernels, and the wide variant's three and the reduction
+BWD_KERNELS = ("gru_bwd_",)
+WIDE_KERNELS = ("gru_bwd_gates_gemm", "gru_bwd_carry", "gru_bwd_dw_gemm",
+                "gru_bwd_reduce")
 
 
 def bounds(T, B, H, itemsize=4):
@@ -420,7 +506,7 @@ def time_shape(torch, cg, shape, card, stream_dtype=None):
         "fwd_device_ms": device_ms(torch, lambda: cg.gru_layer_fwd(*fargs),
                                    ("gru_fwd_kernel",)),
         "bwd_device_ms": device_ms(torch, lambda: cg.gru_layer_bwd(*bargs),
-                                   ("gru_bwd_kernel", "gru_bwd_reduce")),
+                                   BWD_KERNELS),
         "fwd_plain_ms": time_ms(torch, lambda: cg.gru_layer_fwd_ref(*fargs),
                                 iters=5),
         "bwd_plain_ms": time_ms(torch, lambda: cg.gru_layer_bwd_ref(*bargs),
@@ -449,11 +535,13 @@ def time_shape(torch, cg, shape, card, stream_dtype=None):
     itemsize = x["gir"].element_size()
     res["fwd_variant"] = cg.device_fwd_plan(torch.device("cuda"), B, H,
                                             itemsize).name
-    res["bwd_variant"] = cg.device_bwd_plan(torch.device("cuda"), B, H,
-                                            itemsize).name
+    bplan = cg.device_bwd_plan(torch.device("cuda"), B, H, itemsize, T)
+    res["bwd_variant"] = bplan.name
     res["streams"] = "bf16" if itemsize == 2 else "f32"
-    res["bwd_scratch_bytes"] = 4 * cg.device_bwd_plan(
-        torch.device("cuda"), B, H, itemsize).partial_floats
+    res["bwd_scratch_bytes"] = 4 * bplan.partial_floats
+    if bplan.variant == cg.WIDE:
+        res["bwd_device_ms_by_kernel"] = device_ms_each(
+            torch, lambda: cg.gru_layer_bwd(*bargs), WIDE_KERNELS, iters=5)
     log(f"  times {res['streams']} T={T} B={B} H={H} [{card}]: "
         + json.dumps(res))
     return res
@@ -478,6 +566,49 @@ def compare_forwards(torch, cg, shape, card):
         res[k]["event_ms"].append(time_ms(torch, fn))
         res[k]["device_ms"].append(device_ms(torch, fn, ("gru_fwd_kernel",)))
     log(f"  forward in turns T={T} B={B} H={H} [{card}]: " + json.dumps(res))
+    return res
+
+
+def compare_backwards(torch, cg, shape, card):
+    """The CUDA-core backward (`cuda_core_bwd_plan`) and the wide one on
+    the same inputs, each through an explicit plan: each held against the
+    plain version (`check_bwd_outputs`, dW and db relative to their
+    largest entry), then timed in turns (CUDA-core, wide, wide,
+    CUDA-core): CUDA-event ms and torch.profiler device ms of each turn,
+    each wide kernel's device ms, and each plan's scratch bytes."""
+    T, B, H = shape["T"], shape["B"], shape["H"]
+    x = make_inputs(torch, T, B, H, seed=13, mask_mode="ones")
+    fargs = (x["gir"], x["giz"], x["gin"], x["h0"], x["masks"], x["w_hh"],
+             x["b_hh"])
+    outs, _ = cg.gru_layer_fwd_ref(*fargs)
+    bargs = (x["gir"], x["giz"], x["gin"], outs, x["h0"], x["masks"],
+             x["douts"], x["dhT"], x["w_hh"], x["b_hh"])
+    n_sm, optin = cg.device_limits(torch.cuda.current_device())
+    plans = {"cuda_core": cg.cuda_core_bwd_plan(B, H, n_sm, optin),
+             "wide": cg.bwd_plan(B, H, n_sm, optin, 4, T)}
+    ref = cg.gru_layer_bwd_ref(*bargs)
+    res = {}
+    for k, p in plans.items():
+        got = cg.gru_layer_bwd(*bargs, plan=p)
+        torch.cuda.synchronize()
+        errs = check_bwd_outputs(torch, f"T={T} B={B} H={H} {p.name}", got,
+                                 ref, False, True)
+        res[k] = {"plan": p._asdict(), "variant": p.name,
+                  "scratch_bytes": 4 * p.partial_floats,
+                  "max_err": max(errs.values()), "event_ms": [],
+                  "device_ms": []}
+    del got, ref
+    for k in ("cuda_core", "wide", "wide", "cuda_core"):
+        fn = lambda: cg.gru_layer_bwd(*bargs, plan=plans[k])
+        slow = k == "cuda_core"
+        res[k]["event_ms"].append(time_ms(torch, fn, iters=3 if slow else 20,
+                                          warmup=1 if slow else 3))
+        each = device_ms_each(torch, fn, WIDE_KERNELS + ("gru_bwd_kernel",),
+                              iters=3 if slow else 10)
+        res[k]["device_ms"].append(sum(v for v in each.values() if v))
+        if not slow:
+            res[k].setdefault("device_ms_by_kernel", []).append(each)
+    log(f"  backward in turns T={T} B={B} H={H} [{card}]: " + json.dumps(res))
     return res
 
 
@@ -682,11 +813,13 @@ def train_main_path(torch, cg, name, script, config, extra, episodes,
         os.environ["ONPOLICY_TORCH_RESULTS"] = tmp
         cg.FWD_LAUNCHES = 0
         cg.BWD_LAUNCHES = 0
+        cg.WIDE_LAUNCHES = dict.fromkeys(cg.WIDE_LAUNCHES, 0)
         t0 = time.perf_counter()
         _, history = module.main(argv)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         fwd, bwd = cg.FWD_LAUNCHES, cg.BWD_LAUNCHES
+        pieces = dict(cg.WIDE_LAUNCHES)
     reward = "average_score" if hanabi else "average_episode_rewards"
     trained = episodes - 1 if hanabi else episodes
     logged = len([r for r in history if reward in r])
@@ -705,6 +838,9 @@ def train_main_path(torch, cg, name, script, config, extra, episodes,
     if (fwd, bwd) != want:
         raise AssertionError(f"{name}: launches fwd={fwd} bwd={bwd}, "
                              f"want {want}")
+    # the wide backward launches each of its pieces once a backward
+    if any(pieces.values()) and set(pieces.values()) != {bwd}:
+        raise AssertionError(f"{name}: wide pieces {pieces}, backward {bwd}")
     # the runner's fps is cumulative: episode i ends at (i+1)*steps/fps_i
     ends = [(r["episode"] + 1) * steps / r["fps"] for r in history]
     # (a run that logs one row, as 2 Hanabi episodes do, has no last rate)
@@ -718,7 +854,9 @@ def train_main_path(torch, cg, name, script, config, extra, episodes,
                 f"over the run, average_score by episode "
                 f"{[round(r[reward], 4) for r in history]}")
     log(f"  {name}: {threads} threads, {episodes} episodes, wall "
-        f"{wall:.2f} s, launches fwd {fwd} bwd {bwd}, env-steps/s "
+        f"{wall:.2f} s, launches fwd {fwd} bwd {bwd}"
+        + (f" (wide pieces {pieces})" if any(pieces.values()) else "")
+        + ", env-steps/s "
         f"{history[-1]['fps']:.1f} over the run (first episode included), "
         + (f"{last_rate:.1f} in the last episode, " if last_rate else "")
         + f"mean {reward} {mean_rew:.4f}"
@@ -752,6 +890,8 @@ def kernel_rows(times, launches, errs, shape, streams):
             "bound_f32_ms": times[f"{d}_bound_f32_ms"],
             "bound_f32_by": times[f"{d}_bound_f32_by"],
             "library_ms": times[f"{d}_library_ms"]})
+        if f"{d}_device_ms_by_kernel" in times:
+            rows[-1]["device_ms_by_kernel"] = times[f"{d}_device_ms_by_kernel"]
     return rows
 
 
@@ -811,6 +951,7 @@ def main() -> int:
     compare_forwards(torch, cg, FLAGSHIP, card)
     compare_forwards(torch, cg, BENCH, card)
     t_hanabi = time_shape(torch, cg, HANABI, card)
+    compare_backwards(torch, cg, HANABI, card)
 
     log("== 5. main path: train_mpe and train_hanabi configurations")
     check_small_against_cpu(torch, "rmappo f32", (1e-3, 1e-4), 1e-3,

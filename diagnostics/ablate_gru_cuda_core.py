@@ -21,6 +21,9 @@ The variants exist only in a temporary directory, and those that take a
 part out compute wrong results. Prints one JSON object: per variant, the
 kernel's CUDA-event ms per call in each round, with the card's name and
 power limit. Refuses to run without a CUDA device.
+`gru_bwd_kernel` runs by default only for H outside the wide backward's
+widths (64 < H <= 512, H % 32 == 0); here it is asked for through an
+explicit plan (`cuda_gru.cuda_core_bwd_plan`).
 """
 from __future__ import annotations
 
@@ -104,7 +107,15 @@ def _inputs(T, B, H, seed=11):
     fwd = (gir, giz, gin, h0, masks, w_hh, b_hh)
     bwd = (gir, giz, gin, outs, h0, masks, rn(T, B, H, scale=0.1),
            rn(B, H, scale=0.1), w_hh, b_hh)
-    return {"fwd": (cg.gru_layer_fwd, fwd), "bwd": (cg.gru_layer_bwd, bwd)}
+    return {"fwd": (cg.gru_layer_fwd, fwd), "bwd": (_cuda_core_bwd, bwd)}
+
+
+def _cuda_core_bwd(*args):
+    """The CUDA-core backward, which the default plan no longer takes at
+    H=512; the card's limits are read through the library in use."""
+    _, B, H = args[0].shape
+    limits = cg.device_limits(torch.cuda.current_device())
+    return cg.gru_layer_bwd(*args, plan=cg.cuda_core_bwd_plan(B, H, *limits))
 
 
 def _event_ms(fn, iters):

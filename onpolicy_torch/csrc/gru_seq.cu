@@ -7,6 +7,10 @@
 //   gru_fwd_kernel      <- the same, for every other H, on the CUDA cores
 //   gru_bwd_kernel_mma  <- _bwd_call / _bwd_kernel   (pallas_gru.py:160-251)
 //                          for H % 16 == 0 and H <= 64, on the tensor cores
+//   gru_bwd_gates_gemm, <- the same, for 64 < H <= 512 and H % 32 == 0, on
+//   gru_bwd_carry,         the tensor cores: the gate product and dW as
+//   gru_bwd_dw_gemm        GEMMs over all T * B rows, around a kernel that
+//                          runs only the recurrent carry
 //   gru_bwd_kernel      <- the same, for every other H, on the CUDA cores
 //   gru_bwd_reduce      <- the grid-wide dW_hh / db_hh accumulation of
 //                          _bwd_kernel (pallas_gru.py:169-179, 204-213)
@@ -464,6 +468,25 @@ __device__ __forceinline__ void mma3(float (&d)[4], const Split<4>& a,
   mma_tf32(d, a.lo, b.hi);
   mma_tf32(d, a.hi, b.lo);
   mma_tf32(d, a.hi, b.hi);
+}
+
+// d += a . b as mma3 computes it, but summed from zero on the tensor cores
+// and added to d with an ordinary f32 add. The tensor cores truncate as
+// they add into their accumulator, so a chain of thousands of k-steps in
+// one accumulator drifts toward zero. On an H100, with the GEMMs' chains
+// left in the accumulator, dW over 1,606-row ranges missed the f32 sum by
+// 6.7e-5 in an entry below 0.25 (T=10, B=803, H=512), and over 2048-row
+// ranges at T=10, B=20,000 read 1.5e-5 of its largest entry, against
+// 2.5e-6 here; the gate GEMM's chains (K = H) quadrupled GH's error, and
+// the carry's (K = 3H) took dW and db 3-7 times as far from an f64 sum as
+// the plain f32 version (diagnostics/ablate_gru_wide_gemm.py). Here each
+// chain is one k-step (three products) long.
+__device__ __forceinline__ void mma3_add(float (&d)[4], const Split<4>& a,
+                                         const Split<2>& b) {
+  float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  mma3(s, a, b);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) d[i] += s[i];
 }
 
 // Fragment maps of m16n8k8 (g = lane / 4, q = lane % 4):
@@ -1024,6 +1047,518 @@ gru_fwd_kernel_mma(const S* __restrict__ gir, const S* __restrict__ giz,
   cp_async_wait_all();
 }
 
+// ---------------------------------------------------------------------------
+// backward at 64 < H <= 512, H % 32 == 0, on the tensor cores: two GEMMs
+// around a carry-only recurrent kernel
+// ---------------------------------------------------------------------------
+// The same function as gru_bwd_kernel, which at H = 512 runs its three
+// products on the CUDA cores inside the time loop at 16-row tiles, with W
+// (3.15 MB, no SM's shared memory holds it) read from L2 and each block's
+// 3.15 MB dW partial read and written in device memory every step. Here
+// only what is recurrent stays in the time loop:
+//  * The gates of step t depend on hprev_t = outs[t-1] (h0 at t = 0) and
+//    gi, not on the carried dh. So their hidden product is one GEMM over
+//    all M = T*B rows (gru_bwd_gates_gemm):
+//      GH [M x 3H] = HM [M x H] . W_hh [H x 3H] + b_hh,  HM = hprev * m
+//  * The carry is the only recurrence (gru_bwd_carry): per step, the gate
+//    cotangents of a batch tile from GH_t, then
+//      d_hm^T [H x BT] = W_hh [H x 3H] . dG_t^T [3H x BT],
+//      dh <- (dh * z + d_hm) * m_t,   dG_t = [dr, dz, dn * r].
+//    dG_t overwrites GH_t in place (same thread, same entries), so one
+//    [M x 3H] f32 scratch holds GH, then dG.
+//  * dW = HM^T . DG over K = M rows does not feed the recurrence either:
+//    one split-K GEMM (gru_bwd_dw_gemm) whose partials gru_bwd_reduce sums
+//    in split order; db = the column sums of DG, in the same pass.
+// All three products are 3xTF32 mma.sync m16n8k8 (split, mma3), each
+// k-step's products added to the accumulators in plain f32 (mma3_add),
+// not in the tensor cores' truncating accumulator, so they keep f32
+// accuracy. dW is summed from the f32 dG, never from the dgi
+// streams, whatever their type (pallas_gru.py:204-206). Every grid and the
+// split count follow from (T, B, H, SM count), so every call gives the
+// same bits of dW; no float atomics.
+//
+// What bounds it on an H100: the three products, 2 * M * H * 3H flops each
+// in three TF32 passes (5.7 ms for all three at 495 TFLOP/s at the Hanabi
+// shape T=10, B=20,000, H=512) against the streams' bytes (1.9 ms). The
+// GEMMs see whole tiles; the carry kernel reads W from L2 once a step for
+// each 32-row tile (19.7 GB of L2 reads) and its steps are serial.
+
+// Tiles of both GEMMs: BM x BN outputs, BK deep, 8 warps as 2 (M) x 4 (N)
+// warp tiles of 64 x 32, a ring of STAGES cp.async stages. The M and N
+// edges are ragged (M = T*B; N = 3H and, in dW, M = H need not be whole
+// tiles): rows and columns past them are copied in as zeros and not
+// written.
+struct WideGemm {
+  static constexpr int BM = 128, BN = 128, BK = 32;
+  static constexpr int THREADS = 256, STAGES = 3, MIN_BLOCKS = 2;
+  static constexpr int WM = 64, WN = 32;  // a warp's tile
+  static constexpr int MT = WM / 16, NT = WN / 8;
+  static constexpr int BS = BN + 8;       // B tile row stride, f32 words
+};
+
+// Shared memory of a GEMM stage, in bytes. A holds hprev in the stream
+// type: [BM][BK + one 16-byte chunk] rows of HM (gates), or [BK][BM + 8]
+// as HM is stored, for HM^T (dW). Every fragment load is free of bank
+// conflicts: row strides of 36 words (f32) or 20 words (bf16, two
+// elements a word) put lane (g, q) of an A fragment on bank 4g + q or
+// 20g + q/2; the [BK][*] tiles' strides of 136 words (f32 B and dW's
+// f32 A) and 68 words (dW's bf16 A) on 8q + g and 4q + g/2. dW stages the
+// masks of its BK rows beside them. 107,520 bytes (gates) and 104,832
+// (dW) with f32 streams, 82,944 and 78,720 with bf16: two blocks an SM.
+template <bool kTransA, typename S>
+struct WideGemmLayout {
+  using G = WideGemm;
+  static constexpr int EPC = 16 / sizeof(S);  // stream elements a chunk
+  static constexpr int AS = kTransA ? G::BM + 8 : G::BK + EPC;
+  static constexpr int A_BYTES = (kTransA ? G::BK : G::BM) * AS * (int)sizeof(S);
+  static constexpr int B_BYTES = G::BK * G::BS * 4;
+  static constexpr int STAGE_BYTES = A_BYTES + B_BYTES + (kTransA ? 4 * G::BK : 0);
+  static constexpr int BYTES = G::STAGES * STAGE_BYTES;
+  static_assert(A_BYTES % 16 == 0 && B_BYTES % 16 == 0 && STAGE_BYTES % 16 == 0,
+                "16-byte cp.async targets");
+};
+
+// Row i of HM's unmasked rows: h0 (hprev at t = 0, in the stream type) for
+// the first B rows, outs[t - 1] after them.
+template <typename S>
+__device__ __forceinline__ const S* hprev_row(const S* outs, const S* h0,
+                                              size_t i, int B, int H) {
+  return i < (size_t)B ? h0 + i * H : outs + (i - B) * H;
+}
+
+// GH [M x 3H] = HM . W_hh + b_hh, in f32. Blocks walk the output tiles
+// with the N tile fastest, so the blocks in flight share their rows of HM
+// and read them from device memory about once.
+template <typename S>
+__global__ void __launch_bounds__(WideGemm::THREADS, WideGemm::MIN_BLOCKS)
+gru_bwd_gates_gemm(const S* __restrict__ outs,       // [T, B, H]
+                   const S* __restrict__ h0,         // [B, H], hprev at t = 0
+                   const float* __restrict__ masks,  // [T, B]
+                   const float* __restrict__ w_hh,   // [H, 3H]
+                   const float* __restrict__ b_hh,   // [3H]
+                   float* __restrict__ gh,           // [T * B, 3H]
+                   int M, int B, int H) {
+  using G = WideGemm;
+  using L = WideGemmLayout<false, S>;
+  extern __shared__ __align__(16) float gemm_smem[];
+  char* const base = reinterpret_cast<char*>(gemm_smem);
+  const int N = 3 * H;
+  const int ntn = (N + G::BN - 1) / G::BN;
+  const int n0 = (blockIdx.x % ntn) * G::BN;
+  const size_t m0 = (size_t)(blockIdx.x / ntn) * G::BM;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int g = (tid & 31) >> 2, q = tid & 3;
+  const int wm = (warp >> 2) * G::WM, wn = (warp & 3) * G::WN;
+  const int nk = H / G::BK;
+
+  auto load = [&](int kt, int st) {
+    char* stage = base + st * L::STAGE_BYTES;
+    S* sA = reinterpret_cast<S*>(stage);
+    float* sB = reinterpret_cast<float*>(stage + L::A_BYTES);
+    const int k0 = kt * G::BK;
+    constexpr int ACH = G::BK / L::EPC;  // chunks of an A row
+    for (int e = threadIdx.x; e < G::BM * ACH; e += G::THREADS) {
+      const int r = e / ACH, c = (e % ACH) * L::EPC;
+      const size_t i = m0 + r;
+      const bool ok = i < (size_t)M;
+      cp_async16(sA + r * L::AS + c, hprev_row(outs, h0, ok ? i : 0, B, H) + k0 + c,
+                 ok);
+    }
+    constexpr int BCH = G::BN / 4;
+    for (int e = threadIdx.x; e < G::BK * BCH; e += G::THREADS) {
+      const int r = e / BCH, c = (e % BCH) * 4;
+      const bool ok = n0 + c < N;
+      cp_async16(sB + r * G::BS + c, w_hh + (size_t)(k0 + r) * N + (ok ? n0 + c : 0),
+                 ok);
+    }
+  };
+
+  // the masks of this lane's A rows (wm + 16 mt + g + 8 h)
+  float mrow[G::MT][2];
+#pragma unroll
+  for (int mt = 0; mt < G::MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const size_t i = m0 + wm + mt * 16 + g + 8 * h;
+      mrow[mt][h] = i < (size_t)M ? masks[i] : 0.0f;
+    }
+
+  float acc[G::MT][G::NT][4] = {};
+#pragma unroll
+  for (int s = 0; s < G::STAGES - 1; ++s) {
+    if (s < nk) load(s, s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<G::STAGES - 2>();
+    __syncthreads();  // step kt has landed; step kt - 1's reads are done
+    {
+      const int nx = kt + G::STAGES - 1;
+      if (nx < nk) load(nx, nx % G::STAGES);
+      cp_async_commit();
+    }
+    const char* stage = base + (kt % G::STAGES) * L::STAGE_BYTES;
+    const S* sA = reinterpret_cast<const S*>(stage);
+    const float* sB = reinterpret_cast<const float*>(stage + L::A_BYTES);
+#pragma unroll
+    for (int kk = 0; kk < G::BK; kk += 8) {
+      Split<2> b[G::NT];
+#pragma unroll
+      for (int nt = 0; nt < G::NT; ++nt) {
+        const float* p = sB + (kk + q) * G::BS + wn + nt * 8 + g;
+        const float bf[2] = {p[0], p[4 * G::BS]};
+        b[nt] = split(bf);
+      }
+#pragma unroll
+      for (int mt = 0; mt < G::MT; ++mt) {
+        const S* a = sA + (wm + mt * 16 + g) * L::AS + kk + q;
+        const float af[4] = {to_f32(a[0]) * mrow[mt][0],
+                             to_f32(a[8 * L::AS]) * mrow[mt][1],
+                             to_f32(a[4]) * mrow[mt][0],
+                             to_f32(a[8 * L::AS + 4]) * mrow[mt][1]};
+        const Split<4> as = split(af);
+#pragma unroll
+        for (int nt = 0; nt < G::NT; ++nt) mma3_add(acc[mt][nt], as, b[nt]);
+      }
+    }
+  }
+  cp_async_wait_all();
+
+#pragma unroll
+  for (int nt = 0; nt < G::NT; ++nt) {
+    const int c = n0 + wn + nt * 8 + 2 * q;
+    if (c >= N) continue;
+    const float b0 = b_hh[c], b1 = b_hh[c + 1];
+#pragma unroll
+    for (int mt = 0; mt < G::MT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const size_t i = m0 + wm + mt * 16 + g + 8 * h;
+        if (i < (size_t)M)
+          *reinterpret_cast<float2*>(gh + i * N + c) =
+              make_float2(acc[mt][nt][2 * h] + b0, acc[mt][nt][2 * h + 1] + b1);
+      }
+  }
+}
+
+// dW [H x 3H] = HM^T . DG over this block's share of the K = M rows, and
+// (blocks of the first M tile) db = the column sums of DG over it. The
+// rows split into `splits` ranges of whole BK steps; block (n tile, m
+// tile, split), N tile fastest, writes its split's slice of `partial`,
+// [splits][(H + 1) x 3H] with db in row H, and gru_bwd_reduce sums the
+// slices in split order.
+template <typename S>
+__global__ void __launch_bounds__(WideGemm::THREADS, WideGemm::MIN_BLOCKS)
+gru_bwd_dw_gemm(const S* __restrict__ outs,       // [T, B, H]
+                const S* __restrict__ h0,         // [B, H], hprev at t = 0
+                const float* __restrict__ masks,  // [T, B]
+                const float* __restrict__ dg,     // [T * B, 3H]
+                float* __restrict__ partial,      // [splits, (H + 1) * 3H]
+                int K, int B, int H, int splits) {
+  using G = WideGemm;
+  using L = WideGemmLayout<true, S>;
+  extern __shared__ __align__(16) float gemm_smem[];
+  char* const base = reinterpret_cast<char*>(gemm_smem);
+  const int N = 3 * H;
+  const int ntn = (N + G::BN - 1) / G::BN, ntm = (H + G::BM - 1) / G::BM;
+  int bid = blockIdx.x;
+  const int n0 = (bid % ntn) * G::BN;
+  bid /= ntn;
+  const int m0 = (bid % ntm) * G::BM;
+  const int split_i = bid / ntm;
+  const int steps = (K + G::BK - 1) / G::BK;
+  const int per = (steps + splits - 1) / splits;
+  const int kt0 = min(steps, split_i * per);
+  const int nk = min(steps, kt0 + per) - kt0;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int g = (tid & 31) >> 2, q = tid & 3;
+  const int wm = (warp >> 2) * G::WM, wn = (warp & 3) * G::WN;
+  const bool db_block = m0 == 0;
+
+  auto load = [&](int kt, int st) {
+    char* stage = base + st * L::STAGE_BYTES;
+    S* sA = reinterpret_cast<S*>(stage);
+    float* sB = reinterpret_cast<float*>(stage + L::A_BYTES);
+    float* sMk = reinterpret_cast<float*>(stage + L::A_BYTES + L::B_BYTES);
+    const size_t k0 = (size_t)(kt0 + kt) * G::BK;
+    constexpr int ACH = G::BM / L::EPC;  // chunks of an A row
+    for (int e = threadIdx.x; e < G::BK * ACH; e += G::THREADS) {
+      const int r = e / ACH, c = (e % ACH) * L::EPC;
+      const size_t i = k0 + r;
+      const bool ok = i < (size_t)K && m0 + c < H;
+      cp_async16(sA + r * L::AS + c,
+                 hprev_row(outs, h0, ok ? i : 0, B, H) + (ok ? m0 + c : 0), ok);
+    }
+    constexpr int BCH = G::BN / 4;
+    for (int e = threadIdx.x; e < G::BK * BCH; e += G::THREADS) {
+      const int r = e / BCH, c = (e % BCH) * 4;
+      const size_t i = k0 + r;
+      const bool ok = i < (size_t)K && n0 + c < N;
+      cp_async16(sB + r * G::BS + c, dg + (ok ? i * N + n0 + c : 0), ok);
+    }
+    if (threadIdx.x < G::BK) {
+      const size_t i = k0 + threadIdx.x;
+      cp_async4(sMk + threadIdx.x, masks + (i < (size_t)K ? i : 0), i < (size_t)K);
+    }
+  };
+
+  float acc[G::MT][G::NT][4] = {};
+  float colsum = 0.0f;  // db of column n0 + tid, tid < BN, in db blocks
+#pragma unroll
+  for (int s = 0; s < G::STAGES - 1; ++s) {
+    if (s < nk) load(s, s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<G::STAGES - 2>();
+    __syncthreads();  // step kt has landed; step kt - 1's reads are done
+    {
+      const int nx = kt + G::STAGES - 1;
+      if (nx < nk) load(nx, nx % G::STAGES);
+      cp_async_commit();
+    }
+    const char* stage = base + (kt % G::STAGES) * L::STAGE_BYTES;
+    const S* sA = reinterpret_cast<const S*>(stage);
+    const float* sB = reinterpret_cast<const float*>(stage + L::A_BYTES);
+    const float* sMk = reinterpret_cast<const float*>(stage + L::A_BYTES + L::B_BYTES);
+    if (db_block && tid < G::BN) {
+      float s = 0.0f;
+#pragma unroll 8
+      for (int r = 0; r < G::BK; ++r) s += sB[r * G::BS + tid];
+      colsum += s;
+    }
+#pragma unroll
+    for (int kk = 0; kk < G::BK; kk += 8) {
+      Split<2> b[G::NT];
+#pragma unroll
+      for (int nt = 0; nt < G::NT; ++nt) {
+        const float* p = sB + (kk + q) * G::BS + wn + nt * 8 + g;
+        const float bf[2] = {p[0], p[4 * G::BS]};
+        b[nt] = split(bf);
+      }
+      const float mk0 = sMk[kk + q], mk1 = sMk[kk + q + 4];
+#pragma unroll
+      for (int mt = 0; mt < G::MT; ++mt) {
+        // A (m, k) = HM[k][m]: the tile as stored, read down its columns
+        const S* a = sA + (kk + q) * L::AS + wm + mt * 16 + g;
+        const float af[4] = {to_f32(a[0]) * mk0, to_f32(a[8]) * mk0,
+                             to_f32(a[4 * L::AS]) * mk1,
+                             to_f32(a[4 * L::AS + 8]) * mk1};
+        const Split<4> as = split(af);
+#pragma unroll
+        for (int nt = 0; nt < G::NT; ++nt) mma3_add(acc[mt][nt], as, b[nt]);
+      }
+    }
+  }
+  cp_async_wait_all();
+
+  float* out = partial + (size_t)split_i * (H + 1) * N;
+#pragma unroll
+  for (int nt = 0; nt < G::NT; ++nt) {
+    const int c = n0 + wn + nt * 8 + 2 * q;
+    if (c >= N) continue;
+#pragma unroll
+    for (int mt = 0; mt < G::MT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int u = m0 + wm + mt * 16 + g + 8 * h;
+        if (u < H)
+          *reinterpret_cast<float2*>(out + (size_t)u * N + c) =
+              make_float2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
+      }
+  }
+  if (db_block && tid < G::BN && n0 + tid < N) out[(size_t)H * N + n0 + tid] = colsum;
+}
+
+// The carry kernel: one thread a hidden unit (H threads, a warp for each
+// 32 units of d_hm^T), one block per batch tile of BT = 32 rows at a time; a
+// persistent grid walks the tiles blockIdx.x, + gridDim.x, ..., and each
+// block loops t = T-1 .. 0 itself. The carried dh lives in dh0 (read from
+// dhT at t = T-1), which stays in L2 and holds dh0 when the loop ends.
+// Per step:
+//  (a) gate math, in coalesced row-major float4 order: from GH_t, gi_t,
+//      hprev_t, douts_t, m_t and the carried dh, the cotangents dgir,
+//      dgiz, dgin (stream type), dG_t = [dr, dz, dn * r] in f32 over GH_t,
+//      and dh * z over the carried dh.
+//  (b) d_hm^T = W_hh . dG_t^T in 3xTF32 (mma3_add), the tile's rows as
+//      the MMA's N: W (K-chunks of all H rows) and the tile's dG_t
+//      (K-chunks of BT rows) stream from L2 through a ring of two
+//      shared-memory stages. A warp
+//      holds its 32 units x BT rows (2 x 4 accumulator tiles) and loads
+//      each dG fragment once for both of its unit tiles.
+//  (c) dh <- (dh * z + d_hm) * m_t, from the accumulator layout.
+// Writes to global memory before __syncthreads() are visible to the
+// block's later reads, so (b) reads the dG_t that (a) wrote and (c) the
+// dh * z. Rows >= B of the ragged tile are neither read nor written; their
+// dG rows are copied into shared memory as zeros.
+// Shared memory: 2 stages of [H + BT][BK + 4] f32; row stride 36 words
+// puts lane (g, q) of every A (W) and B (dG) fragment load on bank
+// 4g + q. At H = 512 that is 156,672 bytes: one block an SM; at 512
+// threads a thread has 128 registers, 32 of them the accumulators (the
+// compiler spills 32 bytes a thread).
+struct CarryLayout {
+  static constexpr int BT = 32;           // batch rows of a tile
+  static constexpr int BK = 32;           // K-chunk of the carry product
+  static constexpr int LDK = BK + 4;      // row stride, f32 words
+  static constexpr int STAGES = 2;
+  static constexpr int NT = BT / 8;       // accumulator tiles along the rows
+  static constexpr int MAX_THREADS = 512; // H <= 512
+  static_assert(BT % 8 == 0 && (LDK * 4) % 16 == 0, "tile shapes");
+  __host__ __device__ static size_t bytes(int H) {
+    return (size_t)STAGES * (H + BT) * LDK * 4;
+  }
+};
+
+__device__ __forceinline__ void ld4(float (&d)[4], const float* p) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  d[0] = v.x; d[1] = v.y; d[2] = v.z; d[3] = v.w;
+}
+template <typename S>
+__device__ __forceinline__ void ld4s(float (&d)[4], const S* p) {
+  const float4 v = load4(p);
+  d[0] = v.x; d[1] = v.y; d[2] = v.z; d[3] = v.w;
+}
+__device__ __forceinline__ void st4(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void st4(__nv_bfloat16* p, const float (&v)[4]) {
+  reinterpret_cast<__nv_bfloat162*>(p)[0] = __floats2bfloat162_rn(v[0], v[1]);
+  reinterpret_cast<__nv_bfloat162*>(p)[1] = __floats2bfloat162_rn(v[2], v[3]);
+}
+
+template <typename S>
+__global__ void __launch_bounds__(CarryLayout::MAX_THREADS, 1)
+gru_bwd_carry(const S* __restrict__ gir, const S* __restrict__ giz,
+              const S* __restrict__ gin,
+              const S* __restrict__ outs,       // [T, B, H]
+              const float* __restrict__ masks,  // [T, B]
+              const S* __restrict__ h0,         // [B, H], hprev at t = 0
+              const S* __restrict__ douts,      // [T, B, H]
+              const float* __restrict__ dhT,    // [B, H]
+              const float* __restrict__ w_hh,   // [H, 3H]
+              float* g_io,                      // [T * B, 3H]: GH in, dG out
+              S* __restrict__ dgir, S* __restrict__ dgiz,
+              S* __restrict__ dgin,
+              float* dh0,                       // [B, H]: the carry, then dh0
+              int T, int B, int H) {
+  using L = CarryLayout;
+  constexpr int BT = L::BT;
+  extern __shared__ __align__(16) float carry_smem[];
+  const int H3 = 3 * H, HV = H / 4, nthr = blockDim.x;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int g = (tid & 31) >> 2, q = tid & 3;
+  const int u0 = warp * 32;  // this warp's units of d_hm^T
+  const int stage_floats = (H + BT) * L::LDK;
+  const int ntiles = (B + BT - 1) / BT, nchunks = H3 / L::BK;
+
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const int row0 = tile * BT;
+    for (int t = T - 1; t >= 0; --t) {
+      const size_t tb = (size_t)t * B;
+      const float* carry = t == T - 1 ? dhT : dh0;
+
+      // (a) gate cotangents
+      for (int e = tid; e < BT * HV; e += nthr) {
+        const int r = e / HV, c = (e - r * HV) * 4, row = row0 + r;
+        if (row >= B) continue;
+        const size_t i = tb + row, o = i * H + c;
+        const float m = masks[i];
+        float* gr = g_io + i * H3 + c;
+        float hp[4], ghr[4], ghz[4], ghn[4], xr[4], xz[4], xn[4], dy[4], dc[4];
+        ld4s(hp, (t > 0 ? outs + (i - B) * H : h0 + (size_t)row * H) + c);
+        ld4(ghr, gr);
+        ld4(ghz, gr + H);
+        ld4(ghn, gr + 2 * H);
+        ld4s(xr, gir + o);
+        ld4s(xz, giz + o);
+        ld4s(xn, gin + o);
+        ld4s(dy, douts + o);
+        ld4(dc, carry + (size_t)row * H + c);
+        float dr[4], dz[4], dn[4], dnr[4], dhz[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const float rg = sigmoid_(xr[k] + ghr[k]);
+          const float zg = sigmoid_(xz[k] + ghz[k]);
+          const float ng = tanhf(xn[k] + rg * ghn[k]);
+          const float dh = dc[k] + dy[k];
+          dz[k] = dh * (hp[k] * m - ng) * zg * (1.0f - zg);
+          dn[k] = dh * (1.0f - zg) * (1.0f - ng * ng);
+          dr[k] = dn[k] * ghn[k] * rg * (1.0f - rg);
+          dnr[k] = dn[k] * rg;
+          dhz[k] = dh * zg;
+        }
+        st4(dgir + o, dr);
+        st4(dgiz + o, dz);
+        st4(dgin + o, dn);
+        st4(gr, dr);
+        st4(gr + H, dz);
+        st4(gr + 2 * H, dnr);
+        st4(dh0 + (size_t)row * H + c, dhz);
+      }
+      __syncthreads();
+
+      // (b) d_hm^T = W . dG_t^T over K-chunks of 3H
+      auto issue = [&](int ch, int st) {
+        float* sw = carry_smem + st * stage_floats;
+        float* sg = sw + H * L::LDK;
+        const int k0 = ch * L::BK;
+        for (int e = tid; e < H * (L::BK / 4); e += nthr) {
+          const int r = e / (L::BK / 4), c = (e % (L::BK / 4)) * 4;
+          cp_async16(sw + r * L::LDK + c, w_hh + (size_t)r * H3 + k0 + c, true);
+        }
+        for (int e = tid; e < BT * (L::BK / 4); e += nthr) {
+          const int r = e / (L::BK / 4), c = (e % (L::BK / 4)) * 4;
+          const bool ok = row0 + r < B;
+          cp_async16(sg + r * L::LDK + c,
+                     g_io + (tb + (ok ? row0 + r : 0)) * H3 + k0 + c, ok);
+        }
+        cp_async_commit();
+      };
+      float acc[2][L::NT][4] = {};
+      issue(0, 0);
+      for (int ch = 0; ch < nchunks; ++ch) {
+        cp_async_wait_all();
+        __syncthreads();  // chunk ch has landed; chunk ch - 1's reads are done
+        if (ch + 1 < nchunks) issue(ch + 1, (ch + 1) & 1);
+        const float* sw = carry_smem + (ch & 1) * stage_floats;
+        const float* sg = sw + H * L::LDK;
+#pragma unroll
+        for (int kk = 0; kk < L::BK; kk += 8) {
+          Split<4> a[2];
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+            const float* w = sw + (u0 + mt * 16 + g) * L::LDK + kk + q;
+            const float af[4] = {w[0], w[8 * L::LDK], w[4], w[8 * L::LDK + 4]};
+            a[mt] = split(af);
+          }
+#pragma unroll
+          for (int nt = 0; nt < L::NT; ++nt) {
+            const float* p = sg + (nt * 8 + g) * L::LDK + kk + q;
+            const float bf[2] = {p[0], p[4]};
+            const Split<2> b = split(bf);
+            mma3_add(acc[0][nt], a[0], b);
+            mma3_add(acc[1][nt], a[1], b);
+          }
+        }
+      }
+
+      // (c) dh <- (dh * z + d_hm) * m_t
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < L::NT; ++nt)
+#pragma unroll
+          for (int p = 0; p < 4; ++p) {
+            const int row = row0 + nt * 8 + 2 * q + (p & 1);
+            if (row >= B) continue;
+            float* d = dh0 + (size_t)row * H + u0 + mt * 16 + g + 8 * (p >> 1);
+            *d = (*d + acc[mt][nt][p]) * masks[tb + row];
+          }
+      __syncthreads();
+    }
+  }
+}
+
 // Sums the per-block partials in block order: dW_hh [H, 3H] and db_hh [3H].
 __global__ void __launch_bounds__(kThreads)
 gru_bwd_reduce(const float* __restrict__ partial, int nblocks, int H,
@@ -1213,6 +1748,86 @@ cudaError_t bwd_entry(const S* gir, const S* giz, const S* gin,
   return cudaGetLastError();
 }
 
+// Shapes of the wide backward (gru_bwd_gates_gemm, gru_bwd_carry,
+// gru_bwd_dw_gemm): a carry-kernel warp for each 32 hidden units, at most
+// 512 threads, and M = T * B rows that an int counts.
+bool wide_shape(int T, int B, int H) {
+  return T > 0 && B > 0 && H > 64 && H <= 512 && H % 32 == 0 &&
+         (long long)T * B <= 0x7fffffffLL - WideGemm::BM;
+}
+
+template <typename S>
+cudaError_t wide_gates(const S* outs, const S* h0, const float* masks,
+                       const float* w_hh, const float* b_hh, float* gh, int T,
+                       int B, int H, cudaStream_t s) {
+  using G = WideGemm;
+  using L = WideGemmLayout<false, S>;
+  // cp.async moves 16-byte chunks of these, the epilogue float2s of gh
+  if (!wide_shape(T, B, H) || !aligned16({outs, h0, w_hh, gh}))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      gru_bwd_gates_gemm<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      L::BYTES);
+  if (err != cudaSuccess) return err;
+  const int M = T * B;
+  const long long blocks = (long long)((3 * H + G::BN - 1) / G::BN) *
+                           ((M + G::BM - 1) / G::BM);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  gru_bwd_gates_gemm<S><<<(unsigned)blocks, G::THREADS, L::BYTES, s>>>(
+      outs, h0, masks, w_hh, b_hh, gh, M, B, H);
+  return cudaGetLastError();
+}
+
+template <typename S>
+cudaError_t wide_carry(const S* gir, const S* giz, const S* gin,
+                       const S* outs, const float* masks, const S* h0,
+                       const S* douts, const float* dhT, const float* w_hh,
+                       float* g, S* dgir, S* dgiz, S* dgin, float* dh0, int T,
+                       int B, int H, int bt, int grid, size_t bytes,
+                       cudaStream_t s) {
+  using L = CarryLayout;
+  // cp.async moves 16-byte chunks of W and g; the gate math moves four
+  // elements of every stream at a time
+  if (!wide_shape(T, B, H) || bt != L::BT || grid <= 0 ||
+      grid > (B + L::BT - 1) / L::BT || bytes != L::bytes(H) ||
+      !aligned16({gir, giz, gin, outs, h0, douts, dhT, w_hh, g, dgir, dgiz,
+                  dgin, dh0}))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      gru_bwd_carry<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
+  if (err != cudaSuccess) return err;
+  gru_bwd_carry<S><<<grid, H, bytes, s>>>(gir, giz, gin, outs, masks, h0,
+                                          douts, dhT, w_hh, g, dgir, dgiz,
+                                          dgin, dh0, T, B, H);
+  return cudaGetLastError();
+}
+
+template <typename S>
+cudaError_t wide_dw(const S* outs, const S* h0, const float* masks,
+                    const float* dg, float* partial, float* dw, float* db,
+                    int T, int B, int H, int splits, cudaStream_t s) {
+  using G = WideGemm;
+  using L = WideGemmLayout<true, S>;
+  if (!wide_shape(T, B, H) || splits <= 0 || splits > 65536 ||
+      !aligned16({outs, h0, dg, partial}))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      gru_bwd_dw_gemm<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      L::BYTES);
+  if (err != cudaSuccess) return err;
+  const int blocks = ((3 * H + G::BN - 1) / G::BN) *
+                     ((H + G::BM - 1) / G::BM) * splits;
+  gru_bwd_dw_gemm<S><<<blocks, G::THREADS, L::BYTES, s>>>(
+      outs, h0, masks, dg, partial, T * B, B, H, splits);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int nacc = (H + 1) * 3 * H;
+  gru_bwd_reduce<<<(nacc + kThreads - 1) / kThreads, kThreads, 0, s>>>(
+      partial, splits, H, dw, db);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -1293,6 +1908,70 @@ int gru_seq_bwd(const void* gir, const void* giz, const void* gin,
                         dw_hh, db_hh, partial, T, B, H, variant, bt, grid,
                         bytes, s);
   }
+  return cudaErrorInvalidValue;
+}
+
+// The three launches of the wide backward (variant tensor_core_wide of
+// ops/cuda_gru.py), for 64 < H <= 512, H % 32 == 0. outs and h0 (hprev at
+// t = 0: the forward's h0 in the stream type) and the other [T, B, H]
+// streams are of `stream_type`, everything else f32; every pointer they
+// move in 16-byte chunks must be 16-byte aligned.
+// GH [T * B, 3H] = (hprev * m) . W_hh + b_hh.
+int gru_wide_gates(const void* outs, const void* h0, const float* masks,
+                   const float* w_hh, const float* b_hh, float* gh, int T,
+                   int B, int H, int stream_type, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (stream_type == kF32)
+    return wide_gates<float>((const float*)outs, (const float*)h0, masks, w_hh,
+                             b_hh, gh, T, B, H, s);
+  if (stream_type == kBF16)
+    return wide_gates<__nv_bfloat16>((const __nv_bfloat16*)outs,
+                                     (const __nv_bfloat16*)h0, masks, w_hh,
+                                     b_hh, gh, T, B, H, s);
+  return cudaErrorInvalidValue;
+}
+
+// The carry on `grid` blocks of `bt` (32) batch rows, H threads and
+// `smem_bytes` of dynamic shared memory: dgir, dgiz, dgin, dh0, and dG
+// [T * B, 3H] f32 over GH in `g`.
+int gru_wide_carry(const void* gir, const void* giz, const void* gin,
+                   const void* outs, const float* masks, const void* h0,
+                   const void* douts, const float* dhT, const float* w_hh,
+                   float* g, void* dgir, void* dgiz, void* dgin, float* dh0,
+                   int T, int B, int H, int bt, int grid, int smem_bytes,
+                   int stream_type, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const size_t bytes = (size_t)smem_bytes;
+  if (stream_type == kF32) {
+    using S = float;
+    return wide_carry<S>((const S*)gir, (const S*)giz, (const S*)gin,
+                         (const S*)outs, masks, (const S*)h0, (const S*)douts,
+                         dhT, w_hh, g, (S*)dgir, (S*)dgiz, (S*)dgin, dh0, T,
+                         B, H, bt, grid, bytes, s);
+  }
+  if (stream_type == kBF16) {
+    using S = __nv_bfloat16;
+    return wide_carry<S>((const S*)gir, (const S*)giz, (const S*)gin,
+                         (const S*)outs, masks, (const S*)h0, (const S*)douts,
+                         dhT, w_hh, g, (S*)dgir, (S*)dgiz, (S*)dgin, dh0, T,
+                         B, H, bt, grid, bytes, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// dW_hh [H, 3H] and db_hh [3H] from dG in `splits` K-ranges, their
+// partials in `partial` (splits * (H + 1) * 3H floats), summed in order.
+int gru_wide_dw(const void* outs, const void* h0, const float* masks,
+                const float* dg, float* partial, float* dw, float* db, int T,
+                int B, int H, int splits, int stream_type, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (stream_type == kF32)
+    return wide_dw<float>((const float*)outs, (const float*)h0, masks, dg,
+                          partial, dw, db, T, B, H, splits, s);
+  if (stream_type == kBF16)
+    return wide_dw<__nv_bfloat16>((const __nv_bfloat16*)outs,
+                                  (const __nv_bfloat16*)h0, masks, dg, partial,
+                                  dw, db, T, B, H, splits, s);
   return cudaErrorInvalidValue;
 }
 

@@ -3,17 +3,23 @@
 Port of `onpolicy_tpu/ops/pallas_gru.py`. The two Pallas TPU kernels
 there (`_fwd_call`, `_bwd_call`) become the CUDA kernels of
 `csrc/gru_seq.cu`, built with `nvcc` for `sm_90a` into `_build/` on
-first use and bound through `ctypes`. The forward and the backward each
-have two kernels: a tensor-core one (3xTF32 `mma.sync`) for H in 16, 32,
-48, 64, and a CUDA-core one for every other H; `fwd_plan` and `bwd_plan`
-choose between them by shape before launch. Beside each kernel stands its
-plain PyTorch version (`gru_layer_fwd_ref`, `gru_layer_bwd_ref`): the
-wrappers take it only for tensors that lie on the CPU; for a CUDA tensor
-they launch the kernel or raise.
+first use and bound through `ctypes`. The forward has two kernels: a
+tensor-core one (3xTF32 `mma.sync`) for H in 16, 32, 48, 64, and a
+CUDA-core one for every other H. The backward has three: the tensor-core
+kernel for H in 16..64; for 64 < H <= 512 with H % 32 == 0 the wide one
+(`tensor_core_wide`: two 3xTF32 GEMMs, the gate product and dW over all
+T*B rows, around a kernel that runs only the recurrent carry; its pieces
+are `gru_bwd_gates`, `gru_bwd_carry`, `gru_bwd_dw`); and the CUDA-core
+kernel for every other H. `fwd_plan` and `bwd_plan` choose by shape before
+launch. Beside each kernel stands its plain PyTorch version
+(`gru_layer_fwd_ref`, `gru_layer_bwd_ref`, `gru_bwd_{gates,carry,dw}_ref`):
+the wrappers take it only for tensors that lie on the CPU; for a CUDA
+tensor they launch the kernel or raise.
 
 `FWD_LAUNCHES` / `BWD_LAUNCHES` count kernel launches (one per wrapper
-call that reaches the card), so a run can show that its training path
-went through the kernels.
+call that reaches the card, whichever kernels the backward's plan runs),
+and `WIDE_LAUNCHES` the wide backward's pieces, so a run can show that
+its training path went through the kernels.
 
 Layout (the JAX package's): gi streams `[T, B, H]`, masks `[T, B, 1]`,
 `w_hh [H, 3H]` and `b_hh [3H]` with gate order r, z, n.
@@ -41,6 +47,7 @@ from onpolicy_torch.models import common as cm
 
 FWD_LAUNCHES = 0
 BWD_LAUNCHES = 0
+WIDE_LAUNCHES = {"gates": 0, "carry": 0, "dw": 0}
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "gru_seq.cu"
@@ -98,6 +105,12 @@ def bind(path) -> ctypes.CDLL:
     lib.gru_seq_bwd.restype = I
     lib.gru_smem_optin.argtypes = []
     lib.gru_smem_optin.restype = I
+    lib.gru_wide_gates.argtypes = [P] * 6 + [I] * 4 + [P]
+    lib.gru_wide_gates.restype = I
+    lib.gru_wide_carry.argtypes = [P] * 14 + [I] * 7 + [P]
+    lib.gru_wide_carry.restype = I
+    lib.gru_wide_dw.argtypes = [P] * 7 + [I] * 5 + [P]
+    lib.gru_wide_dw.restype = I
     return lib
 
 
@@ -128,9 +141,11 @@ def batch_tile(B: int, H: int, n_sm: int) -> int:
 
 # kernel variants of both C entries (their `variant`): the CUDA-core kernel
 # with W read from global memory or held in shared memory, and the
-# tensor-core one
-GLOBAL_W, SMEM_W, MMA = 0, 1, 2
-VARIANT_NAMES = ("cuda_core_global_w", "cuda_core_smem_w", "tensor_core")
+# tensor-core one; and the wide backward's, launched through its own three
+# C entries
+GLOBAL_W, SMEM_W, MMA, WIDE = 0, 1, 2, 3
+VARIANT_NAMES = ("cuda_core_global_w", "cuda_core_smem_w", "tensor_core",
+                 "tensor_core_wide")
 MMA_WIDTHS = (16, 32, 48, 64)   # H the tensor-core kernels are built for
 MMA_BLOCKS_PER_SM = {8: 1, 16: 2}  # the backward's launch bounds, by tile rows
 MMA_FWD_BLOCKS_PER_SM = 2       # the forward's, at either tile
@@ -205,9 +220,10 @@ def cuda_core_fwd_plan(B: int, H: int, n_sm: int, smem_optin: int) -> FwdPlan:
 class BwdPlan(NamedTuple):
     variant: int
     bt: int               # batch rows of a tile
-    grid: int             # blocks
+    grid: int             # blocks (the wide variant: of its carry kernel)
     smem_bytes: int       # dynamic shared memory of a block
-    partial_floats: int   # scratch for the per-block dW/db partials
+    partial_floats: int   # scratch: dW/db partials (the wide variant: and GH)
+    splits: int = 0       # the wide variant's K-ranges of its dW GEMM
 
     @property
     def name(self) -> str:
@@ -223,20 +239,86 @@ def mma_smem_bytes(H: int, bt: int, itemsize: int = 4) -> int:
     return 4 * (H * (3 * H + 8) + bt * (H + 8) + bt * (3 * H + 8)) + 2 * stage
 
 
+# the wide backward (`tensor_core_wide`): its carry kernel's K-chunk, ring
+# and register budget, and its GEMMs' tiles (`CarryLayout`, `WideGemm` in
+# csrc/gru_seq.cu)
+WIDE_MAX_H = 512              # one carry warp per 32 units, 512 threads
+CARRY_BT, CARRY_BK, CARRY_STAGES = 32, 32, 2
+CARRY_REGS = 128              # registers a thread at 512 threads
+GEMM_BM = GEMM_BN = 128
+GEMM_BLOCKS_PER_SM = 2
+DW_MIN_ROWS = 512             # rows of K a dW split takes at least
+DW_MAX_ROWS = 2048            # ... and at most (see `dw_splits`)
+
+
+def wide_widths(H: int) -> bool:
+    """H the wide backward takes: 64 < H <= 512, H % 32 == 0."""
+    return 64 < H <= WIDE_MAX_H and H % 32 == 0
+
+
+def carry_smem_bytes(H: int) -> int:
+    """Shared memory of the carry kernel (`CarryLayout::bytes`): two
+    stages of [H + CARRY_BT][CARRY_BK + 4] f32, a K-chunk of W's H rows and
+    of the tile's CARRY_BT rows of dG. The same for either stream type."""
+    return 4 * CARRY_STAGES * (H + CARRY_BT) * (CARRY_BK + 4)
+
+
+def dw_splits(T: int, B: int, H: int, n_sm: int) -> int:
+    """K-ranges of the dW GEMM: as many as fill GEMM_BLOCKS_PER_SM blocks
+    on every SM with its (3H / 128) x (H / 128) output tiles, at least
+    DW_MIN_ROWS of the T*B rows each; and at most DW_MAX_ROWS rows each,
+    however many ranges that takes: many short ranges spread the GEMM over
+    many waves of blocks, so that the last wave leaves few SMs idle."""
+    tiles = -(-3 * H // GEMM_BN) * -(-H // GEMM_BM)
+    rows = T * B
+    return max(1, -(-rows // DW_MAX_ROWS),
+               min(GEMM_BLOCKS_PER_SM * n_sm // tiles,
+                   -(-rows // DW_MIN_ROWS)))
+
+
+def wide_bwd_plan(T: int, B: int, H: int, n_sm: int) -> BwdPlan:
+    """The wide backward: carry tiles of CARRY_BT rows, as many carry
+    blocks as one SM's registers hold at CARRY_REGS a thread (512 // H) on
+    each SM, fewer when there are fewer tiles; blocks walk the tiles.
+    Scratch: the dW GEMM's `splits` partials of (H + 1) * 3H floats and GH
+    (then dG), T*B*3H floats."""
+    per_sm = max(1, 65_536 // (CARRY_REGS * H))
+    grid = min(-(-B // CARRY_BT), per_sm * n_sm)
+    splits = dw_splits(T, B, H, n_sm)
+    scratch = splits * (H + 1) * 3 * H + T * B * 3 * H
+    return BwdPlan(WIDE, CARRY_BT, grid, carry_smem_bytes(H), scratch,
+                   splits)
+
+
+def cuda_core_bwd_plan(B: int, H: int, n_sm: int, smem_optin: int) -> BwdPlan:
+    """The CUDA-core backward: one block per `batch_tile` rows, with W in
+    shared memory when it fits beside the tile and the dW/db sums."""
+    nacc = (H + 1) * 3 * H
+    bt = batch_tile(B, H, n_sm)
+    tile = 4 * (5 * bt * H + 2 * bt)
+    w = 4 * (H * ((3 * H) | 1) + nacc)
+    grid = -(-B // bt)
+    if tile + w <= smem_optin:
+        return BwdPlan(SMEM_W, bt, grid, tile + w, grid * nacc)
+    return BwdPlan(GLOBAL_W, bt, grid, tile, grid * nacc)
+
+
 def bwd_plan(B: int, H: int, n_sm: int, smem_optin: int,
-             itemsize: int = 4) -> BwdPlan:
+             itemsize: int = 4, T: int = 1) -> BwdPlan:
     """Which backward kernel runs for a [T, B, H] layer, on how many blocks
-    of how many rows, with how much shared memory. Chosen from the shape
-    and the card alone, before launch.
+    of how many rows, with how much shared memory and scratch. Chosen from
+    the shape and the card alone, before launch.
 
     H in MMA_WIDTHS takes the tensor-core kernel: 16-row tiles, two blocks
     to an SM, when they still give a tile to every SM, else 8-row tiles and
     one block to an SM. min(tiles, blocks per SM * n_sm) blocks walk the
     tiles, so the grid, and with it the bits of dW, follow from (B, H,
-    n_sm). Every other H, or a card where those blocks do not fit,
-    takes the CUDA-core kernel, one block per `batch_tile` rows, with W in
-    shared memory when it fits beside the tile. `itemsize` (4 f32, 2 bf16
-    streams) sizes the tensor-core kernel's staged tiles only."""
+    n_sm). H with `wide_widths` (64 < H <= 512, H % 32 == 0) takes the wide
+    kernels (`wide_bwd_plan`): 32-row carry tiles; its grid and dW splits
+    follow from (T, B, H, n_sm). Every other H, or a card where those
+    blocks do not fit, takes the CUDA-core kernel (`cuda_core_bwd_plan`).
+    `itemsize` (4 f32, 2 bf16 streams) sizes the tensor-core kernel's
+    staged tiles only; `T` sizes the wide kernels' scratch and dW splits."""
     nacc = (H + 1) * 3 * H
     if H in MMA_WIDTHS:
         bt = 16 if -(-B // 16) >= n_sm else 8
@@ -246,13 +328,11 @@ def bwd_plan(B: int, H: int, n_sm: int, smem_optin: int,
                 <= smem_optin + SMEM_PER_BLOCK_RESERVED:
             grid = min(-(-B // bt), per_sm * n_sm)
             return BwdPlan(MMA, bt, grid, nbytes, grid * nacc)
-    bt = batch_tile(B, H, n_sm)
-    tile = 4 * (5 * bt * H + 2 * bt)
-    w = 4 * (H * ((3 * H) | 1) + nacc)
-    grid = -(-B // bt)
-    if tile + w <= smem_optin:
-        return BwdPlan(SMEM_W, bt, grid, tile + w, grid * nacc)
-    return BwdPlan(GLOBAL_W, bt, grid, tile, grid * nacc)
+    if wide_widths(H):
+        plan = wide_bwd_plan(T, B, H, n_sm)
+        if plan.smem_bytes <= smem_optin:
+            return plan
+    return cuda_core_bwd_plan(B, H, n_sm, smem_optin)
 
 
 def _index(device) -> int:
@@ -278,17 +358,19 @@ def _device_fwd_plan(index: int, B: int, H: int, itemsize: int) -> FwdPlan:
     return fwd_plan(B, H, *device_limits(index), itemsize)
 
 
-def device_bwd_plan(device, B: int, H: int, itemsize: int = 4) -> BwdPlan:
+def device_bwd_plan(device, B: int, H: int, itemsize: int = 4,
+                    T: int = 1) -> BwdPlan:
     """`bwd_plan` for the card `device`."""
-    return _device_bwd_plan(_index(device), B, H, itemsize)
+    return _device_bwd_plan(_index(device), B, H, itemsize, T)
 
 
 @functools.lru_cache(maxsize=None)
-def _device_bwd_plan(index: int, B: int, H: int, itemsize: int) -> BwdPlan:
-    return bwd_plan(B, H, *device_limits(index), itemsize)
+def _device_bwd_plan(index: int, B: int, H: int, itemsize: int,
+                     T: int) -> BwdPlan:
+    return bwd_plan(B, H, *device_limits(index), itemsize, T)
 
 
-_STREAMS = ("gir", "giz", "gin", "outs", "douts")
+_STREAMS = ("gir", "giz", "gin", "outs", "douts", "hprev0")
 
 
 def _stream_dtype(gir):
@@ -391,6 +473,55 @@ def gru_layer_bwd_ref(gir, giz, gin, outs, h0, masks, douts, dhT, w_hh, b_hh):
             torch.stack(dgn).to(sd), dh, dw, db)
 
 
+# The wide backward's three pieces, each a plain function of what its
+# kernel reads. `hprev0` is hprev at t = 0: h0 in the streams' type.
+
+def _hm(outs, hprev0, masks):
+    """hm = [hprev0, outs[:-1]] * masks, widened to f32: [T, B, H]."""
+    return torch.cat([hprev0[None], outs[:-1]]).float() * masks
+
+
+def gru_bwd_gates_ref(outs, hprev0, masks, w_hh, b_hh):
+    """GH = hm @ W_hh + b_hh over all T*B rows: [T, B, 3H] f32."""
+    return _hm(outs, hprev0, masks) @ w_hh + b_hh
+
+
+def gru_bwd_carry_ref(gir, giz, gin, outs, hprev0, masks, douts, dhT, w_hh,
+                      gh):
+    """The recurrent carry, from the gates' hidden products `gh` [T, B, 3H].
+    Returns (dgir, dgiz, dgin [T, B, H] in the streams' type, dh0 [B, H],
+    dG [T, B, 3H] f32 = [dr, dz, dn * r])."""
+    T, _, H = gir.shape
+    hm = _hm(outs, hprev0, masks)
+    dh = dhT
+    dg = torch.empty_like(gh)
+    dgr, dgz, dgn = [None] * T, [None] * T, [None] * T
+    for t in reversed(range(T)):
+        ghr, ghz, ghn = gh[t].split(H, dim=-1)
+        r = torch.sigmoid(gir[t].float() + ghr)
+        z = torch.sigmoid(giz[t].float() + ghz)
+        n = torch.tanh(gin[t].float() + r * ghn)
+        dh = dh + douts[t].float()
+        dz = dh * (hm[t] - n) * z * (1.0 - z)
+        dn = dh * (1.0 - z) * (1.0 - n * n)
+        dr = dn * ghn * r * (1.0 - r)
+        dg[t] = torch.cat([dr, dz, dn * r], dim=-1)
+        dh = (dh * z + dg[t] @ w_hh.T) * masks[t]
+        dgr[t], dgz[t], dgn[t] = dr, dz, dn
+    sd = gir.dtype
+    return (torch.stack(dgr).to(sd), torch.stack(dgz).to(sd),
+            torch.stack(dgn).to(sd), dh, dg)
+
+
+def gru_bwd_dw_ref(outs, hprev0, masks, dg):
+    """dW_hh = hm^T @ dG and db_hh = the column sums of dG, over all T*B
+    rows, from the f32 dG [T, B, 3H]."""
+    H = outs.shape[-1]
+    hm = _hm(outs, hprev0, masks).reshape(-1, H)
+    d = dg.reshape(-1, dg.shape[-1])
+    return hm.T @ d, d.sum(0)
+
+
 # ---------------------------------------------------------------------------
 # wrappers: plain version on the CPU, kernel on the card
 # ---------------------------------------------------------------------------
@@ -417,8 +548,7 @@ def gru_layer_fwd(gir, giz, gin, h0, masks, w_hh, b_hh, plan=None):
     plan = plan or device_fwd_plan(gir.device, B, H, gir.element_size())
     if plan.variant == MMA:
         # it moves 16-byte chunks of the gi streams and of W
-        gir, giz, gin, w_hh = (x if x.data_ptr() % 16 == 0 else x.clone()
-                               for x in (gir, giz, gin, w_hh))
+        gir, giz, gin, w_hh = _aligned(gir, giz, gin, w_hh)
     with torch.cuda.device(gir.device):
         err = lib.gru_seq_fwd(*map(_ptr, (gir, giz, gin, masks, h0, w_hh,
                                           b_hh, outs, hT)), T, B, H,
@@ -430,8 +560,13 @@ def gru_layer_fwd(gir, giz, gin, h0, masks, w_hh, b_hh, plan=None):
     return outs, hT
 
 
-def gru_layer_bwd(gir, giz, gin, outs, h0, masks, douts, dhT, w_hh, b_hh):
-    """One layer backward; same outputs as `gru_layer_bwd_ref`."""
+def gru_layer_bwd(gir, giz, gin, outs, h0, masks, douts, dhT, w_hh, b_hh,
+                  plan=None):
+    """One layer backward; same outputs as `gru_layer_bwd_ref`. On the card
+    `plan` (a `BwdPlan`) overrides `device_bwd_plan`, so that two kernels
+    can be timed on the same inputs. The wide plan launches its three
+    pieces (`gru_bwd_gates`, `gru_bwd_carry`, `gru_bwd_dw`) in one scratch
+    buffer of `plan.partial_floats`; it counts as one launch."""
     global BWD_LAUNCHES
     if gir.device.type == "cpu":
         return gru_layer_bwd_ref(gir, giz, gin, outs, h0, masks, douts, dhT,
@@ -444,20 +579,33 @@ def gru_layer_bwd(gir, giz, gin, outs, h0, masks, douts, dhT, w_hh, b_hh):
                douts=douts, dhT=dhT, w_hh=w_hh, b_hh=b_hh)
     _require(ins, _shapes(T, B, H, outs=(T, B, H), douts=(T, B, H),
                           dhT=(B, H)), gir.device, sd)
+    if T == 0 or B == 0:
+        return (*(torch.empty_like(gir) for _ in range(3)), dhT.clone(),
+                torch.zeros_like(w_hh), torch.zeros_like(b_hh))
+    plan = plan or device_bwd_plan(gir.device, B, H, gir.element_size(), T)
+    hprev0 = h0.to(sd)   # hprev at t = 0, in the streams' type
+    if plan.variant == WIDE:
+        nacc = (H + 1) * 3 * H
+        if plan.partial_floats != plan.splits * nacc + T * B * 3 * H:
+            raise ValueError(f"{plan} is not a plan for T={T} B={B} H={H}")
+        scratch = torch.empty(plan.partial_floats, device=gir.device)
+        gh = scratch[plan.splits * nacc:].view(T, B, 3 * H)
+        gru_bwd_gates(outs, hprev0, masks, w_hh, b_hh, out=gh)
+        dgir, dgiz, dgin, dh0, dg = gru_bwd_carry(
+            gir, giz, gin, outs, hprev0, masks, douts, dhT, w_hh, gh, plan)
+        dw, db = gru_bwd_dw(outs, hprev0, masks, dg, plan.splits,
+                            scratch[:plan.splits * nacc])
+        BWD_LAUNCHES += 1
+        return dgir, dgiz, dgin, dh0, dw, db
     dgir, dgiz, dgin = (torch.empty_like(gir) for _ in range(3))
     dh0 = torch.empty_like(h0)
     dw = torch.empty_like(w_hh)
     db = torch.empty_like(b_hh)
-    if T == 0 or B == 0:
-        return dgir, dgiz, dgin, dhT.clone(), dw.zero_(), db.zero_()
     lib = _load()
-    plan = device_bwd_plan(gir.device, B, H, gir.element_size())
-    hprev0 = h0.to(sd)   # hprev at t = 0, in the streams' type
     if plan.variant == MMA:
         # its cp.async copies move 16-byte chunks of the streams and of W
-        gir, giz, gin, outs, hprev0, douts, w_hh = (
-            x if x.data_ptr() % 16 == 0 else x.clone()
-            for x in (gir, giz, gin, outs, hprev0, douts, w_hh))
+        gir, giz, gin, outs, hprev0, douts, w_hh = _aligned(
+            gir, giz, gin, outs, hprev0, douts, w_hh)
     partial = torch.empty(plan.partial_floats, device=gir.device)
     with torch.cuda.device(gir.device):
         err = lib.gru_seq_bwd(*map(_ptr, (gir, giz, gin, outs, masks, hprev0,
@@ -469,6 +617,108 @@ def gru_layer_bwd(gir, giz, gin, outs, h0, masks, douts, dhT, w_hh, b_hh):
     _check(err, "gru_seq_bwd launch")
     BWD_LAUNCHES += 1
     return dgir, dgiz, dgin, dh0, dw, db
+
+
+def _aligned(*xs):
+    """Each tensor where it lies if it starts on a 16-byte boundary, else a
+    copy: the kernels move 16-byte chunks of these."""
+    return [x if x.data_ptr() % 16 == 0 else x.clone() for x in xs]
+
+
+def _wide_args(ins, T, B, H, sd, device):
+    """Checks the wide pieces' inputs; `gh` / `dg` are [T, B, 3H] f32."""
+    _require(ins, _shapes(T, B, H, outs=(T, B, H), douts=(T, B, H),
+                          hprev0=(B, H), dhT=(B, H), gh=(T, B, 3 * H),
+                          dg=(T, B, 3 * H)), device, sd)
+    if not wide_widths(H) or T == 0 or B == 0:
+        raise ValueError(f"the wide backward takes T, B > 0 and 64 < H <= "
+                         f"{WIDE_MAX_H}, H % 32 == 0; got T={T} B={B} H={H}")
+
+
+def gru_bwd_gates(outs, hprev0, masks, w_hh, b_hh, out=None):
+    """GH [T, B, 3H] f32, as `gru_bwd_gates_ref`. On the card the gate GEMM
+    (`gru_bwd_gates_gemm`), into `out` when given."""
+    if outs.device.type == "cpu":
+        return gru_bwd_gates_ref(outs, hprev0, masks, w_hh, b_hh)
+    T, B, H = outs.shape
+    sd = _stream_dtype(outs)
+    _wide_args(dict(outs=outs, hprev0=hprev0, masks=masks, w_hh=w_hh,
+                    b_hh=b_hh), T, B, H, sd, outs.device)
+    gh = torch.empty(T, B, 3 * H, device=outs.device) if out is None else out
+    outs, hprev0, w_hh = _aligned(outs, hprev0, w_hh)
+    with torch.cuda.device(outs.device):
+        err = _load().gru_wide_gates(
+            *map(_ptr, (outs, hprev0, masks, w_hh, b_hh, gh)), T, B, H,
+            STREAM_TYPES[sd], _stream(outs.device))
+    _check(err, "gru_wide_gates launch")
+    WIDE_LAUNCHES["gates"] += 1
+    return gh
+
+
+def gru_bwd_carry(gir, giz, gin, outs, hprev0, masks, douts, dhT, w_hh, gh,
+                  plan=None):
+    """(dgir, dgiz, dgin, dh0, dG), as `gru_bwd_carry_ref`. On the card the
+    carry kernel (`gru_bwd_carry`) on `plan`'s tiles and grid (default:
+    `device_bwd_plan`'s, which must be the wide one); dG is written over
+    `gh`, and the returned dG is that tensor."""
+    if gir.device.type == "cpu":
+        return gru_bwd_carry_ref(gir, giz, gin, outs, hprev0, masks, douts,
+                                 dhT, w_hh, gh)
+    T, B, H = gir.shape
+    sd = _stream_dtype(gir)
+    _wide_args(dict(gir=gir, giz=giz, gin=gin, outs=outs, hprev0=hprev0,
+                    masks=masks, douts=douts, dhT=dhT, w_hh=w_hh, gh=gh),
+               T, B, H, sd, gir.device)
+    plan = plan or device_bwd_plan(gir.device, B, H, gir.element_size(), T)
+    if plan.variant != WIDE:
+        raise ValueError(f"{plan} is not a plan of the wide backward")
+    # gh is written in place, so it is taken where it lies (the kernel
+    # refuses one that is not 16-byte aligned)
+    gir, giz, gin, outs, hprev0, douts, dhT, w_hh = _aligned(
+        gir, giz, gin, outs, hprev0, douts, dhT, w_hh)
+    dgir, dgiz, dgin = (torch.empty_like(gir) for _ in range(3))
+    dh0 = torch.empty(B, H, device=gir.device)
+    with torch.cuda.device(gir.device):
+        err = _load().gru_wide_carry(
+            *map(_ptr, (gir, giz, gin, outs, masks, hprev0, douts, dhT, w_hh,
+                        gh, dgir, dgiz, dgin, dh0)),
+            T, B, H, plan.bt, plan.grid, plan.smem_bytes, STREAM_TYPES[sd],
+            _stream(gir.device))
+    _check(err, "gru_wide_carry launch")
+    WIDE_LAUNCHES["carry"] += 1
+    return dgir, dgiz, dgin, dh0, gh
+
+
+def gru_bwd_dw(outs, hprev0, masks, dg, splits=None, partial=None):
+    """(dW_hh [H, 3H], db_hh [3H]), as `gru_bwd_dw_ref`. On the card the
+    split-K dW GEMM (`gru_bwd_dw_gemm`) over `splits` K-ranges (default:
+    `dw_splits` for the card) into `partial` (splits * (H + 1) * 3H floats
+    of scratch, allocated when not given), then `gru_bwd_reduce` sums the
+    ranges in order."""
+    if outs.device.type == "cpu":
+        return gru_bwd_dw_ref(outs, hprev0, masks, dg)
+    T, B, H = outs.shape
+    sd = _stream_dtype(outs)
+    _wide_args(dict(outs=outs, hprev0=hprev0, masks=masks, dg=dg),
+               T, B, H, sd, outs.device)
+    if splits is None:
+        splits = dw_splits(T, B, H, device_limits(_index(outs.device))[0])
+    nacc = (H + 1) * 3 * H
+    if partial is None:
+        partial = torch.empty(splits * nacc, device=outs.device)
+    if partial.numel() != splits * nacc:
+        raise ValueError(f"partial holds {partial.numel()} floats, the dW "
+                         f"GEMM writes {splits} x {nacc}")
+    outs, hprev0, dg, partial = _aligned(outs, hprev0, dg, partial)
+    dw = torch.empty(H, 3 * H, device=outs.device)
+    db = torch.empty(3 * H, device=outs.device)
+    with torch.cuda.device(outs.device):
+        err = _load().gru_wide_dw(
+            *map(_ptr, (outs, hprev0, masks, dg, partial, dw, db)), T, B, H,
+            splits, STREAM_TYPES[sd], _stream(outs.device))
+    _check(err, "gru_wide_dw launch")
+    WIDE_LAUNCHES["dw"] += 1
+    return dw, db
 
 
 # ---------------------------------------------------------------------------

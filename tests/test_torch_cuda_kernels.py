@@ -140,8 +140,8 @@ def test_cuda_core_forward_at_tensor_core_widths_on_the_card(T, B, H):
     (5003, 64, "tensor_core"),
     (960, 48, "tensor_core"), (960, 40, "cuda_core_smem_w"),
     (37, 40, "cuda_core_smem_w"), (300, 40, "cuda_core_smem_w"),
-    (333, 128, "cuda_core_global_w"), (200, 256, "cuda_core_global_w"),
-    (20_000, 512, "cuda_core_global_w")])
+    (333, 128, "tensor_core_wide"), (200, 256, "tensor_core_wide"),
+    (20_000, 512, "tensor_core_wide")])
 def test_backward_variant_by_width_on_the_card(B, H, variant):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels run on the card only")
@@ -149,6 +149,40 @@ def test_backward_variant_by_width_on_the_card(B, H, variant):
     assert plan.name == variant
     if B == 5003:   # the test above needs its blocks to walk two tiles
         assert -(-B // plan.bt) > plan.grid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,B,H,bf16", [
+    (10, 803, 128, False), (10, 803, 128, True), (5, 333, 256, False),
+    (4, 200, 256, True), (3, 37, 512, False), (1, 1003, 512, False)])
+def test_cuda_core_backward_with_w_in_memory_on_the_card(T, B, H, bf16):
+    """The CUDA-core backward that reads W from device memory, which the
+    wide widths no longer take by default, when a plan asks for it (as
+    chip_smoke.py times it against the wide one): against the plain
+    version, twice with the same bits, one launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run on the card only")
+    sd = torch.bfloat16 if bf16 else torch.float32
+    x = _layer_inputs(T, B, H, seed=B + H, stream_dtype=sd)
+    outs, _ = cuda_gru.gru_layer_fwd_ref(x["gir"], x["giz"], x["gin"], x["h0"],
+                                         x["masks"], x["w_hh"], x["b_hh"])
+    bargs = (x["gir"], x["giz"], x["gin"], outs, x["h0"], x["masks"],
+             x["douts"], x["dhT"], x["w_hh"], x["b_hh"])
+    plan = cuda_gru.cuda_core_bwd_plan(
+        B, H, *cuda_gru.device_limits(torch.cuda.current_device()))
+    assert plan.name == "cuda_core_global_w"
+    bwd0 = cuda_gru.BWD_LAUNCHES
+    got = cuda_gru.gru_layer_bwd(*bargs, plan=plan)
+    assert cuda_gru.BWD_LAUNCHES - bwd0 == 1
+    want = cuda_gru.gru_layer_bwd_ref(*bargs)
+    if bf16:
+        _close_bf16(got, want, (True, True, True, False, False, False))
+    else:
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, **GRAD)
+    again = cuda_gru.gru_layer_bwd(*bargs, plan=plan)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b), "CUDA-core backward is not deterministic"
 
 
 @pytest.mark.cuda
@@ -336,3 +370,175 @@ def test_bf16_two_layers_on_the_card_match_the_cpu_path():
         scale = max(1.0, float(b.abs().max()))
         torch.testing.assert_close(a / scale, b / scale, rtol=2e-2, atol=2e-2,
                                    msg=f"grad {i}")
+
+
+# ---------------------------------------------------------------------------
+# the wide backward (64 < H <= 512, H % 32 == 0): gate GEMM, carry, dW GEMM
+# ---------------------------------------------------------------------------
+
+def _wide_case(T, B, H, seed, stream_dtype):
+    x = _layer_inputs(T, B, H, seed, stream_dtype)
+    outs, _ = cuda_gru.gru_layer_fwd_ref(x["gir"], x["giz"], x["gin"], x["h0"],
+                                         x["masks"], x["w_hh"], x["b_hh"])
+    bargs = [x["gir"], x["giz"], x["gin"], outs, x["h0"], x["masks"],
+             x["douts"], x["dhT"], x["w_hh"], x["b_hh"]]
+    return x, outs, bargs
+
+
+def _close_scaled(a, b, big):
+    """dW and db sum T*B products; at many rows compare relative to the
+    largest entry, as chip_smoke.py does at the bench and Hanabi shapes."""
+    scale = max(1.0, float(b.abs().max())) if big else 1.0
+    torch.testing.assert_close(a / scale, b / scale, **GRAD)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,B,H,bf16", [
+    (3, 37, 512, False),       # below one tile (32-row tiles, one block)
+    (1, 1003, 512, False),     # T = 1
+    (2, 20_000, 512, False),   # 625 tiles on 132 blocks
+    (5, 333, 128, False), (10, 803, 128, False), (4, 200, 256, False),
+    (3, 300, 96, False),       # GEMM tiles ragged in N = 3H and in H
+    (3, 300, 160, False),
+    (3, 2100, 128, True), (4, 200, 256, True), (2, 9000, 512, True)])
+def test_wide_backward_and_pieces_match_plain_versions_on_the_card(T, B, H,
+                                                                  bf16):
+    """The whole against `gru_layer_bwd_ref`, twice with the same bits and
+    one launch; each piece against its plain piece on the same inputs:
+    GH at the forward's tolerance, the carry's outputs and dG at the
+    gradients' (dgi within one bf16 ulp with bf16 streams), dW and db at
+    the gradients' (relative to the largest entry at 20,000 rows and
+    more). The masks are zero at t = 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run on the card only")
+    sd = torch.bfloat16 if bf16 else torch.float32
+    x, outs, bargs = _wide_case(T, B, H, B + H, sd)
+    plan = cuda_gru.device_bwd_plan(torch.device("cuda"), B, H,
+                                    2 if bf16 else 4, T)
+    assert plan.name == "tensor_core_wide"
+    bwd0, pieces0 = cuda_gru.BWD_LAUNCHES, dict(cuda_gru.WIDE_LAUNCHES)
+    got = cuda_gru.gru_layer_bwd(*bargs)
+    assert cuda_gru.BWD_LAUNCHES - bwd0 == 1
+    assert all(cuda_gru.WIDE_LAUNCHES[k] - pieces0[k] == 1 for k in pieces0)
+    want = cuda_gru.gru_layer_bwd_ref(*bargs)
+    big = T * B >= 20_000
+    if bf16:
+        _close_bf16(got[:4], want[:4], (True, True, True, False))
+    else:
+        for a, b in zip(got[:4], want[:4]):
+            torch.testing.assert_close(a, b, **GRAD)
+    for a, b in zip(got[4:], want[4:]):
+        _close_scaled(a, b, big)
+    again = cuda_gru.gru_layer_bwd(*bargs)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b), "wide backward is not deterministic"
+
+    hprev0 = x["h0"].to(sd)
+    common = (outs, hprev0, x["masks"])
+    gh = cuda_gru.gru_bwd_gates(*common, x["w_hh"], x["b_hh"])
+    gh_ref = cuda_gru.gru_bwd_gates_ref(*common, x["w_hh"], x["b_hh"])
+    torch.testing.assert_close(gh, gh_ref, **FWD)
+    cargs = (x["gir"], x["giz"], x["gin"], outs, hprev0, x["masks"],
+             x["douts"], x["dhT"], x["w_hh"])
+    got_c = cuda_gru.gru_bwd_carry(*cargs, gh_ref.clone())
+    want_c = cuda_gru.gru_bwd_carry_ref(*cargs, gh_ref)
+    if bf16:
+        _close_bf16(got_c[:4], want_c[:4], (True, True, True, False))
+    else:
+        for a, b in zip(got_c[:4], want_c[:4]):
+            torch.testing.assert_close(a, b, **GRAD)
+    torch.testing.assert_close(got_c[4], want_c[4], **GRAD)
+    dg = want_c[4]
+    for a, b in zip(cuda_gru.gru_bwd_dw(*common, dg),
+                    cuda_gru.gru_bwd_dw_ref(*common, dg)):
+        _close_scaled(a, b, big)
+
+
+@pytest.mark.cuda
+def test_wide_backward_gives_the_same_bits_on_any_grid_on_the_card():
+    """Each row's carry is its own and dW comes from the GEMMs, whose
+    splits follow from the shape alone: three carry blocks walking the 63
+    tiles of 32 rows give the bits of the default grid (one block a
+    tile). A plan with another tile is refused, not run."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run on the card only")
+    T, B, H = 3, 2000, 128
+    _, _, bargs = _wide_case(T, B, H, 9, torch.float32)
+    plan = cuda_gru.device_bwd_plan(torch.device("cuda"), B, H, 4, T)
+    assert plan.name == "tensor_core_wide" and plan.grid == -(-B // plan.bt)
+    want = cuda_gru.gru_layer_bwd(*bargs)
+    got = cuda_gru.gru_layer_bwd(*bargs, plan=plan._replace(grid=3))
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    with pytest.raises(RuntimeError):
+        cuda_gru.gru_layer_bwd(*bargs, plan=plan._replace(bt=64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True])
+def test_wide_backward_takes_unaligned_inputs_on_the_card(bf16):
+    """Its kernels move 16-byte chunks (cp.async) and four elements at a
+    time: a stream, W_hh or dhT that starts off a 16-byte boundary is
+    copied first, and the result is the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run on the card only")
+    sd = torch.bfloat16 if bf16 else torch.float32
+    T, B, H = 3, 90, 128
+    _, _, bargs = _wide_case(T, B, H, 12, sd)
+    want = cuda_gru.gru_layer_bwd(*bargs)
+    for i in (1, 3, 6, 7, 8):   # giz, outs, douts, dhT, w_hh
+        flat = torch.empty(bargs[i].numel() + 1, dtype=bargs[i].dtype,
+                           device="cuda")
+        shifted = flat[1:].view(bargs[i].shape)
+        shifted.copy_(bargs[i])
+        assert shifted.data_ptr() % 16 != 0 and shifted.is_contiguous()
+        got = cuda_gru.gru_layer_bwd(*bargs[:i], shifted, *bargs[i + 1:])
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_wide_two_layers_at_h512_on_the_card_match_the_cpu_path():
+    """recurrent_N=2 at H=512 through `cuda_gru.sequence` (f32): the card
+    (kernels, the wide backward for both layers) against the CPU (plain
+    versions), outputs and every gradient. The weight gradients sum 3,000
+    rows of 512-long products, so each gradient is compared relative to
+    its largest entry, as chip_smoke.py does at H=512."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run on the card only")
+    T, B, D, H, N = 10, 300, 24, 512, 2
+    rng = np.random.default_rng(13)
+    f = lambda *s, scale=1.0: (rng.standard_normal(s) * scale).astype(np.float32)
+    layers, d_in = [], D
+    for _ in range(N):
+        layers.append({"w_ih": f(d_in, 3 * H, scale=d_in ** -0.5),
+                       "w_hh": f(H, 3 * H, scale=H ** -0.5),
+                       "b_ih": f(3 * H, scale=0.1), "b_hh": f(3 * H, scale=0.1)})
+        d_in = H
+    norm = {"scale": 1.0 + f(H, scale=0.1), "bias": f(H, scale=0.1)}
+    xs, hxs = f(T, B, D), f(B, N, H, scale=0.5)
+    masks = (rng.random((T, B, 1)) > 0.2).astype(np.float32)
+    masks[0] = 0.0
+    w_out = f(H, 3, scale=H ** -0.5)
+
+    def run(device):
+        t = lambda a: torch.tensor(a, device=device, requires_grad=True)
+        p = {"layers": [{k: t(v) for k, v in l.items()} for l in layers],
+             "norm": {k: t(v) for k, v in norm.items()}}
+        x_, h_ = t(xs), t(hxs)
+        outs, hT = cuda_gru.sequence(p, x_, h_, torch.tensor(masks, device=device))
+        loss = ((outs @ torch.tensor(w_out, device=device)) ** 2).sum() \
+            + (hT * hT).sum()
+        leaves = [x_, h_] + [v for l in p["layers"] for v in l.values()] \
+            + list(p["norm"].values())
+        grads = torch.autograd.grad(loss, leaves)
+        return [outs.detach().cpu(), hT.detach().cpu()] + [g.cpu() for g in grads]
+
+    n0 = cuda_gru.WIDE_LAUNCHES["carry"]
+    card, cpu = run("cuda"), run("cpu")
+    assert cuda_gru.WIDE_LAUNCHES["carry"] - n0 == N
+    torch.testing.assert_close(card[0], cpu[0], **FWD)
+    torch.testing.assert_close(card[1], cpu[1], **FWD)
+    for i, (a, b) in enumerate(zip(card[2:], cpu[2:])):
+        scale = max(1.0, float(b.abs().max()))
+        torch.testing.assert_close(a / scale, b / scale, **GRAD, msg=f"grad {i}")

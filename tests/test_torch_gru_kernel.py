@@ -195,16 +195,28 @@ def test_bwd_plan_at_the_flagship_and_bench_shapes():
 
 @pytest.mark.parametrize("H", [40, 128, 256, 512])
 def test_bwd_plan_keeps_the_cuda_core_kernel_for_other_widths(H):
+    """H=40 keeps the CUDA-core kernel; H=128, 256 and 512 (64 < H <= 512,
+    H % 32 == 0) take the wide tensor-core backward, whose CUDA-core plan
+    stays what it was, for a caller that asks for it."""
     for B in (5, 960, 122_880):
+        old = cuda_gru.cuda_core_bwd_plan(B, H, H100_SMS, H100_SMEM_OPTIN)
+        assert old.variant in (cuda_gru.GLOBAL_W, cuda_gru.SMEM_W)
+        assert old.bt == cuda_gru.batch_tile(B, H, H100_SMS)
+        assert old.grid == -(-B // old.bt)
+        assert old.smem_bytes <= H100_SMEM_OPTIN
+        assert old.partial_floats == old.grid * (H + 1) * 3 * H
         plan = cuda_gru.bwd_plan(B, H, H100_SMS, H100_SMEM_OPTIN)
-        assert plan.variant in (cuda_gru.GLOBAL_W, cuda_gru.SMEM_W)
-        assert plan.bt == cuda_gru.batch_tile(B, H, H100_SMS)
-        assert plan.grid == -(-B // plan.bt)
-        assert plan.smem_bytes <= H100_SMEM_OPTIN
-        assert plan.partial_floats == plan.grid * (H + 1) * 3 * H
+        if H == 40:
+            assert plan == old
+        else:
+            assert plan.variant == cuda_gru.WIDE
+            assert plan == cuda_gru.wide_bwd_plan(1, B, H, H100_SMS)
     assert cuda_gru.bwd_plan(960, 40, H100_SMS, H100_SMEM_OPTIN).name \
         == "cuda_core_smem_w"
     assert cuda_gru.bwd_plan(960, 256, H100_SMS, H100_SMEM_OPTIN).name \
+        == "tensor_core_wide"
+    assert cuda_gru.cuda_core_bwd_plan(960, 256, H100_SMS,
+                                       H100_SMEM_OPTIN).name \
         == "cuda_core_global_w"
 
 

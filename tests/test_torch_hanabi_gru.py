@@ -2,14 +2,17 @@
 
 `train_hanabi_device.sh` trains rMAPPO at hidden 512 over 1000 fleets:
 each PPO epoch runs the GRU over T=10 chunks of B=100·1000·2/10=20,000
-rows, through the CUDA-core kernels on the card. Here, on the CPU: the
-port's plain forward and backward at H=512 (small T and B) against
-`pallas_gru` in interpret mode, at the tolerances of
-tests/test_torch_gru_kernel.py (its loss, with the readout scaled to
+rows, through the CUDA-core forward and the wide tensor-core backward on
+the card. Here, on the CPU: the port's plain forward and backward at H=512
+(small T and B) against `pallas_gru` in interpret mode, at the tolerances
+of tests/test_torch_gru_kernel.py (its loss, with the readout scaled to
 keep the gradients O(1) at this width), and the plans the card takes at the
-Hanabi shape: W (3.15 MB) fits no block's shared memory, so both kernels
-read it from device memory, 16-row tiles, 1250 blocks, and the backward
-keeps 1250 partial dW/db blocks of (H+1)·3H floats. And the trainer state
+Hanabi shape: W (3.15 MB) fits no block's shared memory, so the forward
+reads it from device memory (16-row tiles, 1250 blocks) and the backward
+streams it from L2 through its carry kernel (32-row tiles, 132 blocks),
+with GH, dG and 98 dW/db partials of (H+1)·3H floats as scratch; the old
+CUDA-core backward's plan (1250 partials) stays for a caller that asks
+for it. And the trainer state
 of that configuration (hidden 512, layer_N 2, gain 0.01, Hanabi-Full's
 obs 660 / share 785 / 20 moves) carries across from JAX by
 `utils/params.py`: the port's actor and critic give JAX's outputs.
@@ -64,11 +67,20 @@ def test_plans_at_the_hanabi_shape():
         f = cuda_gru.fwd_plan(B, H, H100_SMS, H100_SMEM_OPTIN, itemsize)
         assert (f.name, f.bt, f.grid) == ("cuda_core_global_w", 16, 1250)
         assert f.smem_bytes == 4 * (2 * 16 * H + 16)
-        b = cuda_gru.bwd_plan(B, H, H100_SMS, H100_SMEM_OPTIN, itemsize)
-        assert (b.name, b.bt, b.grid) == ("cuda_core_global_w", 16, 1250)
-        assert b.smem_bytes == 4 * (5 * 16 * H + 2 * 16) <= H100_SMEM_OPTIN
-        # the backward's per-block dW/db partials: 3.94 GB of f32
-        assert b.partial_floats == 1250 * (H + 1) * 3 * H == 984_960_000
+        b = cuda_gru.bwd_plan(B, H, H100_SMS, H100_SMEM_OPTIN, itemsize,
+                              HANABI["T"])
+        assert (b.name, b.bt, b.grid) == ("tensor_core_wide", 32, 132)
+        assert b.smem_bytes == 4 * 2 * (H + 32) * 36 <= H100_SMEM_OPTIN
+        # the wide backward's scratch: 98 dW/db partials (ranges of at most
+        # 2048 of the 200,000 rows) and GH (then dG), 1.538 GB of f32, where
+        # the CUDA-core kernel kept 1250 per-block partials, 3.94 GB
+        assert b.splits == 98
+        assert b.partial_floats == 98 * (H + 1) * 3 * H + 10 * B * 3 * H \
+            == 384_420_864
+        old = cuda_gru.cuda_core_bwd_plan(B, H, H100_SMS, H100_SMEM_OPTIN)
+        assert (old.name, old.bt, old.grid) == ("cuda_core_global_w", 16, 1250)
+        assert old.smem_bytes == 4 * (5 * 16 * H + 2 * 16) <= H100_SMEM_OPTIN
+        assert old.partial_floats == 1250 * (H + 1) * 3 * H == 984_960_000
 
 
 def test_hanabi_device_train_state_carries_across():
