@@ -12,8 +12,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
               B=37 and B=803 on 8-row tiles, B=5003 on 16-row tiles where
               blocks walk two), T=1, masked, T=25/B=384 (naive-recurrent)
               and H=16/32/48 shapes (tensor-core kernels, every (H, tile)
-              instantiation), and ragged, T=1, masked and H=40/128/256
-              shapes of the CUDA-core kernels, and the shapes of the JAX
+              instantiation), ragged, T=1 and masked shapes of the
+              CUDA-core kernels at H=40, H=128/256 shapes, and the
+              shapes of the JAX
               package's other MPE scripts: T=10 B=640 (simple_reference),
               T=10 B=320 (separated runner, per agent) and T=25 B=128
               (HAPPO's whole-episode log-probs, forward only); each line
@@ -23,32 +24,40 @@ Phases, each of which fails the run (non-zero exit) if it fails:
               (64 < H <= 512, H % 32 == 0: the H=128/256 shapes here, the
               H=512 ones below) its three pieces are also held against
               their plain pieces on the same inputs (gate GEMM, carry,
-              dW GEMM with its reduction). The CUDA-core backward that
-              reads W from device memory (`cuda_core_global_w`), which
-              no shape of the main paths takes any longer, runs at H=128
-              through an explicit plan (`cuda_core_bwd_plan`).
+              dW GEMM with its reduction). The forward at those widths is
+              `tensor_core_wide` too (one GEMM a time step); its outs are
+              bitwise repeatable where the backward's dW is checked so.
+              The CUDA-core backward and forward that read W from device
+              memory (`cuda_core_global_w`), which no shape of the main
+              paths takes any longer, run at H=128 through explicit plans
+              (`cuda_core_bwd_plan`; `cuda_core_fwd_plan` at B=17,000,
+              where 64-row tiles leave W no room in shared memory).
               Then recurrent_N=2 through the autograd path on the card
               against the CPU path, in each stream type. Then, in f32,
               the Hanabi width H=512 (`HANABI_SHAPES`: T=10 B=20,000 as
               train_hanabi_device.sh gives it, ragged B=37, T=1, all-ones
-              masks; dW bitwise repeatable) and recurrent_N=2 at H=512.
+              masks; outs and dW bitwise repeatable) and recurrent_N=2
+              at H=512.
   4. times:   kernel, plain version and cuDNN's nn.GRU (yardstick only)
               at the flagship and bench shapes, with CUDA events (`ms`),
               in f32 and with bf16 streams (cuDNN then in bf16); the
               kernels' device time from torch.profiler beside them
               (`device_ms`, null where the profiler saw no device time);
-              then the CUDA-core forward and the tensor-core one on the
-              same inputs through explicit plans, in turns (CUDA-core,
-              tensor-core, tensor-core, CUDA-core); and the Hanabi shape
-              T=10 B=20,000 H=512 in f32, with the backward's scratch;
-              then at that shape the old CUDA-core backward and the wide
-              one on the same inputs through explicit plans, each held
-              against the plain version and timed in turns (old, wide,
-              wide, old), with each wide kernel's device ms.
+              then the CUDA-core forward and the one the shape takes
+              (tensor-core at H=64, wide at H=512) on the same inputs
+              through explicit plans, each held against the plain
+              version, then timed in turns (CUDA-core, new, new,
+              CUDA-core); and the Hanabi shape T=10 B=20,000 H=512 in
+              f32, with the backward's scratch; then at that shape the
+              two forwards in turns, and the old CUDA-core backward and
+              the wide one on the same inputs through explicit plans,
+              each held against the plain version and timed in turns
+              (old, wide, wide, old), with each wide kernel's device ms.
   5. train:   one episode at 8 rollout threads on the card against the
               CPU path from the same state (rMAPPO in f32, rMAPPO and
-              MAPPO with the critic dedup in bf16, HAPPO with 3 agents
-              in f32 through the separated runner; Hanabi-Small rMAPPO at
+              MAPPO with the critic dedup in bf16 and in f32, HAPPO with
+              3 agents in f32 through the separated runner; Hanabi-Small
+              rMAPPO at
               H=128, an untrained episode and a trained one, from the same
               decks): rollout, update metrics, and the parameters' change;
               then the port's `scripts/train_mpe.main` or
@@ -62,8 +71,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
               hidden 512x2, 1000 fleets, T=100) for 3 episodes and the JAX
               package's Hanabi bench configuration (feed-forward MAPPO,
               bf16) for 2. Each run's kernel launches are asserted
-              (derived beside `TRAIN_RUNS`); every logged metric finite;
-              env-steps/s printed for each.
+              (derived beside `TRAIN_RUNS`), and the wide forward's step
+              launches (T a forward) where it runs; every logged metric
+              finite; env-steps/s printed for each.
 The last three lines are one JSON object with a row per kernel and
 stream type, the card's name and power limit, and the result line
 `{"ok": true, "device": {...}}`.
@@ -149,11 +159,13 @@ SHAPES = (
     ("H=128 T=1 all-ones", 1, 37, 128, dict(mask_mode="ones")),
     ("H=128 CUDA-core bwd (W in memory)", 10, 803, 128,
      dict(repeat=True, cuda_core_bwd=True)),
+    ("H=128 CUDA-core fwd (W in memory)", 2, 17000, 128,
+     dict(cuda_core_fwd=True)),
 )
 # Hanabi width, f32 streams only (train_hanabi_device.sh trains in f32;
 # the Hanabi bench configuration is feed-forward): W (3.15 MB) fits no
-# block's shared memory, so the CUDA-core forward reads it from device
-# memory and the wide backward streams it from L2 in chunks
+# block's shared memory, so the wide forward and backward stream it from
+# L2 in chunks
 HANABI_SHAPES = (
     ("Hanabi T=10 B=20000 H=512", *HANABI.values(), dict(bench_scale=True)),
     ("H=512 B=37 (ragged single tile)", 10, 37, 512, {}),
@@ -223,24 +235,30 @@ BF16_STREAM_TOL = (2 ** -7, 2e-5)
 
 def check_layer(torch, cg, case, T, B, H, mask_mode="sprinkled",
                 bench_scale=False, repeat=False, stream_dtype=None,
-                cuda_core_bwd=False):
+                cuda_core_bwd=False, cuda_core_fwd=False):
     """Kernel vs plain version for one layer; with `repeat` (or
-    `bench_scale`) the backward also runs twice and must give the same
-    bits. `stream_dtype` bf16 moves gi, outs, douts and dgi in bf16.
-    `cuda_core_bwd` runs the CUDA-core backward (`cuda_core_bwd_plan`)
-    where the shape would take another. Returns (fwd_err, bwd_err)."""
+    `bench_scale`) the forward and the backward also run twice and must
+    give the same bits. `stream_dtype` bf16 moves gi, outs, douts and dgi
+    in bf16. `cuda_core_bwd` / `cuda_core_fwd` run the CUDA-core backward
+    (`cuda_core_bwd_plan`) / forward (`cuda_core_fwd_plan`, which must
+    then read W from device memory) where the shape would take another.
+    Returns (fwd_err, bwd_err)."""
     bf16 = stream_dtype is not None
     itemsize = 2 if bf16 else 4
+    limits = cg.device_limits(torch.cuda.current_device())
     plan = cg.device_bwd_plan(torch.device("cuda"), B, H, itemsize, T)
     if cuda_core_bwd:
-        plan = cg.cuda_core_bwd_plan(
-            B, H, *cg.device_limits(torch.cuda.current_device()))
+        plan = cg.cuda_core_bwd_plan(B, H, *limits)
     fplan = cg.device_fwd_plan(torch.device("cuda"), B, H, itemsize)
+    if cuda_core_fwd:
+        fplan = cg.cuda_core_fwd_plan(B, H, *limits)
+        if fplan.variant != cg.GLOBAL_W:
+            raise AssertionError(f"{case}: {fplan} keeps W in shared memory")
     x = make_inputs(torch, T, B, H, seed=T * 7919 + B * 31 + H,
                     mask_mode=mask_mode, stream_dtype=stream_dtype)
     args = (x["gir"], x["giz"], x["gin"], x["h0"], x["masks"], x["w_hh"],
             x["b_hh"])
-    outs, hT = cg.gru_layer_fwd(*args)
+    outs, hT = cg.gru_layer_fwd(*args, plan=fplan)
     r_outs, r_hT = cg.gru_layer_fwd_ref(*args)
     torch.cuda.synchronize()
     if outs.dtype != r_outs.dtype or outs.dtype != x["gir"].dtype:
@@ -250,6 +268,12 @@ def check_layer(torch, cg, case, T, B, H, mask_mode="sprinkled",
     assert_close(torch, f"{case} outs", outs, r_outs, *stream_tol)
     assert_close(torch, f"{case} hT", hT, r_hT, 1e-5, 1e-5)
     fwd_err = max(max_err(outs, r_outs), max_err(hT, r_hT))
+    if bench_scale or repeat:
+        again = cg.gru_layer_fwd(*args, plan=fplan)
+        torch.cuda.synchronize()
+        if not (torch.equal(outs, again[0]) and torch.equal(hT, again[1])):
+            raise AssertionError(f"{case}: forward not repeatable")
+        del again
 
     bargs = (x["gir"], x["giz"], x["gin"], r_outs, x["h0"], x["masks"],
              x["douts"], x["dhT"], x["w_hh"], x["b_hh"])
@@ -450,8 +474,11 @@ def device_ms(torch, fn, names, iters=20):
     return sum(ms) if ms else None
 
 
-# the backward's kernels, all named gru_bwd_*: the tensor-core and
-# CUDA-core kernels, and the wide variant's three and the reduction
+# the forward's kernels, all named gru_fwd_*: the tensor-core, CUDA-core
+# and wide step kernels; the backward's, all named gru_bwd_*: the
+# tensor-core and CUDA-core kernels, and the wide variant's three and the
+# reduction
+FWD_KERNELS = ("gru_fwd_",)
 BWD_KERNELS = ("gru_bwd_",)
 WIDE_KERNELS = ("gru_bwd_gates_gemm", "gru_bwd_carry", "gru_bwd_dw_gemm",
                 "gru_bwd_reduce")
@@ -504,7 +531,7 @@ def time_shape(torch, cg, shape, card, stream_dtype=None):
         "fwd_ms": time_ms(torch, lambda: cg.gru_layer_fwd(*fargs)),
         "bwd_ms": time_ms(torch, lambda: cg.gru_layer_bwd(*bargs)),
         "fwd_device_ms": device_ms(torch, lambda: cg.gru_layer_fwd(*fargs),
-                                   ("gru_fwd_kernel",)),
+                                   FWD_KERNELS),
         "bwd_device_ms": device_ms(torch, lambda: cg.gru_layer_bwd(*bargs),
                                    BWD_KERNELS),
         "fwd_plain_ms": time_ms(torch, lambda: cg.gru_layer_fwd_ref(*fargs),
@@ -548,23 +575,38 @@ def time_shape(torch, cg, shape, card, stream_dtype=None):
 
 
 def compare_forwards(torch, cg, shape, card):
-    """The CUDA-core forward against the tensor-core one on the same
-    inputs, each through an explicit plan, timed in turns (CUDA-core,
-    tensor-core, tensor-core, CUDA-core) so that both see the same card:
-    CUDA-event ms and torch.profiler device ms of each turn."""
+    """The CUDA-core forward against the one the shape takes (the
+    tensor-core one at H=64, the wide one at H=512) on the same inputs,
+    each through an explicit plan: each held against the plain version
+    (outs and hT at 1e-5), then timed in turns (CUDA-core, new, new,
+    CUDA-core) so that both see the same card: CUDA-event ms and
+    torch.profiler device ms of each turn."""
     T, B, H = shape["T"], shape["B"], shape["H"]
     x = make_inputs(torch, T, B, H, seed=13, mask_mode="ones")
     fargs = (x["gir"], x["giz"], x["gin"], x["h0"], x["masks"], x["w_hh"],
              x["b_hh"])
     limits = cg.device_limits(torch.cuda.current_device())
+    new = cg.fwd_plan(B, H, *limits)
     plans = {"cuda_core": cg.cuda_core_fwd_plan(B, H, *limits),
-             "tensor_core": cg.fwd_plan(B, H, *limits)}
-    res = {k: {"plan": plans[k]._asdict(), "event_ms": [], "device_ms": []}
-           for k in plans}
-    for k in ("cuda_core", "tensor_core", "tensor_core", "cuda_core"):
+             new.name: new}
+    ref = cg.gru_layer_fwd_ref(*fargs)
+    res = {}
+    for k, p in plans.items():
+        got = cg.gru_layer_fwd(*fargs, plan=p)
+        torch.cuda.synchronize()
+        for n, a, b in zip(("outs", "hT"), got, ref):
+            assert_close(torch, f"T={T} B={B} H={H} {p.name} {n}", a, b,
+                         1e-5, 1e-5)
+        res[k] = {"plan": p._asdict(), "variant": p.name,
+                  "max_err": max(max_err(a, b) for a, b in zip(got, ref)),
+                  "event_ms": [], "device_ms": []}
+    del got, ref
+    slow = H > 64   # the CUDA-core forward at H=512 takes ~36 ms a call
+    for k in ("cuda_core", new.name, new.name, "cuda_core"):
         fn = lambda: cg.gru_layer_fwd(*fargs, plan=plans[k])
-        res[k]["event_ms"].append(time_ms(torch, fn))
-        res[k]["device_ms"].append(device_ms(torch, fn, ("gru_fwd_kernel",)))
+        res[k]["event_ms"].append(time_ms(torch, fn, iters=10 if slow else 20))
+        res[k]["device_ms"].append(device_ms(torch, fn, FWD_KERNELS,
+                                             iters=10 if slow else 20))
     log(f"  forward in turns T={T} B={B} H={H} [{card}]: " + json.dumps(res))
     return res
 
@@ -797,8 +839,10 @@ def train_main_path(torch, cg, name, script, config, extra, episodes,
     kernel launched its given count a trained episode: every episode of
     train_mpe (an eval logged each episode with `--use_eval`), all but the
     first of train_hanabi (training is deferred one episode, and the first
-    is not logged). Returns (fwd launches, bwd launches, env-steps/s over
-    the run, env-steps/s of the last episode)."""
+    is not logged). Where the forward is the wide one it launches its step
+    kernel T = data_chunk_length times a forward. Returns (fwd launches,
+    bwd launches, env-steps/s over the run, env-steps/s of the last
+    episode)."""
     import importlib
     module = importlib.import_module(f"onpolicy_torch.scripts.{script}")
     hanabi = script == "train_hanabi"
@@ -813,12 +857,14 @@ def train_main_path(torch, cg, name, script, config, extra, episodes,
         os.environ["ONPOLICY_TORCH_RESULTS"] = tmp
         cg.FWD_LAUNCHES = 0
         cg.BWD_LAUNCHES = 0
+        cg.FWD_STEP_LAUNCHES = 0
         cg.WIDE_LAUNCHES = dict.fromkeys(cg.WIDE_LAUNCHES, 0)
         t0 = time.perf_counter()
         _, history = module.main(argv)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         fwd, bwd = cg.FWD_LAUNCHES, cg.BWD_LAUNCHES
+        fwd_steps = cg.FWD_STEP_LAUNCHES
         pieces = dict(cg.WIDE_LAUNCHES)
     reward = "average_score" if hanabi else "average_episode_rewards"
     trained = episodes - 1 if hanabi else episodes
@@ -838,9 +884,16 @@ def train_main_path(torch, cg, name, script, config, extra, episodes,
     if (fwd, bwd) != want:
         raise AssertionError(f"{name}: launches fwd={fwd} bwd={bwd}, "
                              f"want {want}")
-    # the wide backward launches each of its pieces once a backward
+    # the wide backward launches each of its pieces once a backward, and
+    # (at the same widths) the wide forward its step kernel T times a forward
     if any(pieces.values()) and set(pieces.values()) != {bwd}:
         raise AssertionError(f"{name}: wide pieces {pieces}, backward {bwd}")
+    from onpolicy_torch.config import Config
+    chunk = (flag("--data_chunk_length") if "--data_chunk_length" in argv
+             else Config.data_chunk_length)
+    if fwd_steps != (chunk * fwd if any(pieces.values()) else 0):
+        raise AssertionError(f"{name}: wide forward step launches {fwd_steps}, "
+                             f"forward {fwd}, wide pieces {pieces}")
     # the runner's fps is cumulative: episode i ends at (i+1)*steps/fps_i
     ends = [(r["episode"] + 1) * steps / r["fps"] for r in history]
     # (a run that logs one row, as 2 Hanabi episodes do, has no last rate)
@@ -855,7 +908,8 @@ def train_main_path(torch, cg, name, script, config, extra, episodes,
                 f"{[round(r[reward], 4) for r in history]}")
     log(f"  {name}: {threads} threads, {episodes} episodes, wall "
         f"{wall:.2f} s, launches fwd {fwd} bwd {bwd}"
-        + (f" (wide pieces {pieces})" if any(pieces.values()) else "")
+        + (f" (wide pieces {pieces}, wide forward steps {fwd_steps})"
+           if any(pieces.values()) else "")
         + ", env-steps/s "
         f"{history[-1]['fps']:.1f} over the run (first episode included), "
         + (f"{last_rate:.1f} in the last episode, " if last_rate else "")
@@ -951,6 +1005,7 @@ def main() -> int:
     compare_forwards(torch, cg, FLAGSHIP, card)
     compare_forwards(torch, cg, BENCH, card)
     t_hanabi = time_shape(torch, cg, HANABI, card)
+    compare_forwards(torch, cg, HANABI, card)
     compare_backwards(torch, cg, HANABI, card)
 
     log("== 5. main path: train_mpe and train_hanabi configurations")
@@ -961,6 +1016,10 @@ def main() -> int:
     check_small_against_cpu(torch, "mappo dedup bf16", (5e-2, 5e-2), 0.25,
                             algorithm_name="mappo", use_bf16=True,
                             use_critic_dedup=True)
+    # the dedup path in f32, at the f32 limits: what the bf16 reading above
+    # owes to the dedup path and what to bf16 rounding
+    check_small_against_cpu(torch, "mappo dedup f32", (1e-3, 1e-4), 1e-3,
+                            algorithm_name="mappo", use_critic_dedup=True)
     check_small_against_cpu(torch, "happo f32 (3 agents)", (1e-3, 1e-4),
                             1e-3, algorithm_name="happo")
     check_hanabi_against_cpu(torch, cg)

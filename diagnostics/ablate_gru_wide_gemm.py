@@ -1,6 +1,7 @@
-"""The wide GRU backward's products under other compile-time choices.
+"""The wide GRU kernels' products under other compile-time choices.
 
-    python -m diagnostics.ablate_gru_wide_gemm
+    python -m diagnostics.ablate_gru_wide_gemm             # the backward
+    python -m diagnostics.ablate_gru_wide_gemm --forward   # the forward
 
 A one-off measurement, not a tool of the port: it edits the text of
 `onpolicy_torch/csrc/gru_seq.cu` as it stands in the same commit, builds
@@ -32,11 +33,22 @@ largest entry at the Hanabi shape); above 1 the check fails. Then the
 compiler's registers and spills of the three f32 kernels, and, at the Hanabi
 shape T=10 B=20,000 in two rounds (the second in reverse order), each
 wide kernel's device ms (torch.profiler, 10 calls), with the card's name
-and power limit, as one JSON object. Refuses to run without a CUDA
-device.
+and power limit, as one JSON object.
+
+With `--forward` the variants are the wide forward's step kernel
+(`gru_fwd_wide_step`) with its k-steps' products added in plain f32
+(`add`, `mma3_add`) or chained in the accumulator (`chain`, `mma3`),
+everything else as committed. At the same four shapes it prints the
+largest error of outs and hT against the plain f32 version, with the
+share of the forward's tolerance (1e-5 / 1e-5) it uses, and the
+distance of both from the plain version in f64; then the compiler's
+registers and spills of the f32 step kernel and its device ms at the
+Hanabi shape in turns (add, chain, chain, add). Refuses to run without
+a CUDA device.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import tempfile
@@ -67,6 +79,10 @@ VARIANTS = {f"gates_{g}_dw_{d}_carry_{c}" + ("" if b == 2 else "_1blk"):
 KERNELS = ("gru_bwd_gates_gemm", "gru_bwd_carry", "gru_bwd_dw_gemm",
            "gru_bwd_reduce")
 GRAD_TOL, GH_TOL = (2e-4, 2e-5), (1e-5, 1e-5)
+FWD_TOL = (1e-5, 1e-5)
+_FWD_ACC = {m: f"for (int gate = 0; gate < 3; ++gate) {f}(acc[mt][gate], "
+               "hm, w[gate]);"
+            for m, f in (("add", "mma3_add"), ("chain", "mma3"))}
 
 
 def _edit(src: str, name: str, gates: str, dw: str, carry: str,
@@ -93,12 +109,20 @@ def _edit(src: str, name: str, gates: str, dw: str, carry: str,
     return src.replace(_CARRY[found[0]], _CARRY[carry])
 
 
-def _build_all(tmp: Path):
-    """Every variant's library and compiler report, nvcc runs in parallel."""
+def _edit_fwd(src: str, mode: str) -> str:
+    """The source with the wide forward's k-step accumulation set."""
+    found = [m for m, line in _FWD_ACC.items() if src.count(line) == 1]
+    if len(found) != 1:
+        raise RuntimeError("the wide forward's accumulation does not match")
+    return src.replace(_FWD_ACC[found[0]], _FWD_ACC[mode])
+
+
+def _build_all(tmp: Path, texts: dict):
+    """Every variant's library (`texts`: name -> source) and compiler
+    report, nvcc runs in parallel."""
     src = cg.SOURCE.read_text()
     jobs = {}
-    for name, cfg in VARIANTS.items():
-        text = _edit(src, name, *cfg)
+    for name, text in texts.items():
         path = tmp / f"{name}.cu"
         path.write_text(text)
         out = tmp / f"lib{name}.so"
@@ -116,7 +140,8 @@ def _build_all(tmp: Path):
         for i, line in enumerate(lines):
             kernel = next((k for k, tag in (("gates", "gates_gemmIf"),
                                             ("dw", "dw_gemmIf"),
-                                            ("carry", "carryIf"))
+                                            ("carry", "carryIf"),
+                                            ("fwd", "wide_stepIf"))
                            if tag in line), None)
             if "Compiling entry" in line and kernel:
                 report[name][kernel] = (f"{lines[i + 2].strip()}; "
@@ -193,7 +218,62 @@ def _errors(case, T, B, H, opts):
     return run, bargs
 
 
-def main():
+def _fwd_errors(T, B, H, opts):
+    """outs and hT of the forward against the plain f32 and f64 versions
+    at one shape, as chip_smoke's check_layer makes its inputs."""
+    x = cs.make_inputs(torch, T, B, H, seed=T * 7919 + B * 31 + H,
+                       mask_mode=opts.get("mask_mode", "sprinkled"))
+    fargs = (x["gir"], x["giz"], x["gin"], x["h0"], x["masks"], x["w_hh"],
+             x["b_hh"])
+    ref = cg.gru_layer_fwd_ref(*fargs)
+    ref64 = cg.gru_layer_fwd_ref(*(a.double() for a in fargs))
+    plain = [float((b.double() - c).abs().max()) for b, c in zip(ref, ref64)]
+
+    def run():
+        got = cg.gru_layer_fwd(*fargs)
+        torch.cuda.synchronize()
+        res = {}
+        for n, a, b, c, p in zip(("outs", "hT"), got, ref, ref64, plain):
+            e, u = _err(a, b, *FWD_TOL)
+            res[n] = {"err": e, "tol_use": u,
+                      "vs_f64": float((a.double() - c).abs().max()),
+                      "plain_f32_vs_f64": p}
+        return res
+
+    return run, fargs
+
+
+def _forward(out):
+    """The wide forward's accumulation, `add` against `chain`."""
+    src = cg.SOURCE.read_text()
+    with tempfile.TemporaryDirectory() as tmp:
+        libs, out["compiler"] = _build_all(
+            Path(tmp), {f"fwd_{m}": _edit_fwd(src, m) for m in _FWD_ACC})
+        try:
+            for case, T, B, H, opts in cs.HANABI_SHAPES:
+                run, fargs = _fwd_errors(T, B, H, opts)
+                for name, lib in libs.items():
+                    cg._lib = lib
+                    out["errors"].setdefault(name, {})[case] = run()
+                if (T, B, H) == tuple(cs.HANABI.values()):
+                    hanabi_fargs = fargs
+                del run, fargs
+            names = list(libs)
+            for name in names + names[::-1]:
+                cg._lib = libs[name]
+                out["device_ms"].setdefault(name, []).append(
+                    cs.device_ms_each(
+                        torch, lambda: cg.gru_layer_fwd(*hanabi_fargs),
+                        ("gru_fwd_wide_step",), iters=10))
+        finally:
+            cg._lib = None
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--forward", action="store_true",
+                    help="the wide forward's accumulation, not the backward's")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("ablate_gru_wide_gemm: needs a CUDA device")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -201,8 +281,15 @@ def main():
                           text=True, check=True).stdout.strip()
     torch.backends.cuda.matmul.allow_tf32 = False
     out = {"card": card, "compiler": {}, "errors": {}, "device_ms": {}}
+    if args.forward:
+        _forward(out)
+        print(json.dumps(out, indent=1))
+        return
+    src = cg.SOURCE.read_text()
     with tempfile.TemporaryDirectory() as tmp:
-        libs, out["compiler"] = _build_all(Path(tmp))
+        libs, out["compiler"] = _build_all(
+            Path(tmp), {name: _edit(src, name, *cfg)
+                        for name, cfg in VARIANTS.items()})
         try:
             for case, T, B, H, opts in cs.HANABI_SHAPES:
                 run, bargs = _errors(case, T, B, H, opts)

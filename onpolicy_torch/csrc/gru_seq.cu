@@ -4,6 +4,9 @@
 // Replaces the two Pallas TPU kernels of onpolicy_tpu/ops/pallas_gru.py:
 //   gru_fwd_kernel_mma  <- _fwd_call / _fwd_kernel   (pallas_gru.py:103-153)
 //                          for H % 16 == 0 and H <= 64, on the tensor cores
+//   gru_fwd_wide_step   <- the same, for 64 < H <= 512 and H % 32 == 0, on
+//                          the tensor cores: one GEMM a time step, launched
+//                          T times, with the gate math in its epilogue
 //   gru_fwd_kernel      <- the same, for every other H, on the CUDA cores
 //   gru_bwd_kernel_mma  <- _bwd_call / _bwd_kernel   (pallas_gru.py:160-251)
 //                          for H % 16 == 0 and H <= 64, on the tensor cores
@@ -1048,6 +1051,193 @@ gru_fwd_kernel_mma(const S* __restrict__ gir, const S* __restrict__ giz,
 }
 
 // ---------------------------------------------------------------------------
+// forward at 64 < H <= 512, H % 32 == 0, on the tensor cores: one GEMM a
+// time step, the gate math in its epilogue
+// ---------------------------------------------------------------------------
+// The same function as gru_fwd_kernel, which at H = 512 runs the gate
+// product on the CUDA cores at 16-row tiles, every block walking all of
+// W_hh (3.15 MB, no SM's shared memory holds it) from L2 every step. The
+// recurrence runs along T only: within a step the B rows are independent,
+// so a step is one GEMM
+//   GH_t [B x 3H] = HM_t [B x H] . W_hh [H x 3H],  HM_t = h_{t-1} * m_t,
+// and its gate math needs GH_t, gi_t and hm_t of the same row and unit
+// only. gru_fwd_wide_step runs that GEMM for one step in 3xTF32 mma.sync
+// (each k-step's products added in plain f32, mma3_add) and the gate math
+// in its epilogue; the C entry launches it T times on the caller's
+// stream, so each launch reads the h the one before wrote. No block
+// carries anything across steps and none sums with another, so every call
+// gives the same bits.
+//  * A block covers BM rows and U units of all three gates: the columns
+//    [u0, u0 + U), H + [u0, u0 + U) and 2H + [u0, u0 + U) of W. Each
+//    thread's accumulators hold r, z and n of the same (row, unit).
+//  * h is carried in f32 through two [B, H] scratch buffers: step t reads
+//    the one step t - 1 wrote (h0 at t = 0) and writes the other (hT at
+//    the last step). It is never read back from outs, which holds h in the
+//    stream type (pallas_gru.py:113-118 carries h in f32).
+//  * The mask is applied as A's fragments load (h * m_t, as the plain
+//    version forms hm); rows past B are copied in as zeros and not written.
+// What bounds it on an H100: the product, 6 * B * H^2 flops a step in
+// three TF32 passes (1.91 ms over T=10 at B=20,000, H=512 at 495 TFLOP/s),
+// against the streams' bytes (0.75 ms). Each block reads its A rows and
+// its columns of W from L2: A H / U times over (16 at H = 512), W once for
+// every BM rows.
+// Tiles: BM x (3 x U) outputs, BK deep, 8 warps as 2 (M) x 4 (units) warp
+// tiles of 64 rows x 8 units of each gate, a ring of STAGES cp.async
+// stages: A [BM][BK + 4] f32 (lane (g, q) of a fragment load on bank
+// 4g + q), B [BK][3U + 8] f32 (bank 8q + g + a warp's unit offset). 95,232
+// bytes: two blocks an SM.
+struct WideFwd {
+  static constexpr int BM = 128, U = 32, BN = 3 * U, BK = 32;
+  static constexpr int THREADS = 256, STAGES = 3, MIN_BLOCKS = 2;
+  static constexpr int WM = 64, WU = 8;  // a warp's rows and units
+  static constexpr int MT = WM / 16;
+  static constexpr int AS = BK + 4;      // A row stride, f32 words
+  static constexpr int BS = BN + 8;      // B row stride, f32 words
+  static constexpr int A_BYTES = BM * AS * 4;
+  static constexpr int B_BYTES = BK * BS * 4;
+  static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+  static constexpr int BYTES = STAGES * STAGE_BYTES;
+  static_assert(WU == 8 && (BM / WM) * (U / WU) * 32 == THREADS, "warp tiles");
+  static_assert(A_BYTES % 16 == 0 && B_BYTES % 16 == 0, "16-byte cp.async targets");
+};
+
+// Two consecutive stream elements as f32, and two f32 values stored as two.
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// One step: gir, giz, gin, masks and outs point at step t's rows.
+template <typename S>
+__global__ void __launch_bounds__(WideFwd::THREADS, WideFwd::MIN_BLOCKS)
+gru_fwd_wide_step(const S* __restrict__ gir, const S* __restrict__ giz,
+                  const S* __restrict__ gin,        // [B, H]
+                  const float* __restrict__ masks,  // [B]
+                  const float* __restrict__ hprev,  // [B, H] f32, h_{t-1}
+                  const float* __restrict__ w_hh,   // [H, 3H]
+                  const float* __restrict__ b_hh,   // [3H]
+                  S* __restrict__ outs,             // [B, H]
+                  float* __restrict__ hnext,        // [B, H] f32, h_t
+                  int B, int H) {
+  using F = WideFwd;
+  extern __shared__ __align__(16) float wide_fwd_smem[];
+  char* const base = reinterpret_cast<char*>(wide_fwd_smem);
+  const int H3 = 3 * H, ntn = H / F::U;
+  const int u0 = (blockIdx.x % ntn) * F::U;
+  const int m0 = (blockIdx.x / ntn) * F::BM;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int g = (tid & 31) >> 2, q = tid & 3;
+  const int wm = (warp >> 2) * F::WM, wu = (warp & 3) * F::WU;
+  const int nk = H / F::BK;
+
+  auto load = [&](int kt, int st) {
+    char* stage = base + st * F::STAGE_BYTES;
+    float* sA = reinterpret_cast<float*>(stage);
+    float* sB = reinterpret_cast<float*>(stage + F::A_BYTES);
+    const int k0 = kt * F::BK;
+    constexpr int ACH = F::BK / 4;  // chunks of an A row
+    for (int e = tid; e < F::BM * ACH; e += F::THREADS) {
+      const int r = e / ACH, c = (e % ACH) * 4, i = m0 + r;
+      const bool ok = i < B;
+      cp_async16(sA + r * F::AS + c, hprev + (size_t)(ok ? i : 0) * H + k0 + c, ok);
+    }
+    constexpr int BCH = F::BN / 4;  // chunks of a B row, U / 4 a gate
+    for (int e = tid; e < F::BK * BCH; e += F::THREADS) {
+      const int r = e / BCH, c = (e % BCH) * 4, gate = c / F::U;
+      cp_async16(sB + r * F::BS + c,
+                 w_hh + (size_t)(k0 + r) * H3 + gate * H + u0 + (c - gate * F::U),
+                 true);
+    }
+  };
+
+  // the masks of this lane's rows (wm + 16 mt + g + 8 h)
+  float mrow[F::MT][2];
+#pragma unroll
+  for (int mt = 0; mt < F::MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = m0 + wm + mt * 16 + g + 8 * h;
+      mrow[mt][h] = i < B ? masks[i] : 0.0f;
+    }
+
+  float acc[F::MT][3][4] = {};  // [row tile][gate r, z, n][fragment]
+#pragma unroll
+  for (int s = 0; s < F::STAGES - 1; ++s) {
+    if (s < nk) load(s, s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<F::STAGES - 2>();
+    __syncthreads();  // step kt has landed; step kt - 1's reads are done
+    {
+      const int nx = kt + F::STAGES - 1;
+      if (nx < nk) load(nx, nx % F::STAGES);
+      cp_async_commit();
+    }
+    const char* stage = base + (kt % F::STAGES) * F::STAGE_BYTES;
+    const float* sA = reinterpret_cast<const float*>(stage);
+    const float* sB = reinterpret_cast<const float*>(stage + F::A_BYTES);
+#pragma unroll
+    for (int kk = 0; kk < F::BK; kk += 8) {
+      Split<2> w[3];
+#pragma unroll
+      for (int gate = 0; gate < 3; ++gate) {
+        const float* p = sB + (kk + q) * F::BS + gate * F::U + wu + g;
+        const float bf[2] = {p[0], p[4 * F::BS]};
+        w[gate] = split(bf);
+      }
+#pragma unroll
+      for (int mt = 0; mt < F::MT; ++mt) {
+        const float* a = sA + (wm + mt * 16 + g) * F::AS + kk + q;
+        const float af[4] = {a[0] * mrow[mt][0], a[8 * F::AS] * mrow[mt][1],
+                             a[4] * mrow[mt][0], a[8 * F::AS + 4] * mrow[mt][1]};
+        const Split<4> hm = split(af);
+#pragma unroll
+        for (int gate = 0; gate < 3; ++gate) mma3_add(acc[mt][gate], hm, w[gate]);
+      }
+    }
+  }
+  cp_async_wait_all();
+
+  // the gate math of this lane's rows and units u, u + 1
+  const int u = u0 + wu + 2 * q;
+  const float br[2] = {b_hh[u], b_hh[u + 1]};
+  const float bz[2] = {b_hh[H + u], b_hh[H + u + 1]};
+  const float bn[2] = {b_hh[2 * H + u], b_hh[2 * H + u + 1]};
+#pragma unroll
+  for (int mt = 0; mt < F::MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = m0 + wm + mt * 16 + g + 8 * h;
+      if (i >= B) continue;
+      const size_t o = (size_t)i * H + u;
+      const float2 xr = load2(gir + o), xz = load2(giz + o), xn = load2(gin + o);
+      const float2 hp = load2(hprev + o);
+      const float x[3][2] = {{xr.x, xr.y}, {xz.x, xz.y}, {xn.x, xn.y}};
+      const float hps[2] = {hp.x, hp.y};
+      float hv[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float hm = hps[e] * mrow[mt][h];
+        const float rg = sigmoid_(x[0][e] + (acc[mt][0][2 * h + e] + br[e]));
+        const float zg = sigmoid_(x[1][e] + (acc[mt][1][2 * h + e] + bz[e]));
+        const float ng = tanhf(x[2][e] + rg * (acc[mt][2][2 * h + e] + bn[e]));
+        hv[e] = (1.0f - zg) * ng + zg * hm;
+      }
+      store2(hnext + o, hv[0], hv[1]);
+      store2(outs + o, hv[0], hv[1]);
+    }
+}
+
+// ---------------------------------------------------------------------------
 // backward at 64 < H <= 512, H % 32 == 0, on the tensor cores: two GEMMs
 // around a carry-only recurrent kernel
 // ---------------------------------------------------------------------------
@@ -1828,6 +2018,42 @@ cudaError_t wide_dw(const S* outs, const S* h0, const float* masks,
   return cudaGetLastError();
 }
 
+// The wide forward's T step launches (gru_fwd_wide_step) on `grid` blocks
+// of `bt` rows: h_{t-1} from h0 at t = 0, else from the scratch buffer
+// step t - 1 wrote (`hbuf`, [min(T - 1, 2)][B, H] f32); h_t into the
+// other buffer, or into hT at the last step.
+template <typename S>
+cudaError_t wide_fwd(const S* gir, const S* giz, const S* gin,
+                     const float* masks, const float* h0, const float* w_hh,
+                     const float* b_hh, S* outs, float* hT, float* hbuf, int T,
+                     int B, int H, int bt, int grid, size_t bytes,
+                     cudaStream_t s) {
+  using F = WideFwd;
+  // cp.async moves 16-byte chunks of h0, hbuf and W, the epilogue pairs of
+  // the streams and of h
+  if (!wide_shape(T, B, H) || bt != F::BM || bytes != (size_t)F::BYTES ||
+      grid != (H / F::U) * ((B + F::BM - 1) / F::BM) ||
+      !aligned16({gir, giz, gin, h0, w_hh, outs, hT}) ||
+      (T > 1 && !aligned16({hbuf})))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      gru_fwd_wide_step<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      F::BYTES);
+  if (err != cudaSuccess) return err;
+  const size_t step = (size_t)B * H;
+  for (int t = 0; t < T; ++t) {
+    const float* src = t == 0 ? h0 : hbuf + ((t - 1) & 1) * step;
+    float* dst = t == T - 1 ? hT : hbuf + (t & 1) * step;
+    const size_t o = (size_t)t * step;
+    gru_fwd_wide_step<S><<<grid, F::THREADS, F::BYTES, s>>>(
+        gir + o, giz + o, gin + o, masks + (size_t)t * B, src, w_hh, b_hh,
+        outs + o, dst, B, H);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" {
@@ -1907,6 +2133,34 @@ int gru_seq_bwd(const void* gir, const void* giz, const void* gin,
                         dhT, w_hh, b_hh, (S*)dgir, (S*)dgiz, (S*)dgin, dh0,
                         dw_hh, db_hh, partial, T, B, H, variant, bt, grid,
                         bytes, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// The wide forward (variant tensor_core_wide of ops/cuda_gru.py), for
+// 64 < H <= 512, H % 32 == 0: T launches of one step on `grid` blocks of
+// `bt` (128) rows with `smem_bytes` of dynamic shared memory. gir, giz,
+// gin and outs are [T, B, H] streams of `stream_type`, everything else
+// f32; `hbuf` is min(T - 1, 2) * B * H floats of scratch. Every
+// pointer but masks and b_hh must be 16-byte aligned.
+int gru_wide_fwd(const void* gir, const void* giz, const void* gin,
+                 const float* masks, const float* h0, const float* w_hh,
+                 const float* b_hh, void* outs, float* hT, float* hbuf, int T,
+                 int B, int H, int bt, int grid, int smem_bytes,
+                 int stream_type, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const size_t bytes = (size_t)smem_bytes;
+  if (stream_type == kF32) {
+    using S = float;
+    return wide_fwd<S>((const S*)gir, (const S*)giz, (const S*)gin, masks, h0,
+                       w_hh, b_hh, (S*)outs, hT, hbuf, T, B, H, bt, grid,
+                       bytes, s);
+  }
+  if (stream_type == kBF16) {
+    using S = __nv_bfloat16;
+    return wide_fwd<S>((const S*)gir, (const S*)giz, (const S*)gin, masks, h0,
+                       w_hh, b_hh, (S*)outs, hT, hbuf, T, B, H, bt, grid,
+                       bytes, s);
   }
   return cudaErrorInvalidValue;
 }

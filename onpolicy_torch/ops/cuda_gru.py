@@ -11,15 +11,20 @@ kernel for H in 16..64; for 64 < H <= 512 with H % 32 == 0 the wide one
 T*B rows, around a kernel that runs only the recurrent carry; its pieces
 are `gru_bwd_gates`, `gru_bwd_carry`, `gru_bwd_dw`); and the CUDA-core
 kernel for every other H. `fwd_plan` and `bwd_plan` choose by shape before
-launch. Beside each kernel stands its plain PyTorch version
-(`gru_layer_fwd_ref`, `gru_layer_bwd_ref`, `gru_bwd_{gates,carry,dw}_ref`):
+launch. The forward at the wide widths (64 < H <= 512, H % 32 == 0) is its
+own variant too (`tensor_core_wide`): one 3xTF32 GEMM a time step over all
+B rows, launched T times, with the gate math in its epilogue
+(`gru_fwd_wide_step`). Beside each kernel stands its plain PyTorch version
+(`gru_layer_fwd_ref` and its one-step twin `gru_fwd_step_ref`,
+`gru_layer_bwd_ref`, `gru_bwd_{gates,carry,dw}_ref`):
 the wrappers take it only for tensors that lie on the CPU; for a CUDA
 tensor they launch the kernel or raise.
 
 `FWD_LAUNCHES` / `BWD_LAUNCHES` count kernel launches (one per wrapper
-call that reaches the card, whichever kernels the backward's plan runs),
-and `WIDE_LAUNCHES` the wide backward's pieces, so a run can show that
-its training path went through the kernels.
+call that reaches the card, whichever kernels the plan runs),
+`FWD_STEP_LAUNCHES` the wide forward's step launches (T a call) and
+`WIDE_LAUNCHES` the wide backward's pieces, so a run can show that its
+training path went through the kernels.
 
 Layout (the JAX package's): gi streams `[T, B, H]`, masks `[T, B, 1]`,
 `w_hh [H, 3H]` and `b_hh [3H]` with gate order r, z, n.
@@ -47,6 +52,7 @@ from onpolicy_torch.models import common as cm
 
 FWD_LAUNCHES = 0
 BWD_LAUNCHES = 0
+FWD_STEP_LAUNCHES = 0
 WIDE_LAUNCHES = {"gates": 0, "carry": 0, "dw": 0}
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -105,6 +111,8 @@ def bind(path) -> ctypes.CDLL:
     lib.gru_seq_bwd.restype = I
     lib.gru_smem_optin.argtypes = []
     lib.gru_smem_optin.restype = I
+    lib.gru_wide_fwd.argtypes = [P] * 10 + [I] * 7 + [P]
+    lib.gru_wide_fwd.restype = I
     lib.gru_wide_gates.argtypes = [P] * 6 + [I] * 4 + [P]
     lib.gru_wide_gates.restype = I
     lib.gru_wide_carry.argtypes = [P] * 14 + [I] * 7 + [P]
@@ -191,16 +199,23 @@ def fwd_plan(B: int, H: int, n_sm: int, smem_optin: int,
 
     H in MMA_WIDTHS takes the tensor-core kernel: 16-row tiles when they
     still give a tile to every SM, else 8-row tiles; min(tiles, 2 * n_sm)
-    blocks walk the tiles. Every other H, or a card whose blocks cannot
+    blocks walk the tiles. H with `wide_widths` (64 < H <= 512,
+    H % 32 == 0) takes the wide forward (`wide_fwd_plan`: a GEMM a step,
+    its grid from (B, H)). Every other H, or a card whose blocks cannot
     hold its shared memory, takes `cuda_core_fwd_plan`. `itemsize` is the
-    streams' element size (4 f32, 2 bf16): it sizes the staged tiles and
-    nothing else, so both types take the same kernel, tile and grid."""
+    streams' element size (4 f32, 2 bf16): it sizes the tensor-core
+    kernel's staged tiles and nothing else, so both types take the same
+    kernel, tile and grid."""
     if H in MMA_WIDTHS:
         bt = 16 if -(-B // 16) >= n_sm else 8
         nbytes = mma_fwd_smem_bytes(H, bt, itemsize)
         if nbytes <= smem_optin:
             grid = min(-(-B // bt), MMA_FWD_BLOCKS_PER_SM * n_sm)
             return FwdPlan(MMA, bt, grid, nbytes)
+    if wide_widths(H):
+        plan = wide_fwd_plan(B, H)
+        if plan.smem_bytes <= smem_optin:
+            return plan
     return cuda_core_fwd_plan(B, H, n_sm, smem_optin)
 
 
@@ -251,9 +266,31 @@ DW_MIN_ROWS = 512             # rows of K a dW split takes at least
 DW_MAX_ROWS = 2048            # ... and at most (see `dw_splits`)
 
 
+# the wide forward: its step GEMM's tiles (`WideFwd` in csrc/gru_seq.cu):
+# FWD_BM rows by FWD_U units of each of the three gates, FWD_BK deep
+FWD_BM, FWD_U, FWD_BK, FWD_STAGES = 128, 32, 32, 3
+
+
 def wide_widths(H: int) -> bool:
-    """H the wide backward takes: 64 < H <= 512, H % 32 == 0."""
+    """H the wide forward and backward take: 64 < H <= 512, H % 32 == 0."""
     return 64 < H <= WIDE_MAX_H and H % 32 == 0
+
+
+def wide_fwd_smem_bytes() -> int:
+    """Shared memory of the wide forward's step kernel (`WideFwd::BYTES`):
+    FWD_STAGES stages of an A tile [FWD_BM][FWD_BK + 4] f32 of h * m and a
+    B tile [FWD_BK][3 * FWD_U + 8] f32 of W's columns. The same for every
+    wide H and either stream type (A is the f32 h)."""
+    a = FWD_BM * (FWD_BK + 4)
+    b = FWD_BK * (3 * FWD_U + 8)
+    return 4 * FWD_STAGES * (a + b)
+
+
+def wide_fwd_plan(B: int, H: int) -> FwdPlan:
+    """The wide forward: each of its T step launches runs one block per
+    FWD_BM rows and FWD_U units, (H / FWD_U) * ceil(B / FWD_BM) blocks."""
+    return FwdPlan(WIDE, FWD_BM, (H // FWD_U) * -(-B // FWD_BM),
+                   wide_fwd_smem_bytes())
 
 
 def carry_smem_bytes(H: int) -> int:
@@ -430,17 +467,27 @@ def _gates(gir, giz, gin, hm, w_hh, b_hh):
     return r, z, n, ghn
 
 
+def gru_fwd_step_ref(gir_t, giz_t, gin_t, h, m_t, w_hh, b_hh):
+    """One step of the forward, as the wide forward's step kernel computes
+    it: the gate product (h * m_t) @ W_hh + b_hh over the step's rows and
+    the gate math. `h` [B, H] f32, `m_t` [B, 1]. Returns (out_t [B, H] in
+    the streams' type, h_t [B, H] f32)."""
+    hm = h * m_t
+    _, z, n, _ = _gates(gir_t, giz_t, gin_t, hm, w_hh, b_hh)
+    h = (1.0 - z) * n + z * hm
+    return h.to(gir_t.dtype), h
+
+
 def gru_layer_fwd_ref(gir, giz, gin, h0, masks, w_hh, b_hh):
-    """Time loop, h carried in f32. Returns (outs [T, B, H] in the
-    streams' type, hT [B, H] f32)."""
+    """Time loop of `gru_fwd_step_ref`, h carried in f32. Returns
+    (outs [T, B, H] in the streams' type, hT [B, H] f32)."""
     h = h0
     outs = []
     for t in range(gir.shape[0]):
-        hm = h * masks[t]
-        _, z, n, _ = _gates(gir[t], giz[t], gin[t], hm, w_hh, b_hh)
-        h = (1.0 - z) * n + z * hm
-        outs.append(h)
-    return torch.stack(outs).to(gir.dtype), h
+        out, h = gru_fwd_step_ref(gir[t], giz[t], gin[t], h, masks[t], w_hh,
+                                  b_hh)
+        outs.append(out)
+    return torch.stack(outs), h
 
 
 def gru_layer_bwd_ref(gir, giz, gin, outs, h0, masks, douts, dhT, w_hh, b_hh):
@@ -529,7 +576,8 @@ def gru_bwd_dw_ref(outs, hprev0, masks, dg):
 def gru_layer_fwd(gir, giz, gin, h0, masks, w_hh, b_hh, plan=None):
     """One layer forward. Returns (outs [T, B, H], hT [B, H]). On the card
     `plan` (a `FwdPlan`) overrides `device_fwd_plan`, so that two kernels
-    can be timed on the same inputs."""
+    can be timed on the same inputs. The wide plan launches its step kernel
+    T times; it counts as one launch (and T in `FWD_STEP_LAUNCHES`)."""
     global FWD_LAUNCHES
     if gir.device.type == "cpu":
         return gru_layer_fwd_ref(gir, giz, gin, h0, masks, w_hh, b_hh)
@@ -546,6 +594,9 @@ def gru_layer_fwd(gir, giz, gin, h0, masks, w_hh, b_hh, plan=None):
         return outs, h0.clone()
     lib = _load()
     plan = plan or device_fwd_plan(gir.device, B, H, gir.element_size())
+    if plan.variant == WIDE:
+        return _wide_fwd(lib, gir, giz, gin, h0, masks, w_hh, b_hh, outs, hT,
+                         plan)
     if plan.variant == MMA:
         # it moves 16-byte chunks of the gi streams and of W
         gir, giz, gin, w_hh = _aligned(gir, giz, gin, w_hh)
@@ -557,6 +608,29 @@ def gru_layer_fwd(gir, giz, gin, h0, masks, w_hh, b_hh, plan=None):
                               _stream(gir.device))
     _check(err, "gru_seq_fwd launch")
     FWD_LAUNCHES += 1
+    return outs, hT
+
+
+def _wide_fwd(lib, gir, giz, gin, h0, masks, w_hh, b_hh, outs, hT, plan):
+    """The wide forward's T step launches into `outs` and `hT`, h carried
+    in f32 through a [min(T - 1, 2), B, H] scratch buffer."""
+    global FWD_LAUNCHES, FWD_STEP_LAUNCHES
+    T, B, H = gir.shape
+    if not wide_widths(H) or plan != wide_fwd_plan(B, H):
+        raise ValueError(f"{plan} is not the wide forward's plan for B={B} "
+                         f"H={H} (it takes 64 < H <= {WIDE_MAX_H}, "
+                         "H % 32 == 0)")
+    # it moves 16-byte chunks of h0 and W, pairs of the gi streams
+    gir, giz, gin, h0, w_hh = _aligned(gir, giz, gin, h0, w_hh)
+    hbuf = torch.empty(min(T - 1, 2), B, H, device=gir.device)
+    with torch.cuda.device(gir.device):
+        err = lib.gru_wide_fwd(*map(_ptr, (gir, giz, gin, masks, h0, w_hh,
+                                           b_hh, outs, hT, hbuf)), T, B, H,
+                               plan.bt, plan.grid, plan.smem_bytes,
+                               STREAM_TYPES[gir.dtype], _stream(gir.device))
+    _check(err, "gru_wide_fwd launch")
+    FWD_LAUNCHES += 1
+    FWD_STEP_LAUNCHES += T
     return outs, hT
 
 

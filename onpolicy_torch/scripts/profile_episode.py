@@ -38,10 +38,11 @@ from onpolicy_torch.scripts import train_hanabi
 from onpolicy_torch.scripts.train_mpe import CONFIGS
 from onpolicy_torch.utils.profiling import PhaseTimer
 
-# the GRU kernels: both forwards, and every backward kernel (gru_bwd_kernel,
-# its _mma twin, the wide variant's gates GEMM, carry and dW GEMM, the
-# reduction)
-GRU_KERNELS = ("gru_fwd_kernel", "gru_bwd_")
+# the GRU kernels: every forward kernel (gru_fwd_kernel, its _mma twin,
+# the wide variant's step kernel gru_fwd_wide_step) and every backward
+# kernel (gru_bwd_kernel, its _mma twin, the wide variant's gates GEMM,
+# carry and dW GEMM, the reduction)
+GRU_KERNELS = ("gru_fwd_", "gru_bwd_")
 
 
 def _device_time_us(ev) -> float:

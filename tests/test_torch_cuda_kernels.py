@@ -103,9 +103,10 @@ def test_kernels_match_plain_versions_on_the_card(T, B, H):
     (5003, 64, "tensor_core", 16), (37, 64, "tensor_core", 8),
     (960, 48, "tensor_core", 8), (300, 16, "tensor_core", 8),
     (2200, 32, "tensor_core", 16),
-    (960, 40, "cuda_core_smem_w", 8), (333, 128, "cuda_core_smem_w", 8),
-    (200, 256, "cuda_core_global_w", 8),
-    (20_000, 512, "cuda_core_global_w", 16)])
+    (960, 40, "cuda_core_smem_w", 8), (960, 100, "cuda_core_smem_w", 8),
+    (300, 520, "cuda_core_global_w", 8),
+    (333, 128, "tensor_core_wide", 128), (200, 256, "tensor_core_wide", 128),
+    (20_000, 512, "tensor_core_wide", 128)])
 def test_forward_variant_by_width_on_the_card(B, H, variant, bt):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels run on the card only")
@@ -500,12 +501,31 @@ def test_wide_backward_takes_unaligned_inputs_on_the_card(bf16):
 @pytest.mark.cuda
 def test_wide_two_layers_at_h512_on_the_card_match_the_cpu_path():
     """recurrent_N=2 at H=512 through `cuda_gru.sequence` (f32): the card
-    (kernels, the wide backward for both layers) against the CPU (plain
-    versions), outputs and every gradient. The weight gradients sum 3,000
-    rows of 512-long products, so each gradient is compared relative to
-    its largest entry, as chip_smoke.py does at H=512."""
+    (kernels, the wide forward and backward for both layers) against the
+    CPU (plain versions), outputs and every gradient. The weight gradients
+    sum 3,000 rows of 512-long products, so each gradient is compared
+    relative to its largest entry, as chip_smoke.py does at H=512."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels run on the card only")
+    n0 = cuda_gru.WIDE_LAUNCHES["carry"]
+    _two_layers_at_h512()
+    assert cuda_gru.WIDE_LAUNCHES["carry"] - n0 == 2
+
+
+@pytest.mark.cuda
+def test_wide_forward_two_layers_at_h512_on_the_card():
+    """The same recurrent_N=2 run, held for its forward: both layers take
+    the wide forward, T step launches each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run on the card only")
+    f0, s0 = cuda_gru.FWD_LAUNCHES, cuda_gru.FWD_STEP_LAUNCHES
+    _two_layers_at_h512()
+    assert cuda_gru.FWD_LAUNCHES - f0 == 2
+    assert cuda_gru.FWD_STEP_LAUNCHES - s0 == 2 * 10
+
+
+def _two_layers_at_h512():
+    """recurrent_N=2, T=10, B=300 at H=512 on the card and on the CPU."""
     T, B, D, H, N = 10, 300, 24, 512, 2
     rng = np.random.default_rng(13)
     f = lambda *s, scale=1.0: (rng.standard_normal(s) * scale).astype(np.float32)
@@ -534,11 +554,129 @@ def test_wide_two_layers_at_h512_on_the_card_match_the_cpu_path():
         grads = torch.autograd.grad(loss, leaves)
         return [outs.detach().cpu(), hT.detach().cpu()] + [g.cpu() for g in grads]
 
-    n0 = cuda_gru.WIDE_LAUNCHES["carry"]
     card, cpu = run("cuda"), run("cpu")
-    assert cuda_gru.WIDE_LAUNCHES["carry"] - n0 == N
     torch.testing.assert_close(card[0], cpu[0], **FWD)
     torch.testing.assert_close(card[1], cpu[1], **FWD)
     for i, (a, b) in enumerate(zip(card[2:], cpu[2:])):
         scale = max(1.0, float(b.abs().max()))
         torch.testing.assert_close(a / scale, b / scale, **GRAD, msg=f"grad {i}")
+
+
+# ---------------------------------------------------------------------------
+# the wide forward (64 < H <= 512, H % 32 == 0): one GEMM a time step
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,B,H,bf16,ones", [
+    (3, 37, 512, False, False),     # below one 128-row tile
+    (10, 803, 512, False, False),   # 6 tiles and 35 rows
+    (1, 1003, 512, False, False),   # T = 1: h0 in, hT out, no scratch
+    (2, 20_000, 512, False, False),  # the Hanabi rows: 2,512 blocks a step
+    (10, 803, 512, False, True),    # all-ones masks
+    (5, 333, 128, False, False), (4, 200, 256, False, False),
+    (3, 300, 96, False, False), (3, 300, 160, False, True),
+    (5, 333, 128, True, False), (3, 2100, 128, True, True),
+    (4, 200, 256, True, False), (2, 9000, 512, True, False)])
+def test_wide_forward_matches_plain_version_on_the_card(T, B, H, bf16, ones):
+    """Against `gru_layer_fwd_ref`: outs at 1e-5 (within one bf16 ulp with
+    bf16 streams), hT at 1e-5; twice with the same bits; one layer launch
+    and T step launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run on the card only")
+    sd = torch.bfloat16 if bf16 else torch.float32
+    x = _layer_inputs(T, B, H, seed=B + H + 1, stream_dtype=sd)
+    if ones:
+        x["masks"] = torch.ones_like(x["masks"])
+    args = (x["gir"], x["giz"], x["gin"], x["h0"], x["masks"], x["w_hh"],
+            x["b_hh"])
+    plan = cuda_gru.device_fwd_plan(torch.device("cuda"), B, H,
+                                    2 if bf16 else 4)
+    assert plan.name == "tensor_core_wide"
+    f0, s0 = cuda_gru.FWD_LAUNCHES, cuda_gru.FWD_STEP_LAUNCHES
+    got = cuda_gru.gru_layer_fwd(*args)
+    assert (cuda_gru.FWD_LAUNCHES - f0, cuda_gru.FWD_STEP_LAUNCHES - s0) \
+        == (1, T)
+    want = cuda_gru.gru_layer_fwd_ref(*args)
+    if bf16:
+        _close_bf16(got[:1], want[:1], (True,))
+    else:
+        torch.testing.assert_close(got[0], want[0], **FWD)
+    torch.testing.assert_close(got[1], want[1], **FWD)
+    again = cuda_gru.gru_layer_fwd(*args)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b), "wide forward is not repeatable"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True])
+def test_wide_forward_takes_unaligned_inputs_on_the_card(bf16):
+    """It moves 16-byte chunks of h0 and W_hh (cp.async) and pairs of the
+    gi streams: one that starts off a 16-byte boundary is copied first,
+    and the result is the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run on the card only")
+    sd = torch.bfloat16 if bf16 else torch.float32
+    T, B, H = 3, 90, 128
+    x = _layer_inputs(T, B, H, seed=14, stream_dtype=sd)
+    args = [x["gir"], x["giz"], x["gin"], x["h0"], x["masks"], x["w_hh"],
+            x["b_hh"]]
+    want = cuda_gru.gru_layer_fwd(*args)
+    for i in (1, 3, 5):   # giz, h0, w_hh
+        flat = torch.empty(args[i].numel() + 1, dtype=args[i].dtype,
+                           device="cuda")
+        shifted = flat[1:].view(args[i].shape)
+        shifted.copy_(args[i])
+        assert shifted.data_ptr() % 16 != 0 and shifted.is_contiguous()
+        got = cuda_gru.gru_layer_fwd(*args[:i], shifted, *args[i + 1:])
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_wide_forward_refuses_plans_it_does_not_take_on_the_card():
+    """A wide plan for another shape, or at a width the kernel does not
+    take, raises instead of running."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run on the card only")
+    T, B, H = 2, 300, 128
+    x = _layer_inputs(T, B, H, seed=15)
+    args = (x["gir"], x["giz"], x["gin"], x["h0"], x["masks"], x["w_hh"],
+            x["b_hh"])
+    plan = cuda_gru.wide_fwd_plan(B, H)
+    with pytest.raises(ValueError):
+        cuda_gru.gru_layer_fwd(*args, plan=plan._replace(grid=plan.grid - 1))
+    x = _layer_inputs(T, B, 100, seed=15)
+    with pytest.raises(ValueError):
+        cuda_gru.gru_layer_fwd(x["gir"], x["giz"], x["gin"], x["h0"],
+                               x["masks"], x["w_hh"], x["b_hh"],
+                               plan=cuda_gru.wide_fwd_plan(B, 100))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,B,H,bf16", [
+    (3, 17_000, 128, False), (3, 17_000, 128, True), (4, 200, 256, False),
+    (4, 200, 256, True), (3, 37, 512, False), (1, 1003, 512, False)])
+def test_cuda_core_forward_with_w_in_memory_on_the_card(T, B, H, bf16):
+    """The CUDA-core forward that reads W from device memory, which the
+    wide widths no longer take by default, when a plan asks for it (as
+    chip_smoke.py times it against the wide one): against the plain
+    version, one launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run on the card only")
+    sd = torch.bfloat16 if bf16 else torch.float32
+    x = _layer_inputs(T, B, H, seed=B + H + 2, stream_dtype=sd)
+    args = (x["gir"], x["giz"], x["gin"], x["h0"], x["masks"], x["w_hh"],
+            x["b_hh"])
+    plan = cuda_gru.cuda_core_fwd_plan(
+        B, H, *cuda_gru.device_limits(torch.cuda.current_device()))
+    assert plan.name == "cuda_core_global_w"
+    f0, s0 = cuda_gru.FWD_LAUNCHES, cuda_gru.FWD_STEP_LAUNCHES
+    got = cuda_gru.gru_layer_fwd(*args, plan=plan)
+    assert (cuda_gru.FWD_LAUNCHES - f0, cuda_gru.FWD_STEP_LAUNCHES - s0) \
+        == (1, 0)
+    want = cuda_gru.gru_layer_fwd_ref(*args)
+    if bf16:
+        _close_bf16(got[:1], want[:1], (True,))
+    else:
+        torch.testing.assert_close(got[0], want[0], **FWD)
+    torch.testing.assert_close(got[1], want[1], **FWD)

@@ -252,20 +252,32 @@ def test_fwd_plan_takes_the_tensor_core_kernel_for_its_widths(B, H):
         assert cuda_gru.fwd_plan(B, H, H100_SMS, optin) == plan
 
 
-@pytest.mark.parametrize("H", [40, 128, 256, 512])
+@pytest.mark.parametrize("H", [40, 100, 128, 256, 512, 520])
 def test_fwd_plan_keeps_the_cuda_core_kernel_for_other_widths(H):
+    """H=40, 100 and 520 keep the CUDA-core kernel; H=128, 256 and 512
+    (64 < H <= 512, H % 32 == 0) take the wide tensor-core forward, whose
+    CUDA-core plan stays what it was, for a caller that asks for it."""
     for B in (5, 960, 122_880):
+        old = cuda_gru.cuda_core_fwd_plan(B, H, H100_SMS, H100_SMEM_OPTIN)
+        assert old.variant in (cuda_gru.GLOBAL_W, cuda_gru.SMEM_W)
+        assert old.bt == cuda_gru.batch_tile(B, H, H100_SMS)
+        assert old.grid == -(-B // old.bt)
+        assert old.smem_bytes <= H100_SMEM_OPTIN
         plan = cuda_gru.fwd_plan(B, H, H100_SMS, H100_SMEM_OPTIN)
-        assert plan == cuda_gru.cuda_core_fwd_plan(B, H, H100_SMS,
-                                                   H100_SMEM_OPTIN)
-        assert plan.variant in (cuda_gru.GLOBAL_W, cuda_gru.SMEM_W)
-        assert plan.bt == cuda_gru.batch_tile(B, H, H100_SMS)
-        assert plan.grid == -(-B // plan.bt)
-        assert plan.smem_bytes <= H100_SMEM_OPTIN
+        if H in (40, 100, 520):
+            assert plan == old
+        else:
+            assert plan == cuda_gru.wide_fwd_plan(B, H)
+            assert plan.name == "tensor_core_wide"
     names = {H: cuda_gru.fwd_plan(960, H, H100_SMS, H100_SMEM_OPTIN).name
-             for H in (40, 128, 256)}
-    assert names == {40: "cuda_core_smem_w", 128: "cuda_core_smem_w",
-                     256: "cuda_core_global_w"}
+             for H in (40, 100, 128, 256, 520)}
+    assert names == {40: "cuda_core_smem_w", 100: "cuda_core_smem_w",
+                     128: "tensor_core_wide", 256: "tensor_core_wide",
+                     520: "cuda_core_global_w"}
+    old = {H: cuda_gru.cuda_core_fwd_plan(960, H, H100_SMS,
+                                          H100_SMEM_OPTIN).name
+           for H in (128, 256)}
+    assert old == {128: "cuda_core_smem_w", 256: "cuda_core_global_w"}
 
 
 def test_fwd_plan_at_the_flagship_and_bench_shapes():

@@ -2,13 +2,15 @@
 
 `train_hanabi_device.sh` trains rMAPPO at hidden 512 over 1000 fleets:
 each PPO epoch runs the GRU over T=10 chunks of B=100·1000·2/10=20,000
-rows, through the CUDA-core forward and the wide tensor-core backward on
-the card. Here, on the CPU: the port's plain forward and backward at H=512
+rows, through the wide tensor-core forward and backward on the card.
+Here, on the CPU: the port's plain forward and backward at H=512
 (small T and B) against `pallas_gru` in interpret mode, at the tolerances
 of tests/test_torch_gru_kernel.py (its loss, with the readout scaled to
 keep the gradients O(1) at this width), and the plans the card takes at the
 Hanabi shape: W (3.15 MB) fits no block's shared memory, so the forward
-reads it from device memory (16-row tiles, 1250 blocks) and the backward
+streams it from L2 into one GEMM a step (128-row by 32-unit tiles, 2512
+blocks a step; the CUDA-core forward's plan, 16-row tiles reading W from
+device memory, stays for a caller that asks for it) and the backward
 streams it from L2 through its carry kernel (32-row tiles, 132 blocks),
 with GH, dG and 98 dW/db partials of (H+1)·3H floats as scratch; the old
 CUDA-core backward's plan (1250 partials) stays for a caller that asks
@@ -64,9 +66,15 @@ def test_plans_at_the_hanabi_shape():
     B, H = HANABI["B"], HANABI["H"]
     assert cuda_gru.batch_tile(B, H, H100_SMS) == 16
     for itemsize in (4, 2):
+        # the forward: a GEMM a step over 128-row by 32-unit tiles, 16 x 157
+        # blocks a launch; the CUDA-core plan it replaces stays reachable
         f = cuda_gru.fwd_plan(B, H, H100_SMS, H100_SMEM_OPTIN, itemsize)
-        assert (f.name, f.bt, f.grid) == ("cuda_core_global_w", 16, 1250)
-        assert f.smem_bytes == 4 * (2 * 16 * H + 16)
+        assert (f.name, f.bt, f.grid) == ("tensor_core_wide", 128, 2512)
+        assert f.smem_bytes == 95_232 <= H100_SMEM_OPTIN
+        old_f = cuda_gru.cuda_core_fwd_plan(B, H, H100_SMS, H100_SMEM_OPTIN)
+        assert (old_f.name, old_f.bt, old_f.grid) == ("cuda_core_global_w",
+                                                      16, 1250)
+        assert old_f.smem_bytes == 4 * (2 * 16 * H + 16)
         b = cuda_gru.bwd_plan(B, H, H100_SMS, H100_SMEM_OPTIN, itemsize,
                               HANABI["T"])
         assert (b.name, b.bt, b.grid) == ("tensor_core_wide", 32, 132)
