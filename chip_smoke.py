@@ -56,7 +56,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
   5. train:   one episode at 8 rollout threads on the card against the
               CPU path from the same state (rMAPPO in f32, rMAPPO and
               MAPPO with the critic dedup in bf16 and in f32, HAPPO with
-              3 agents in f32 through the separated runner; Hanabi-Small
+              3 agents in f32 through the separated runner, MAT and
+              MAT-dec in f32 through the shared runner, HATRPO with 3
+              agents in f32 through the separated runner; Hanabi-Small
               rMAPPO at
               H=128, an untrained episode and a trained one, from the same
               decks): rollout, update metrics, and the parameters' change;
@@ -67,7 +69,11 @@ Phases, each of which fails the run (non-zero exit) if it fails:
               episodes each (MAPPO with the critic dedup and rMAPPO, in
               bf16), simple_reference, simple_speaker_listener and HAPPO
               on simple_spread for 5 each, 3 flagship episodes with an
-              eval after each, train_hanabi_device.sh (rMAPPO, Hanabi-Full,
+              eval after each, train_mpe_mat.sh (MAT, n_embd 64) and
+              HATRPO on simple_spread (hidden 64) for 3 each, neither of
+              which launches a GRU kernel (MAT has no GRU; HATRPO's runs
+              as the plain scan, as the JAX package routes it),
+              train_hanabi_device.sh (rMAPPO, Hanabi-Full,
               hidden 512x2, 1000 fleets, T=100) for 3 episodes and the JAX
               package's Hanabi bench configuration (feed-forward MAPPO,
               bf16) for 2. Each run's kernel launches are asserted
@@ -82,6 +88,7 @@ the port's package is not beside this script.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -118,6 +125,10 @@ HANABI = dict(T=10, B=20000, H=512)      # 100*1000*2/10 chunks of L=10
 #     its first episode only collects (training is deferred one
 #     episode): 3 episodes launch 2 x 30 = 60 of each
 #   bench_hanabi_width: feed-forward                           = 0, 0
+#   mpe_mat: the transformer has no GRU                        = 0, 0
+#   hatrpo_spread: its Fisher-vector product differentiates the GRU
+#     twice, which the kernels cannot, so its GRU is the plain scan, as
+#     the JAX package routes it (models/gru.py)                = 0, 0
 TRAIN_RUNS = (("flagship", "train_mpe", "flagship", (), 10, 20, 20),
               ("bench_mappo", "train_mpe", "bench_mappo", (), 3, 0, 0),
               ("bench_rmappo", "train_mpe", "bench_rmappo", (), 3, 20, 20),
@@ -128,7 +139,9 @@ TRAIN_RUNS = (("flagship", "train_mpe", "flagship", (), 10, 20, 20),
                ("--use_eval", "--eval_interval", "1"), 3, 20, 20),
               ("hanabi_device", "train_hanabi", "hanabi_device", (), 3, 30, 30),
               ("bench_hanabi_width", "train_hanabi", "bench_hanabi_width", (),
-               2, 0, 0))
+               2, 0, 0),
+              ("mpe_mat", "train_mpe", "mpe_mat", (), 3, 0, 0),
+              ("hatrpo_spread", "train_mpe", "hatrpo_spread", (), 3, 0, 0))
 # phase 3's layer shapes, each run with f32 and with bf16 streams:
 # (case, T, B, H, options of check_layer)
 SHAPES = (
@@ -679,7 +692,11 @@ def check_small_against_cpu(torch, name, tol, update_tol, **flags):
     an H100 the readings were 2.7e-6 (actor) and 7.5e-6 (critic) in f32,
     hence 1e-3; 1.8e-2 / 2.1e-2 (rMAPPO) and 9.1e-3 / 5.6e-2 (MAPPO with
     the critic dedup) in bf16, where bf16 rounding can turn the sign of
-    Adam's first step for a parameter of near-zero gradient, hence 0.25."""
+    Adam's first step for a parameter of near-zero gradient, hence 0.25.
+    MAT's one parameter tree is held as the actor's and critic's are;
+    HATRPO's update is one TRPO step an agent (critic Adam step, CG,
+    line search), and its KL and improvement are held to rtol `tol[0]`
+    too."""
     from onpolicy_torch.config import Config, canonicalize_algorithm
     from onpolicy_torch.envs.mpe.world import WorldState
     from onpolicy_torch.scripts.train_mpe import make_runner
@@ -725,7 +742,8 @@ def check_small_against_cpu(torch, name, tol, update_tol, **flags):
     torch.cuda.synchronize()
     for k in m_c:
         if k.split("/")[-1] not in ("value_loss", "dist_entropy",
-                                    "actor_grad_norm", "critic_grad_norm"):
+                                    "actor_grad_norm", "critic_grad_norm",
+                                    "grad_norm", "kl", "loss_improve"):
             continue
         a, b = float(m_g[k]), float(m_c[k])
         if not abs(a - b) <= tol[0] * abs(b):
@@ -734,7 +752,10 @@ def check_small_against_cpu(torch, name, tol, update_tol, **flags):
     moved = {}
     leaves = lambda states, part: [x for s in states
                                    for x in tree_leaves(getattr(s, part))]
-    for part in ("actor_params", "critic_params"):
+    # MAPPO's, HAPPO's and HATRPO's actor and critic; MAT's one tree
+    parts = [f.name for f in dataclasses.fields(new_c[0])
+             if f.name.endswith("params")]
+    for part in parts:
         step = lambda new, old: torch.cat([
             (n - o).flatten().cpu() for n, o in zip(leaves(new, part),
                                                     leaves(old, part))])
@@ -750,8 +771,8 @@ def check_small_against_cpu(torch, name, tol, update_tol, **flags):
             err = max(err, max_err(a.cpu(), b))
     log(f"  card vs CPU, {name}, 1 episode at N=8: max err {err:.2e} "
         f"(rollout relative to each field's largest entry), update differs "
-        f"by {moved['actor_params']:.3e} (actor) / "
-        f"{moved['critic_params']:.3e} (critic) of its norm  ok")
+        "by " + " / ".join(f"{v:.3e} ({k})" for k, v in moved.items())
+        + " of its norm  ok")
 
 
 def check_hanabi_against_cpu(torch, cg, tol=(1e-3, 1e-4), update_tol=1e-3):
@@ -1022,6 +1043,19 @@ def main() -> int:
                             algorithm_name="mappo", use_critic_dedup=True)
     check_small_against_cpu(torch, "happo f32 (3 agents)", (1e-3, 1e-4),
                             1e-3, algorithm_name="happo")
+    check_small_against_cpu(torch, "mat f32", (1e-3, 1e-4), 1e-3,
+                            algorithm_name="mat")
+    check_small_against_cpu(torch, "mat_dec f32", (1e-3, 1e-4), 1e-3,
+                            algorithm_name="mat_dec")
+    f0, b0 = cg.FWD_LAUNCHES, cg.BWD_LAUNCHES
+    check_small_against_cpu(torch, "hatrpo f32 (3 agents)", (1e-3, 1e-4),
+                            1e-3, algorithm_name="hatrpo")
+    if (cg.FWD_LAUNCHES, cg.BWD_LAUNCHES) != (f0, b0):
+        raise AssertionError("hatrpo launched a GRU kernel")
+    log("  mat, mat_dec and hatrpo launch no GRU kernel: MAT has no GRU, "
+        "and HATRPO's Fisher-vector product differentiates the GRU twice, "
+        "which the kernels' backward refuses, so its GRU runs as the plain "
+        "scan on the card, as the JAX package routes it")
     check_hanabi_against_cpu(torch, cg)
     # each run's launches go to the kernel rows of its GRU shape
     launches = {"f32": {}, "bf16": {}, "hanabi": {}}

@@ -1,0 +1,195 @@
+"""MAT: Multi-Agent Transformer policy and trainer (mat, mat_dec).
+
+Port of `onpolicy_tpu/algorithms/mat.py` (the reference's
+`transformer_policy.py` + `mat_trainer.py`): one transformer, one
+optimizer over all its parameters (clip → Adam(lr, eps) [→ weight decay],
+`ops/schedules.py`), the joint loss policy − entropy·coef + value·coef,
+always the transformer sampler (agent axis kept intact), ValueNorm for
+the targets, and linear lr decay counted per update. It has the
+get_actions / get_values / act / train interface the shared runner calls
+(rnn-state arguments pass through untouched,
+`transformer_policy.py:117-119`). The critic is the encoder's value head;
+it reads obs, or the centralized state under `encode_state`
+(`critic_reads`).
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Any, Optional, Sequence
+
+import torch
+
+from onpolicy_torch import buffer as buf_lib
+from onpolicy_torch.models import transformer as tfm
+from onpolicy_torch.ops import losses, schedules, valuenorm as vn
+from onpolicy_torch.utils import spaces as sp
+from onpolicy_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
+
+
+@dataclass
+class MATTrainState:
+    params: Any
+    opt_state: Any
+    vnorm: Optional[vn.ValueNormState]
+
+    def replace(self, **kw) -> "MATTrainState":
+        return dataclasses.replace(self, **kw)
+
+
+class MAT:
+    @property
+    def critic_reads(self):
+        return "share_obs" if self.cfg.encode_state else "obs"
+
+    def __init__(self, cfg, obs_space, share_obs_space, act_space,
+                 total_updates: int = 1, num_agents: int = None):
+        if cfg.use_popart:
+            raise NotImplementedError(
+                "use_popart is not ported yet (ROADMAP.md, item B4)")
+        self.cfg = cfg
+        self.num_agents = num_agents if num_agents is not None \
+            else cfg.num_agents
+        self.obs_dim = sp.obs_shape(obs_space)[0]
+        self.share_obs_dim = sp.obs_shape(share_obs_space)[0]
+        if isinstance(act_space, sp.Discrete):
+            action_dim, action_type = act_space.n, "Discrete"
+        elif isinstance(act_space, sp.Box):
+            action_dim, action_type = act_space.shape[0], "Box"
+        else:
+            raise TypeError(f"MAT supports Discrete/Box, got {act_space}")
+        self.act_space = act_space
+        self.mcfg = tfm.MATConfig(
+            self.num_agents, action_dim, cfg.n_block, cfg.n_embd, cfg.n_head,
+            action_type, cfg.dec_actor, cfg.share_actor, cfg.encode_state)
+
+        lr = cfg.lr
+        if cfg.use_linear_lr_decay:
+            per_episode = cfg.ppo_epoch * cfg.num_mini_batch
+            lr = lambda count: cfg.lr * (
+                1.0 - (count // per_episode) / float(max(total_updates, 1)))
+        self.tx = schedules.make_optimizer(
+            lr, cfg.opti_eps, cfg.weight_decay, cfg.max_grad_norm,
+            cfg.use_max_grad_norm)
+
+    def init_state(self, generator: torch.Generator, device) -> MATTrainState:
+        """Parameters drawn from `generator` (a CPU generator), then moved
+        to `device`."""
+        enc_dim = self.share_obs_dim if self.cfg.encode_state \
+            else self.obs_dim
+        params = tfm.mat_init(self.mcfg, self.obs_dim, generator, device,
+                              encoder_dim=enc_dim)
+        vnorm = vn.create(1, device=device) if self.cfg.use_valuenorm \
+            else None
+        return MATTrainState(params=params, opt_state=self.tx.init(params),
+                             vnorm=vnorm)
+
+    # ---- rollout API (flat [B·M, ...] like the reference policy) -----
+    def _fold(self, x):
+        return None if x is None else x.reshape(
+            x.shape[0] // self.num_agents, self.num_agents, *x.shape[1:])
+
+    @staticmethod
+    def _flat(x):
+        return x.reshape(-1, *x.shape[2:])
+
+    def get_actions(self, state: MATTrainState, share_obs, obs, rnn_actor,
+                    rnn_critic, masks, generator, available_actions=None,
+                    deterministic=False, actions=None):
+        """→ (values, actions, log_probs, rnn_actor, rnn_critic), flat.
+        Given `actions` (flat, drawn elsewhere), they are taken instead of
+        the draws."""
+        enc_in = self._fold(share_obs) if self.cfg.encode_state else None
+        acts, logp, values = tfm.autoregressive_act(
+            self.mcfg, state.params, self._fold(obs), generator,
+            self._fold(available_actions), deterministic, enc_in=enc_in,
+            actions=self._fold(actions))
+        return (self._flat(values), self._flat(acts), self._flat(logp),
+                rnn_actor, rnn_critic)
+
+    def get_values(self, state: MATTrainState, obs, rnn_critic, masks):
+        """The encoder's value head over `obs` — the runner passes what
+        `critic_reads` names (the reference zeroes and ignores the
+        centralized state, ma_transformer.py:237-239)."""
+        return self._flat(tfm.get_values(self.mcfg, state.params,
+                                         self._fold(obs)))
+
+    def act(self, state: MATTrainState, obs, rnn_actor, masks,
+            generator=None, available_actions=None, deterministic=True,
+            share_obs=None):
+        """→ (actions, rnn_actor). Under encode_state the encoder reads
+        `share_obs`."""
+        enc_in = self._fold(share_obs) if self.cfg.encode_state else None
+        acts, _, _ = tfm.autoregressive_act(
+            self.mcfg, state.params, self._fold(obs), generator,
+            self._fold(available_actions), deterministic, enc_in=enc_in)
+        return self._flat(acts), rnn_actor
+
+    # ---- training ----------------------------------------------------
+    def _loss(self, params, vnorm, mb):
+        cfg = self.cfg
+        enc_in = mb["share_obs"] if cfg.encode_state else None
+        logp, values, entropy = tfm.parallel_act(
+            self.mcfg, params, mb["obs"], mb["actions"],
+            mb.get("available_actions"), enc_in=enc_in)
+        am = mb["active_masks"]
+        ent = losses.masked_mean(
+            entropy, am if cfg.use_policy_active_masks else None)
+        pol_loss, ratio = losses.ppo_policy_loss(
+            logp, mb["old_action_log_probs"], mb["advantages"], am,
+            clip_param=cfg.clip_param,
+            use_policy_active_masks=cfg.use_policy_active_masks)
+        v_loss = losses.value_loss(
+            values, mb["value_preds"], mb["returns"], am, vnorm,
+            clip_param=cfg.clip_param,
+            use_clipped_value_loss=cfg.use_clipped_value_loss,
+            use_huber_loss=cfg.use_huber_loss, huber_delta=cfg.huber_delta,
+            use_value_active_masks=cfg.use_value_active_masks)
+        total = pol_loss - ent * cfg.entropy_coef + v_loss * cfg.value_loss_coef
+        return total, {"policy_loss": pol_loss, "value_loss": v_loss,
+                       "dist_entropy": ent, "ratio": ratio}
+
+    def _update(self, state: MATTrainState, mb: dict):
+        vnorm = state.vnorm
+        if self.cfg.use_valuenorm:
+            vnorm = vn.update(vnorm, mb["returns"].reshape(-1, 1))
+        params = tree_map(lambda x: x.detach().requires_grad_(True),
+                          state.params)
+        leaves = tree_leaves(params)
+        with torch.enable_grad():
+            total, aux = self._loss(params, vnorm, mb)
+            grads = torch.autograd.grad(total, leaves, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for g, p in zip(grads, leaves)]
+        aux = {k: v.detach() for k, v in aux.items()}
+        aux["grad_norm"] = losses.global_grad_norm(grads)
+        new_params, opt_state = self.tx.update(
+            tree_unflatten(state.params, grads), state.opt_state,
+            state.params)
+        return state.replace(params=new_params, opt_state=opt_state,
+                             vnorm=vnorm), aux
+
+    @torch.no_grad()
+    def train(self, state: MATTrainState, buf: buf_lib.RolloutBuffer,
+              generator: Optional[torch.Generator] = None,
+              perms: Optional[Sequence[torch.Tensor]] = None):
+        """ppo_epoch × num_mini_batch updates (`mat_trainer.train`). With
+        several minibatches each epoch draws its permutation of the env
+        steps from `generator`, or takes `perms[epoch]`. Metrics are 0-dim
+        tensors, means over all updates."""
+        cfg = self.cfg
+        adv = losses.normalize_advantages(
+            buf.advantages,
+            buf.active_masks[:-1] if cfg.use_policy_active_masks else None)
+        sample = lambda epoch: buf_lib.transformer_minibatches(
+            buf, adv, generator, cfg.num_mini_batch,
+            None if perms is None else perms[epoch])
+        # one minibatch is permutation-free: build it once for all epochs
+        mbs = sample(0) if cfg.num_mini_batch == 1 else None
+        history = []
+        for epoch in range(cfg.ppo_epoch):
+            for mb in (mbs if mbs is not None else sample(epoch)):
+                state, aux = self._update(state, mb)
+                history.append(aux)
+        return state, {k: torch.stack([h[k] for h in history]).mean()
+                       for k in history[0]}

@@ -3,11 +3,11 @@
 Port of `onpolicy_tpu/buffer.py`: time-major `[T(+1), N, M, ...]` tensors
 (N = rollout threads, M = agents) assembled once per episode from the
 stacked rollout steps (`from_rollout`), GAE over the whole buffer
-(`compute_returns`) and the samplers of the three policies: chunked BPTT
-(`recurrent_minibatches`), whole episodes (`naive_recurrent_minibatches`)
-and flat rows (`feed_forward_minibatches`). The transformer sampler comes
-with MAT (ROADMAP.md). Each sampler returns a list of `num_mini_batch`
-dicts; with one minibatch no permutation is drawn. Each takes a given
+(`compute_returns`) and the samplers: chunked BPTT
+(`recurrent_minibatches`), whole episodes (`naive_recurrent_minibatches`),
+flat rows (`feed_forward_minibatches`) and MAT's rows with the agent axis
+kept (`transformer_minibatches`). Each sampler returns a list of
+`num_mini_batch` dicts; with one minibatch no permutation is drawn. Each takes a given
 permutation (`perm`) in place of a draw, and HAPPO's optional `factor`
 [T, N, M, 1], which is cut as the other per-step fields are.
 """
@@ -152,6 +152,26 @@ def feed_forward_minibatches(buf: RolloutBuffer, advantages: torch.Tensor,
     if num_mini_batch == 1:
         return [flat]
     idx = _minibatch_index(total, num_mini_batch, generator,
+                           buf.rewards.device, perm)
+    return [{k: x[i] for k, x in flat.items()} for i in idx]
+
+
+def transformer_minibatches(buf: RolloutBuffer, advantages: torch.Tensor,
+                            generator: Optional[torch.Generator],
+                            num_mini_batch: int,
+                            perm: Optional[torch.Tensor] = None,
+                            factor: Optional[torch.Tensor] = None) -> list:
+    """MAT's sampler (the reference's `feed_forward_generator_transformer`):
+    the T·N env steps with the agent axis kept intact, as they lie with one
+    minibatch, or `num_mini_batch` equal parts of a permutation of the env
+    steps (drawn from `generator`, or given as `perm`). Returns a list of
+    dicts of [mb, M, ...] rows."""
+    d = _train_fields(buf, advantages, factor)
+    T, N, M = buf.T, buf.n_rollout_threads, buf.num_agents
+    flat = {k: x.reshape(T * N, M, *x.shape[3:]) for k, x in d.items()}
+    if num_mini_batch == 1:
+        return [flat]
+    idx = _minibatch_index(T * N, num_mini_batch, generator,
                            buf.rewards.device, perm)
     return [{k: x[i] for k, x in flat.items()} for i in idx]
 

@@ -63,8 +63,10 @@ class Config:
     data_chunk_length: int = 10
     # Sequence-mode GRU through the CUDA kernels (ops/cuda_gru.py).
     # None: the kernels for tensors on the card, the plain scan for
-    # tensors on the CPU. True asks for the kernels (refused on the CPU);
-    # False asks for the plain scan (refused on the card).
+    # tensors on the CPU, and the plain scan for hatrpo on both (its
+    # double backward, models/gru.py). True asks for the kernels (refused
+    # on the CPU); False asks for the plain scan (refused on the card but
+    # for hatrpo).
     use_pallas_gru: Optional[bool] = None
     # Hanabi: `use_jax_env` runs the device-resident engine (in the port a
     # tensor engine, envs/hanabi/torch_engine.py; the flag keeps its name so
@@ -187,7 +189,8 @@ class Config:
         if kind == "cpu" and self.use_pallas_gru:
             raise ValueError("use_pallas_gru=True needs device cuda: the "
                              "GRU kernels run on the card only")
-        if kind == "cuda" and self.use_pallas_gru is False:
+        if (kind == "cuda" and self.use_pallas_gru is False
+                and self.algorithm_name != "hatrpo"):
             raise ValueError("use_pallas_gru=False asks for the plain GRU "
                              "scan, which is the CPU path; on the card the "
                              "sequence GRU always runs the kernels")

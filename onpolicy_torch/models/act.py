@@ -11,7 +11,8 @@ Output layers are orthogonal with cfg.gain. Box, MultiBinary and mixed
 spaces are ROADMAP.md item B4 and raise here. Heads and distribution math
 run in f32.
 
-`evaluate` returns the batch-reduced (active-mask-weighted) entropy.
+`evaluate` returns the batch-reduced (active-mask-weighted) entropy;
+`evaluate_trpo` (HATRPO) also the distribution's parameters.
 """
 from __future__ import annotations
 
@@ -76,6 +77,22 @@ def evaluate(cfg, params, space, x, action, available_actions=None,
     lps = [d.log_prob(action[..., i:i + 1]) for i, d in enumerate(dists)]
     ents = [_reduce_entropy(d.entropy(), active_masks) for d in dists]
     return torch.cat(lps, -1), sum(ents) / len(ents)
+
+
+def evaluate_trpo(cfg, params, space, x, action, available_actions=None,
+                  active_masks=None):
+    """HATRPO's evaluation (JAX `act.py:118-135`): (log_probs, entropy,
+    mu, std, all_probs). For Discrete and MultiDiscrete, mu and std are
+    None and all_probs is the (masked) LOGITS vector, the heads'
+    concatenated — the reference appends `action_logit.logits` and its
+    kl_approx consumes them as they are. Box (mu, std) is ROADMAP.md item
+    B4 and raises."""
+    x = x.float()
+    dists = _dists(params, space, x, available_actions)
+    lps = [d.log_prob(action[..., i:i + 1]) for i, d in enumerate(dists)]
+    ents = [_reduce_entropy(d.entropy(), active_masks) for d in dists]
+    logits = torch.cat([d.logits for d in dists], -1)
+    return torch.cat(lps, -1), sum(ents) / len(ents), None, None, logits
 
 
 def _reduce_entropy(ent, active_masks: Optional[torch.Tensor]):

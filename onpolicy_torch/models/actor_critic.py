@@ -87,6 +87,32 @@ class Actor:
             flat(action), flat(available_actions), flat(active_masks))
         return lp.reshape(L, B, -1), ent
 
+    def evaluate_trpo(self, params, obs, rnn_states, action, masks,
+                      available_actions=None, active_masks=None):
+        """HATRPO's flat-batch evaluation: (log_probs, entropy, mu, std,
+        all_probs) of `act.evaluate_trpo`."""
+        x = mlp.apply(self.cfg, params["base"], obs)
+        if self.cfg.is_recurrent:
+            x, _ = gru.step(self.cfg, params["rnn"], x, rnn_states, masks)
+        return act_layer.evaluate_trpo(self.cfg, params["act"],
+                                       self.action_space, x, action,
+                                       available_actions, active_masks)
+
+    def evaluate_trpo_seq(self, params, obs, rnn_states, action, masks,
+                          available_actions=None, active_masks=None):
+        """Sequence-layout TRPO evaluation: obs/action/masks [L, B, ...],
+        rnn_states [B, N, H] at the chunk start; the outputs flat
+        [L·B, ...] (the reference's trpo path works on flat rows)."""
+        L, B = obs.shape[0], obs.shape[1]
+        x = mlp.apply(self.cfg, params["base"], obs.reshape(L * B, -1))
+        x = x.reshape(L, B, -1)
+        if self.cfg.is_recurrent:
+            x, _ = gru.sequence(self.cfg, params["rnn"], x, rnn_states, masks)
+        flat = lambda a: None if a is None else a.reshape(L * B, *a.shape[2:])
+        return act_layer.evaluate_trpo(
+            self.cfg, params["act"], self.action_space, x.reshape(L * B, -1),
+            flat(action), flat(available_actions), flat(active_masks))
+
 
 class Critic:
     def __init__(self, cfg, cent_obs_space):

@@ -8,12 +8,16 @@ Port of `onpolicy_tpu/models/gru.py`. Two modes:
     (parameters, state and mask cast), the new state returned in f32;
   * sequence (training, `sequence`): the gated form `h ← h·mask_t` at
     every step over [T, B, ...]. For tensors on the card it runs the CUDA
-    kernels of `ops/cuda_gru.py`, always: there is no routing rule by
-    width. For tensors on the CPU it runs `scan_sequence`, the plain time
-    loop, which is also the tests' reference. Under `use_bf16` it follows
-    the kernels' semantics on both devices (bf16 [T, B, H] streams, f32
-    state, weights and gate math, `pallas_gru.py:310-320`): on the CPU
-    through the kernels' plain versions, not a bf16 scan.
+    kernels of `ops/cuda_gru.py`: there is no routing rule by width. For
+    tensors on the CPU it runs `scan_sequence`, the plain time loop, which
+    is also the tests' reference. Under `use_bf16` it follows the kernels'
+    semantics on both devices (bf16 [T, B, H] streams, f32 state, weights
+    and gate math, `pallas_gru.py:310-320`): on the CPU through the
+    kernels' plain versions, not a bf16 scan. HATRPO is the exception, as
+    in the JAX package (`models/gru.py:96-101` there): its Fisher-vector
+    product differentiates the GRU twice, which the kernels' backward
+    cannot, so unless `use_pallas_gru` asks for the kernels it runs the
+    plain scan on both devices, in the compute dtype as the JAX scan does.
 
 Gate math matches torch.nn.GRU (gate order r, z, n; b_ih and b_hh kept
 separate so the r·(W_hn h + b_hn) coupling is exact). Weights are stored
@@ -21,6 +25,9 @@ separate so the r·(W_hn h + b_hn) coupling is exact). Weights are stored
 [batch, recurrent_N, H].
 """
 from __future__ import annotations
+
+import functools
+import sys
 
 import torch
 
@@ -90,16 +97,44 @@ def scan_sequence(params, xs, hxs, masks):
     return cm.layer_norm_apply(params["norm"], torch.stack(outs)), h
 
 
+def scan_in_dtype(params, xs, hxs, masks, dt):
+    """`scan_sequence` in the compute dtype, as the JAX package's scan
+    runs it (`models/gru.py:126-141` there): parameters, inputs, state and
+    masks cast to `dt`, the final state returned in f32; for f32 the scan
+    itself."""
+    if dt == torch.float32:
+        return scan_sequence(params, xs, hxs, masks)
+    outs, h = scan_sequence(cm.cast_floats(params, dt), xs.to(dt),
+                            hxs.to(dt), masks.to(dt))
+    return outs, h.float()
+
+
+@functools.lru_cache(maxsize=None)
+def _note_hatrpo_scan():
+    print("onpolicy_torch: hatrpo runs the sequence GRU as the plain scan, "
+          "as the JAX package routes it (its Fisher-vector product "
+          "differentiates the GRU twice; the kernels' backward cannot)",
+          file=sys.stderr, flush=True)
+
+
 def sequence(cfg, params, xs, hxs, masks):
     """xs [T, B, in]; hxs [B, recurrent_N, H]; masks [T, B, 1].
     Returns (outs [T, B, H], final hxs [B, recurrent_N, H]).
 
-    On the card: the CUDA kernels, always. On the CPU: the plain scan in
-    f32, and under `use_bf16` the kernels' plain versions with bf16
-    streams; `use_pallas_gru=True` there raises, as the kernels exist only
-    on the card, and `use_pallas_gru=False` on the card raises likewise."""
+    On the card: the CUDA kernels. On the CPU: the plain scan in f32, and
+    under `use_bf16` the kernels' plain versions with bf16 streams;
+    `use_pallas_gru=True` there raises, as the kernels exist only on the
+    card, and `use_pallas_gru=False` on the card raises likewise. HATRPO
+    runs the plain scan in the compute dtype on both devices unless
+    `use_pallas_gru=True` forces the kernels (whose double backward then
+    raises)."""
     explicit = getattr(cfg, "use_pallas_gru", None)
     dt = cm.compute_dtype(cfg)
+    hatrpo = getattr(cfg, "algorithm_name", "") == "hatrpo"
+    if hatrpo and not explicit:
+        if xs.is_cuda:
+            _note_hatrpo_scan()
+        return scan_in_dtype(params, xs, hxs, masks, dt)
     if xs.is_cuda:
         if explicit is False:
             raise ValueError("use_pallas_gru=False: the plain GRU scan is "

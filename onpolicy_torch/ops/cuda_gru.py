@@ -799,11 +799,38 @@ def gru_bwd_dw(outs, hprev0, masks, dg, splits=None, partial=None):
 # differentiable layer and the multi-layer sequence
 # ---------------------------------------------------------------------------
 
+class _SecondOrderRefused(torch.autograd.Function):
+    """The identity on a backward's results, built only when that
+    backward runs under `create_graph=True`; its own backward raises.
+    Its inputs also take what the results depend on (the incoming
+    cotangents and the saved tensors that need a gradient), so every
+    double backward that needs the results reaches it. torch's
+    `once_differentiable` hangs its error node on detached copies
+    instead, which `torch.autograd.grad(..., inputs)` prunes: a
+    Fisher-vector product through the kernels would drop the GRU's
+    second-order terms without a word."""
+
+    @staticmethod
+    def forward(ctx, n, *tensors):
+        return tuple(t.clone() for t in tensors[:n])
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError(
+            "GRULayerSequence is once differentiable: the GRU kernels' "
+            "backward cannot be differentiated again (a double backward, "
+            "e.g. HATRPO's Fisher-vector product, runs the plain scan: "
+            "models/gru.py)")
+
+
 class GRULayerSequence(torch.autograd.Function):
     """One GRU layer over [T, B, H]; the backward is the backward kernel
     (`gru_layer_sequence`'s custom VJP, pallas_gru.py:258-287). It saves
     gi, outs (in the streams' type), h0, masks and the weights; no gate
-    residuals."""
+    residuals. The backward is once differentiable: it runs without a
+    graph, and under `create_graph=True` its results pass through
+    `_SecondOrderRefused`, so a double backward raises instead of
+    dropping the GRU's second-order terms."""
 
     @staticmethod
     def forward(ctx, gir, giz, gin, h0, masks, w_hh, b_hh):
@@ -813,13 +840,20 @@ class GRULayerSequence(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, douts, dhT):
-        gir, giz, gin, outs, h0, masks, w_hh, b_hh = ctx.saved_tensors
-        douts = torch.zeros_like(outs) if douts is None \
-            else douts.to(outs.dtype).contiguous()
-        dhT = torch.zeros_like(h0) if dhT is None \
-            else dhT.to(h0.dtype).contiguous()
-        dgir, dgiz, dgin, dh0, dw, db = gru_layer_bwd(
-            gir, giz, gin, outs, h0, masks, douts, dhT, w_hh, b_hh)
+        saved = ctx.saved_tensors
+        gir, giz, gin, outs, h0, masks, w_hh, b_hh = saved
+        with torch.no_grad():
+            douts_ = torch.zeros_like(outs) if douts is None \
+                else douts.to(outs.dtype).contiguous()
+            dhT_ = torch.zeros_like(h0) if dhT is None \
+                else dhT.to(h0.dtype).contiguous()
+            grads = gru_layer_bwd(gir, giz, gin, outs, h0, masks, douts_,
+                                  dhT_, w_hh, b_hh)
+        if torch.is_grad_enabled():
+            deps = [t for t in (douts, dhT, *saved)
+                    if t is not None and t.requires_grad]
+            grads = _SecondOrderRefused.apply(len(grads), *grads, *deps)
+        dgir, dgiz, dgin, dh0, dw, db = grads
         return dgir, dgiz, dgin, dh0, None, dw, db
 
 

@@ -32,10 +32,6 @@ from onpolicy_torch.utils import profiling
 def refuse_unported(cfg):
     """Raise NotImplementedError for options whose port is still to come."""
     todo = []
-    if cfg.algorithm_name == "hatrpo":
-        todo.append("algorithm 'hatrpo' (ROADMAP.md, Slice C)")
-    if cfg.algorithm_name in ("mat", "mat_dec"):
-        todo.append(f"algorithm {cfg.algorithm_name!r} (ROADMAP.md, Slice D)")
     if int(np.prod(cfg.mesh_shape)) > 1:
         todo.append("multi-device mesh_shape (ROADMAP.md, Slice G)")
     if cfg.env_name == "Hanabi" and not (

@@ -3,14 +3,14 @@ with HAPPO's sequential update.
 
 Port of `onpolicy_tpu/runner/separated_runner.py` (the reference's
 `runner/separated/{base_runner,mpe_runner}.py`). Each agent has its own
-trainer (`MAPPO`, or `HAPPO` for happo) over its own obs and action
-spaces; its centralized critic reads the concatenation of every agent's
-obs. Each agent has its own `RolloutBuffer` with a singleton agent axis,
+trainer (`MAPPO`, or `HAPPO` / `HATRPO` for happo / hatrpo) over its own
+obs and action spaces; its centralized critic reads the concatenation of
+every agent's obs. Each agent has its own `RolloutBuffer` with a singleton agent axis,
 and the envs' masks are one column [N, 1] shared by the agents. Actions
 are padded to the widest action head before the env step.
 
-HAPPO (base_runner.py:135-183 of the reference): the agents update one at
-a time in an order drawn on the host each episode with
+HAPPO and HATRPO (base_runner.py:135-183 of the reference): the agents
+update one at a time in an order drawn on the host each episode with
 `np.random.default_rng(cfg.seed).permutation`, as the JAX package draws
 it. The running `factor` [T, N, 1, 1] starts at ones; after each agent's
 update it is multiplied by exp(Σ_heads (new − old log-probs)) of that
@@ -31,6 +31,7 @@ import torch
 
 from onpolicy_torch import buffer as buf_lib
 from onpolicy_torch.algorithms.happo import HAPPO
+from onpolicy_torch.algorithms.hatrpo import HATRPO
 from onpolicy_torch.algorithms.mappo import MAPPO
 from onpolicy_torch.envs.mpe.world import WorldState
 from onpolicy_torch.runner.base_runner import BaseRunner
@@ -41,8 +42,9 @@ class SeparatedRunner(BaseRunner):
     def __init__(self, cfg, vec_env=None, eval_env=None):
         super().__init__(cfg, vec_env, eval_env)
         cfg = self.cfg
-        self.is_happo = cfg.algorithm_name == "happo"
-        Algo = HAPPO if self.is_happo else MAPPO
+        Algo = {"happo": HAPPO, "hatrpo": HATRPO}.get(cfg.algorithm_name,
+                                                      MAPPO)
+        self.is_happo = cfg.algorithm_name in ("happo", "hatrpo")
         obs_spaces = self.envs.observation_space
         share_space = sp.Box((sum(sp.obs_shape(s)[0] for s in obs_spaces),))
         self.algos: List[MAPPO] = [
@@ -149,10 +151,10 @@ class SeparatedRunner(BaseRunner):
         return c, bufs
 
     def update(self, states, bufs, order: Optional[Sequence[int]] = None):
-        """Train every agent on its buffer. HAPPO goes one agent at a time
-        in `order` (drawn from the runner's numpy generator when None),
-        weighting each by the factor of the agents before it; the others
-        train each agent in turn. → (states, metrics "agent<i>/<name>")."""
+        """Train every agent on its buffer. HAPPO and HATRPO go one agent
+        at a time in `order` (drawn from the runner's numpy generator when
+        None), weighting each by the factor of the agents before it; the
+        others train each agent in turn. → (states, metrics "agent<i>/<name>")."""
         states = list(states)
         metrics = {}
         if self.is_happo:

@@ -15,7 +15,12 @@ test can hold them in lockstep with another implementation. The host
 loop, checkpoints, eval schedule, `episodes_per_call` and the profiler
 trace are `base_runner.BaseRunner`'s.
 
-It trains the shared-policy algorithms rmappo, mappo and ippo. With
+It trains the shared-policy algorithms rmappo, mappo, ippo and MAT (mat,
+mat_dec; `algorithms/mat.py`). MAT's rollout step goes through
+`MAT.get_actions` (actions, log-probs and values from one autoregressive
+decode; the injected draw is each agent's action), its bootstrap value
+through `get_values` over what `critic_reads` names, and its eval
+through `act`; the rnn states pass through it untouched. With
 `use_critic_dedup` (feed-forward mappo, centralized V) the critic runs on
 one row per env in the rollout step and in the bootstrap, since
 share_obs is the same for every agent of an env, and the value is
@@ -30,6 +35,7 @@ import torch
 
 from onpolicy_torch import buffer as buf_lib
 from onpolicy_torch.algorithms.mappo import MAPPO
+from onpolicy_torch.algorithms.mat import MAT
 from onpolicy_torch.envs.mpe.world import WorldState
 from onpolicy_torch.runner.base_runner import BaseRunner
 from onpolicy_torch.utils import spaces as sp
@@ -39,8 +45,9 @@ class SharedRunner(BaseRunner):
     def __init__(self, cfg, vec_env=None, eval_env=None):
         super().__init__(cfg, vec_env, eval_env)
         cfg = self.cfg
-        if cfg.algorithm_name == "happo":
-            raise ValueError("happo trains through the separated runner "
+        if cfg.algorithm_name in ("happo", "hatrpo"):
+            raise ValueError(f"{cfg.algorithm_name} trains through the "
+                             "separated runner "
                              "(runner/separated_runner.py)")
         if len({sp.obs_shape(s) for s in self.envs.observation_space}) != 1 \
                 or len(set(self.envs.action_space)) != 1:
@@ -51,8 +58,14 @@ class SharedRunner(BaseRunner):
         share_obs_space = (self.envs.share_observation_space[0]
                            if cfg.use_centralized_V else obs_space)
         self.act_space = self.envs.action_space[0]
-        self.algo = MAPPO(cfg, obs_space, share_obs_space, self.act_space,
-                          total_updates=self.episodes)
+        self.is_mat = cfg.algorithm_name in ("mat", "mat_dec")
+        if self.is_mat:
+            self.algo = MAT(cfg, obs_space, share_obs_space, self.act_space,
+                            total_updates=self.episodes,
+                            num_agents=self.num_agents)
+        else:
+            self.algo = MAPPO(cfg, obs_space, share_obs_space,
+                              self.act_space, total_updates=self.episodes)
 
     # ------------------------------------------------------------------
     def init(self):
@@ -78,11 +91,18 @@ class SharedRunner(BaseRunner):
         N, M, D = obs.shape
         return obs.reshape(N, 1, M * D).expand(N, M, M * D)
 
-    def _values(self, train_state, share_obs, rnn_critic, masks):
+    def _values(self, train_state, share_obs, rnn_critic, masks, obs=None):
         """Critic values [N, M, 1] and its next rnn states [N, M, L, H].
         With `use_critic_dedup` they come from `Critic.forward_dedup` (one
-        critic row per env) and the rnn states pass through."""
+        critic row per env) and the rnn states pass through. MAT's value
+        head reads `obs` or `share_obs`, as its `critic_reads` says."""
         N, M = self.N, self.num_agents
+        if self.is_mat:
+            critic_in = share_obs if self.algo.critic_reads == "share_obs" \
+                else obs
+            v = self.algo.get_values(
+                train_state, critic_in.reshape(N * M, -1), None, None)
+            return v.reshape(N, M, 1), rnn_critic
         critic, params = self.algo.critic, train_state.critic_params
         if self.cfg.use_critic_dedup:
             return critic.forward_dedup(params, share_obs, rnn_critic,
@@ -91,6 +111,27 @@ class SharedRunner(BaseRunner):
         v, rnn = critic.forward(params, flat(share_obs), flat(rnn_critic),
                                 flat(masks))
         return v.reshape(N, M, 1), rnn.reshape(rnn_critic.shape)
+
+    def _act(self, train_state, c, share_obs, given):
+        """One rollout step's policy: → (actions [N·M, heads], log-probs,
+        next actor rnn states [N·M, L, H], values [N, M, 1], next critic
+        rnn states [N, M, L, H]); `given` [N, M, heads] replaces the
+        draws."""
+        N, M = self.N, self.num_agents
+        flat = lambda x: None if x is None else x.reshape(N * M, *x.shape[2:])
+        if self.is_mat:
+            values, actions, logp, rnn_a, _ = self.algo.get_actions(
+                train_state, flat(share_obs), flat(c["obs"]),
+                flat(c["rnn_actor"]), flat(c["rnn_critic"]), flat(c["masks"]),
+                self.generator, actions=flat(given))
+            return actions, logp, rnn_a, values.reshape(N, M, 1), \
+                c["rnn_critic"]
+        actions, logp, rnn_a = self.algo.actor.forward(
+            train_state.actor_params, flat(c["obs"]), flat(c["rnn_actor"]),
+            flat(c["masks"]), self.generator, actions=flat(given))
+        values, rnn_c = self._values(train_state, share_obs, c["rnn_critic"],
+                                     c["masks"])
+        return actions, logp, rnn_a, values, rnn_c
 
     # ---- one training episode ----------------------------------------
     @torch.no_grad()
@@ -101,21 +142,15 @@ class SharedRunner(BaseRunner):
         → (carry after the last step, buffer with returns/advantages)."""
         cfg = self.cfg
         N, M = self.N, self.num_agents
-        flat = lambda x: x.reshape(N * M, *x.shape[2:])
         unflat = lambda x: x.reshape(N, M, *x.shape[1:])
         staged = []
         c = carry
         for t in range(cfg.episode_length):
             inj = inject[t] if inject is not None else {}
-            given = inj.get("actions")
             obs = c["obs"]
             share_obs = self._share_obs(obs)
-            actions, logp, rnn_a = self.algo.actor.forward(
-                train_state.actor_params, flat(obs), flat(c["rnn_actor"]),
-                flat(c["masks"]), self.generator,
-                actions=None if given is None else flat(given))
-            values, rnn_c = self._values(train_state, share_obs,
-                                         c["rnn_critic"], c["masks"])
+            actions, logp, rnn_a, values, rnn_c = self._act(
+                train_state, c, share_obs, inj.get("actions"))
             actions_env = unflat(actions)
             env_states, obs2, rewards, dones = self.envs.step(
                 c["env_states"], actions_env, inj.get("reset_states"))
@@ -137,7 +172,7 @@ class SharedRunner(BaseRunner):
                 "masks": c["masks"], "active_masks": torch.ones_like(c["masks"])}
         buf = buf_lib.from_rollout(traj, last)
         next_values, _ = self._values(train_state, last["share_obs"],
-                                      c["rnn_critic"], c["masks"])
+                                      c["rnn_critic"], c["masks"], c["obs"])
         buf = buf.compute_returns(
             next_values, train_state.vnorm, gamma=cfg.gamma,
             gae_lambda=cfg.gae_lambda, use_gae=cfg.use_gae,
@@ -175,8 +210,11 @@ class SharedRunner(BaseRunner):
         masks = torch.ones(N, M, 1, device=self.device)
         total = torch.zeros(N, M, 1, device=self.device)
         for _ in range(cfg.episode_length):
+            kw = {"share_obs": flat(self._share_obs(obs))} if self.is_mat \
+                else {}
             actions, rnn = self.algo.act(train_state, flat(obs), flat(rnn),
-                                         flat(masks), deterministic=True)
+                                         flat(masks), deterministic=True,
+                                         **kw)
             env_states, obs, rewards, dones = env.step(
                 env_states, actions.reshape(N, M, -1))
             obs, rnn = torch.stack(obs, 1), rnn.reshape(N, M, *rnn.shape[1:])

@@ -9,7 +9,11 @@ card:
   * "reference" (`train_mpe.CONFIGS`, simple_reference, shared rMAPPO) to
     3M env steps, "comm" (simple_speaker_listener, separated rMAPPO) to 2M
     steps and on towards 6M while it has not reached −13, and
-    "happo_spread" (HAPPO, simple_spread) to 3.4M steps, each logging
+    "happo_spread" (HAPPO, simple_spread) to 3.4M steps, "mpe_mat"
+    (train_mpe_mat.sh: MAT, simple_spread, n_embd 64) to 20M steps, its
+    mark the JAX package's −154.9 at 20M (RESULTS.md:103), and
+    "hatrpo_spread" (HATRPO, simple_spread, hidden 64) to 3M steps, its
+    mark −138.8 at 3M (RESULTS.md:101), each logging
     every 5 episodes (the script's default); the level at a step is the
     mean of `average_episode_rewards` over the last 10 logged rows up to
     it (50 episodes, 160,000 env steps);
@@ -21,7 +25,8 @@ card:
   * "hanabi_device" (`train_hanabi.CONFIGS`, train_hanabi_device.sh at
     full width) until the deadline; no mark is set;
 each Hanabi run logging every episode, its level at a step the
-`average_score` of the last logged row up to it.
+`average_score` of the last logged row up to it. The marks are learning
+levels of the JAX package, printed beside the port's level.
 A run still going at the deadline (seconds) is stopped, and so is "comm"
 once past 2M steps with its level at −13 or better. Prints the card's
 name and power limit and one JSON object: per run, its level every 10
@@ -62,7 +67,13 @@ RUNS = {"reference": ("train_mpe", CONFIGS["reference"], 3_000_000,
         "hanabi_small": ("train_hanabi", HANABI_SMALL, 1_024_000,
                          (215_000,)),
         "hanabi_device": ("train_hanabi", train_hanabi.CONFIGS["hanabi_device"],
-                          10_000_000_000, ())}
+                          10_000_000_000, ()),
+        "mpe_mat": ("train_mpe", CONFIGS["mpe_mat"], 20_000_000,
+                    (3_000_000, 10_000_000, 20_000_000)),
+        "hatrpo_spread": ("train_mpe", CONFIGS["hatrpo_spread"], 3_000_000,
+                          (3_000_000,))}
+# the JAX package's level at the last reporting step (RESULTS.md:101-103)
+MARKS = {"mpe_mat": -154.9, "hatrpo_spread": -138.8}
 COMM_MARK, COMM_MIN_STEPS = -13.0, 2_000_000
 HANABI_SMALL_MARK = 0.5
 WINDOW = 10
@@ -181,6 +192,8 @@ def main(argv=None):
             "levels_every_window": [[r["steps"],
                                      run_level(name, rows, r["steps"])]
                                     for r in rows[WINDOW - 1::WINDOW]]}
+        if name in MARKS:
+            result[name]["mark"] = MARKS[name]
         if rows and "true_steps" in rows[-1]:
             result[name]["true_steps"] = rows[-1]["true_steps"]
     if "comm" in runs:

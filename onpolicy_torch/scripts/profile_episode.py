@@ -1,22 +1,27 @@
 """Where one training episode spends its time on the card.
 
     python -m onpolicy_torch.scripts.profile_episode \
-        [--config flagship|bench_mappo|bench_rmappo|reference|
+        [--config flagship|bench_mappo|bench_rmappo|reference|comm|
+                  happo_spread|mpe_mat|mpe_mat_dec|hatrpo_spread|
                   hanabi_device|bench_hanabi_width] \
         [--episodes 3] [--warmup 2]
 
-Runs one of the shared-policy `train_mpe.CONFIGS` or one of
-`train_hanabi.CONFIGS` on the card: the flagship simple_spread rMAPPO
-(128 rollout threads, T=25, L=10, 10 PPO epochs, hidden 64; the
-default), the JAX package's bench MAPPO (feed-forward, critic dedup) or
-bench rMAPPO at 16,384 rollout threads in bf16, simple_reference,
+Runs one of `train_mpe.CONFIGS` (through the shared or the separated
+runner, as the configuration says) or one of `train_hanabi.CONFIGS` on
+the card: e.g. the flagship simple_spread rMAPPO (128 rollout threads,
+T=25, L=10, 10 PPO epochs, hidden 64; the default), the JAX package's
+bench MAPPO (feed-forward, critic dedup) or bench rMAPPO at 16,384
+rollout threads in bf16, train_mpe_mat.sh (MAT, 128 threads, n_embd 64:
+its rollout decodes the M=3 agents one after another), HATRPO on
+simple_spread (separated runner, one TRPO step an agent),
 train_hanabi_device.sh (rMAPPO, Hanabi-Full, hidden 512x2, 1000 fleets,
 T=100, 15 PPO epochs) or the JAX package's Hanabi bench configuration
 (the same in feed-forward MAPPO, bf16). Prints one JSON object:
   * host wall time per episode, split into rollout (T env steps, or T
-    Hanabi seat rounds, with the policy's acts) and update (GAE and
-    ppo_epoch PPO steps; for Hanabi the deferred update on the previous
-    episode), each phase ended by `torch.cuda.synchronize()`;
+    Hanabi seat rounds, with the policy's acts, and GAE) and update
+    (ppo_epoch PPO steps, or the separated runner's agent-by-agent
+    update; for Hanabi the deferred update on the previous episode), each
+    phase ended by `torch.cuda.synchronize()`;
   * from `torch.profiler` over one more episode: the device's busy time
     (sum of kernel times; one stream, so kernels do not overlap), its idle
     share of the unprofiled episode time, kernel launches per episode, the
@@ -89,6 +94,25 @@ def _shared_episodes(config):
     return cfg, episode
 
 
+def _separated_episodes(config):
+    """(cfg, one episode (timer) -> None) for a separated-policy
+    `train_mpe.CONFIGS` run (HAPPO, HATRPO, comm)."""
+    from onpolicy_torch.config import config_from_args
+    from onpolicy_torch.runner.separated_runner import SeparatedRunner
+    cfg = config_from_args(CONFIGS[config] + ["--device", "cuda"])
+    runner = SeparatedRunner(cfg)
+    box = list(runner.init())
+
+    def episode(timer):
+        states, carry = box
+        with timer.phase("rollout"):
+            carry, bufs = runner.rollout(states, carry)
+        with timer.phase("update"):
+            states, _ = runner.update(states, bufs)
+        box[:] = states, carry
+    return cfg, episode
+
+
 def _hanabi_episodes(config):
     """(cfg, one episode (timer) -> None) for a `train_hanabi.CONFIGS` run;
     the first episode only collects, every later one trains first."""
@@ -109,9 +133,7 @@ def _hanabi_episodes(config):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     from onpolicy_torch.config import config_from_args
-    shared = [k for k, v in CONFIGS.items()
-              if config_from_args(v + ["--device", "cpu"]).share_policy]
-    ap.add_argument("--config", choices=sorted(shared)
+    ap.add_argument("--config", choices=sorted(CONFIGS)
                     + sorted(train_hanabi.CONFIGS), default="flagship")
     ap.add_argument("--episodes", type=int, default=3)
     ap.add_argument("--warmup", type=int, default=2)
@@ -120,8 +142,13 @@ def main(argv=None):
         raise SystemExit("profile_episode: needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    make = (_hanabi_episodes if args.config in train_hanabi.CONFIGS
-            else _shared_episodes)
+    if args.config in train_hanabi.CONFIGS:
+        make = _hanabi_episodes
+    elif config_from_args(CONFIGS[args.config]
+                          + ["--device", "cpu"]).share_policy:
+        make = _shared_episodes
+    else:
+        make = _separated_episodes
     cfg, episode = make(args.config)
     for _ in range(args.warmup):
         episode(PhaseTimer())

@@ -43,11 +43,30 @@ policies (`train_mpe_comm.sh`) and HAPPO on simple_spread
         --ppo_epoch 15 --gain 0.01 --lr 7e-4 --critic_lr 7e-4 \
         --share_policy false
 
-`share_policy false` (and happo, which implies it) trains through
-`runner/separated_runner.py`, everything else through
-`runner/shared_runner.py`; `--use_eval` adds an eval env of
-`n_eval_rollout_threads` worlds. `CONFIGS` holds these six as flag lists
-(without a step count), for `chip_smoke.py` and `profile_episode.py`.
+The JAX package's last two algorithms: MAT on simple_spread
+(`scripts/train_other_algo/train_mpe_mat.sh`; `mpe_mat_dec` runs its
+flags with `--algorithm_name mat_dec`) and HATRPO at HAPPO's spread
+recipe:
+
+    python -m onpolicy_torch.scripts.train_mpe --env_name MPE \
+        --algorithm_name mat --experiment_name check \
+        --scenario_name simple_spread --num_agents 3 --num_landmarks 3 \
+        --seed 1 --n_rollout_threads 128 --episode_length 25 \
+        --num_env_steps 20000000 --ppo_epoch 10 --lr 5e-4 \
+        --n_block 1 --n_embd 64 --n_head 1
+
+    python -m onpolicy_torch.scripts.train_mpe --env_name MPE \
+        --algorithm_name hatrpo --scenario_name simple_spread \
+        --num_agents 3 --num_landmarks 3 --seed 1 --n_rollout_threads 128 \
+        --episode_length 25 --num_env_steps 3000000 --ppo_epoch 10 \
+        --num_mini_batch 1 --lr 7e-4 --critic_lr 7e-4 --hidden_size 64
+
+`share_policy false` (and happo and hatrpo, which imply it) trains
+through `runner/separated_runner.py`, everything else (MAT included)
+through `runner/shared_runner.py`; `--use_eval` adds an eval env of
+`n_eval_rollout_threads` worlds. `CONFIGS` holds these nine as flag lists
+(without a step count), for `chip_smoke.py`, `learning_check.py` and
+`profile_episode.py`.
 """
 from __future__ import annotations
 
@@ -88,6 +107,21 @@ CONFIGS["reference"] = _TWO_AGENTS + ["--scenario_name", "simple_reference"]
 # scripts/train_mpe_scripts/train_mpe_comm.sh
 CONFIGS["comm"] = _TWO_AGENTS + ["--scenario_name", "simple_speaker_listener",
                                  "--share_policy", "false"]
+# scripts/train_other_algo/train_mpe_mat.sh, flag for flag (it sets no
+# critic_lr or hidden_size: MAT has one optimizer and its width is n_embd)
+CONFIGS["mpe_mat"] = ["--env_name", "MPE", "--algorithm_name", "mat",
+                      "--scenario_name", "simple_spread", "--num_agents", "3",
+                      "--num_landmarks", "3", "--seed", "1",
+                      "--n_rollout_threads", "128", "--episode_length", "25",
+                      "--ppo_epoch", "10", "--lr", "5e-4", "--n_block", "1",
+                      "--n_embd", "64", "--n_head", "1"]
+# the same flags for MAT-dec (its own script, train_mat_dec.sh, is SMACv2's)
+CONFIGS["mpe_mat_dec"] = [
+    "mat_dec" if f == "mat" else f for f in CONFIGS["mpe_mat"]]
+# HATRPO on simple_spread at the recipe of RESULTS.md:92-93, the twin of
+# happo_spread
+CONFIGS["hatrpo_spread"] = _SPREAD + ["--algorithm_name", "hatrpo",
+                                      "--n_rollout_threads", "128"]
 
 
 def make_runner(cfg):

@@ -9,7 +9,9 @@ These functions take and give numpy only (the caller does the
   * optimizer state: optax's `(EmptyState, (ScaleByAdamState(count, mu,
     nu), ...))` chain ↔ the port's `{"count", "mu", "nu"}`;
   * `ValueNormState` (running_mean, running_mean_sq, debiasing_term);
-  * a whole `TrainState`, and the MPE `WorldState` of a rollout carry.
+  * a whole `TrainState` (MAPPO, HAPPO, HATRPO) or `MATTrainState` (MAT:
+    one parameter tree, one optimizer), and the MPE `WorldState` of a
+    rollout carry.
 
 Objects from the JAX side are read by attribute name (duck typing), and
 written back through the template's own `replace` / `_replace`.
@@ -96,22 +98,39 @@ def valuenorm_to_numpy(s: vn.ValueNormState) -> dict:
             for k in ("running_mean", "running_mean_sq", "debiasing_term")}
 
 
+def _vnorm_from_jax(s, device):
+    return None if s is None else valuenorm_from_jax(s, device)
+
+
 def train_state_from_jax(ts, device="cpu"):
-    """A (numpy) JAX `TrainState` → the port's `TrainState`."""
+    """A (numpy) JAX `TrainState` → the port's `TrainState`; a JAX
+    `MATTrainState` (it has `params`) → the port's `MATTrainState`."""
+    if hasattr(ts, "params"):
+        from onpolicy_torch.algorithms.mat import MATTrainState
+        return MATTrainState(
+            params=to_torch(ts.params, device),
+            opt_state=adam_state_from_optax(ts.opt_state, device),
+            vnorm=_vnorm_from_jax(ts.vnorm, device))
     from onpolicy_torch.algorithms.mappo import TrainState
     return TrainState(
         actor_params=to_torch(ts.actor_params, device),
         critic_params=to_torch(ts.critic_params, device),
         actor_opt_state=adam_state_from_optax(ts.actor_opt_state, device),
         critic_opt_state=adam_state_from_optax(ts.critic_opt_state, device),
-        vnorm=None if ts.vnorm is None else valuenorm_from_jax(ts.vnorm, device))
+        vnorm=_vnorm_from_jax(ts.vnorm, device))
 
 
 def train_state_to_jax(ts, template):
-    """The port's `TrainState` → a numpy JAX `TrainState` like `template`."""
+    """The port's `TrainState` (or `MATTrainState`) → a numpy JAX one like
+    `template`."""
     vnorm = template.vnorm
     if ts.vnorm is not None:
         vnorm = vnorm.replace(**valuenorm_to_numpy(ts.vnorm))
+    if hasattr(template, "params"):
+        return template.replace(
+            params=to_numpy(ts.params),
+            opt_state=adam_state_to_optax(ts.opt_state, template.opt_state),
+            vnorm=vnorm)
     return template.replace(
         actor_params=to_numpy(ts.actor_params),
         critic_params=to_numpy(ts.critic_params),

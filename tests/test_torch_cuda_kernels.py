@@ -680,3 +680,97 @@ def test_cuda_core_forward_with_w_in_memory_on_the_card(T, B, H, bf16):
     else:
         torch.testing.assert_close(got[0], want[0], **FWD)
     torch.testing.assert_close(got[1], want[1], **FWD)
+
+
+def _sequence_inputs(T, B, D, H, seed):
+    from onpolicy_torch.config import Config
+    from onpolicy_torch.models import gru
+    g = torch.Generator().manual_seed(seed)
+    params = gru.init(Config(hidden_size=H, device="cpu"), D, g, "cuda")
+    xs = torch.randn(T, B, D, generator=g).cuda()
+    hxs = torch.randn(B, 1, H, generator=g).cuda()
+    masks = (torch.rand(T, B, 1, generator=g) > 0.2).float().cuda()
+    return params, xs, hxs, masks
+
+
+@pytest.mark.cuda
+def test_double_backward_through_the_kernels_raises_on_the_card():
+    """`GRULayerSequence` is once differentiable on the card too: a
+    second gradient, through a weight or through every parameter as one
+    flat vector (HATRPO's form), raises instead of dropping the kernels'
+    second-order terms; the first gradient under create_graph equals the
+    plain one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run on the card only")
+    from onpolicy_torch.algorithms.hatrpo import _flatten
+    params, xs, hxs, masks = _sequence_inputs(10, 96, 8, 64, seed=1)
+    w = params["layers"][0]["w_hh"].requires_grad_(True)
+    n0 = cuda_gru.BWD_LAUNCHES
+    outs, _ = cuda_gru.sequence(params, xs, hxs, masks)
+    g, = torch.autograd.grad(outs.square().sum(), w, create_graph=True)
+    assert cuda_gru.BWD_LAUNCHES == n0 + 1
+    with pytest.raises(RuntimeError, match="once differentiable"):
+        torch.autograd.grad(g.sum(), w)
+    cpu = {"layers": [{k: x.detach().cpu() for k, x in
+                       params["layers"][0].items()}],
+           "norm": {k: x.cpu() for k, x in params["norm"].items()}}
+    cpu["layers"][0]["w_hh"].requires_grad_(True)
+    o_cpu, _ = cuda_gru.sequence(cpu, xs.cpu(), hxs.cpu(), masks.cpu())
+    want, = torch.autograd.grad(o_cpu.square().sum(),
+                                cpu["layers"][0]["w_hh"])
+    torch.testing.assert_close(g.cpu(), want, **GRAD)
+
+    theta0, unflatten = _flatten(params)
+    theta = theta0.detach().requires_grad_(True)
+    outs, _ = cuda_gru.sequence(unflatten(theta), xs, hxs, masks)
+    g, = torch.autograd.grad(outs.square().sum(), theta, create_graph=True)
+    with pytest.raises(RuntimeError, match="once differentiable"):
+        torch.autograd.grad(g @ torch.ones_like(theta), theta)
+
+
+@pytest.mark.cuda
+def test_hatrpo_runs_the_plain_scan_on_the_card():
+    """models/gru.sequence under hatrpo, as the JAX package routes it: the
+    plain scan on the card (no kernel launched), whose double backward
+    goes through and equals the CPU's; an explicit use_pallas_gru=True
+    runs the kernels, and its double backward raises. Every other
+    algorithm keeps the kernels and refuses use_pallas_gru=False."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run on the card only")
+    from onpolicy_torch.config import Config
+    from onpolicy_torch.models import gru
+    params, xs, hxs, masks = _sequence_inputs(10, 96, 8, 64, seed=2)
+    cfg = Config(algorithm_name="hatrpo", hidden_size=64, share_policy=False)
+    gen = torch.Generator().manual_seed(3)
+    v = torch.randn(64, 192, generator=gen)
+    c = torch.randn(10, 96, 64, generator=gen)
+
+    def hvp(cfg, device):
+        p = {"layers": [{k: x.detach().to(device) for k, x in
+                         params["layers"][0].items()}],
+             "norm": {k: x.to(device) for k, x in params["norm"].items()}}
+        w = p["layers"][0]["w_hh"].requires_grad_(True)
+        o, _ = gru.sequence(cfg, p, xs.to(device), hxs.to(device),
+                            masks.to(device))
+        g, = torch.autograd.grad((o * c.to(device)).square().sum(), w,
+                                 create_graph=True)
+        return torch.autograd.grad((g * v.to(device)).sum(), w)[0]
+
+    f0, b0 = cuda_gru.FWD_LAUNCHES, cuda_gru.BWD_LAUNCHES
+    got = hvp(cfg, "cuda")
+    assert (cuda_gru.FWD_LAUNCHES, cuda_gru.BWD_LAUNCHES) == (f0, b0)
+    # a second derivative: held as HATRPO's Fisher-vector product is
+    # against JAX's, relative to its largest entry
+    want = hvp(cfg, "cpu")
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4,
+                               atol=1e-5 * float(want.abs().max()))
+    cfg.replace(use_pallas_gru=False).validate()   # the scan, allowed
+    with pytest.raises(RuntimeError, match="once differentiable"):
+        hvp(cfg.replace(use_pallas_gru=True), "cuda")
+    assert cuda_gru.FWD_LAUNCHES == f0 + 1
+    other = Config(algorithm_name="happo", hidden_size=64, share_policy=False)
+    gru.sequence(other, params, xs, hxs, masks)
+    assert cuda_gru.FWD_LAUNCHES == f0 + 2
+    with pytest.raises(ValueError, match="use_pallas_gru=False"):
+        gru.sequence(other.replace(use_pallas_gru=False), params, xs, hxs,
+                     masks)

@@ -189,13 +189,32 @@ def test_config_refuses_what_it_cannot_run():
 
 
 @pytest.mark.parametrize("override", [
-    dict(mesh_shape=(2,)), dict(algorithm_name="hatrpo"),
-    dict(algorithm_name="mat"), dict(algorithm_name="mat_dec"),
+    dict(mesh_shape=(2,)), dict(env_name="Hanabi"),
+    dict(scenario_name="simple_tag"),
+    dict(algorithm_name="mat", use_popart=True, use_valuenorm=False),
     dict(use_popart=True, use_valuenorm=False)])
 def test_runner_refuses_unported_options(override):
+    """Each names its ROADMAP.md item (G, E2, B3, B4 for MAT and MAPPO)."""
     from onpolicy_torch.runner.shared_runner import SharedRunner
     cfg = canonicalize_algorithm(Config(
         algorithm_name=override.pop("algorithm_name", "rmappo"),
         device="cpu", n_rollout_threads=2, episode_length=5)).replace(**override)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         SharedRunner(cfg)
+
+
+@pytest.mark.parametrize("algo", ["mat", "mat_dec", "hatrpo"])
+def test_runner_takes_the_ported_algorithms(algo):
+    """No longer refused: MAT and MAT-dec build the shared runner, HATRPO
+    the separated one (and the shared runner sends it there)."""
+    from onpolicy_torch.runner.separated_runner import SeparatedRunner
+    from onpolicy_torch.runner.shared_runner import SharedRunner
+    cfg = canonicalize_algorithm(Config(
+        algorithm_name=algo, device="cpu", n_rollout_threads=2,
+        episode_length=5, n_embd=16, hidden_size=16))
+    if algo == "hatrpo":
+        assert SeparatedRunner(cfg).is_happo
+        with pytest.raises(ValueError, match="separated runner"):
+            SharedRunner(cfg)
+    else:
+        assert SharedRunner(cfg).is_mat
