@@ -59,9 +59,12 @@ Phases, each of which fails the run (non-zero exit) if it fails:
               3 agents in f32 through the separated runner, MAT and
               MAT-dec in f32 through the shared runner, HATRPO with 3
               agents in f32 through the separated runner; Hanabi-Small
-              rMAPPO at
-              H=128, an untrained episode and a trained one, from the same
-              decks): rollout, update metrics, and the parameters' change;
+              rMAPPO at H=128 on the device engine from the same decks,
+              and MAPPO and rMAPPO at H=32 (6 games) on the C++ engine
+              through the host seat loop from the same engine seed, each
+              an untrained episode and a trained one, the GRU launches of
+              the update asserted): rollout, update metrics, and the
+              parameters' change;
               then the port's `scripts/train_mpe.main` or
               `scripts/train_hanabi.main` for each run of `TRAIN_RUNS`: the
               flagship rMAPPO for 10 episodes, the JAX package's two
@@ -74,12 +77,18 @@ Phases, each of which fails the run (non-zero exit) if it fails:
               which launches a GRU kernel (MAT has no GRU; HATRPO's runs
               as the plain scan, as the JAX package routes it),
               train_hanabi_device.sh (rMAPPO, Hanabi-Full,
-              hidden 512x2, 1000 fleets, T=100) for 3 episodes and the JAX
+              hidden 512x2, 1000 fleets, T=100) for 3 episodes, the JAX
               package's Hanabi bench configuration (feed-forward MAPPO,
-              bf16) for 2. Each run's kernel launches are asserted
+              bf16) for 2, and train_hanabi_forward.sh (feed-forward
+              MAPPO, the same width, on the C++ engine through the host
+              seat loop) for 3, then `scripts/eval_hanabi.main` with
+              eval_hanabi_forward.sh's flags on its checkpoint (8 games on
+              the C++ engine). Each run's kernel launches are asserted
               (derived beside `TRAIN_RUNS`), and the wide forward's step
-              launches (T a forward) where it runs; every logged metric
-              finite; env-steps/s printed for each.
+              launches (T a forward) where it runs; every parameter on
+              the card; every logged metric finite; env-steps/s printed
+              for each. Last, `profile_episode.py --config
+              hanabi_forward` prints that run's rollout and update ms.
 The last three lines are one JSON object with a row per kernel and
 stream type, the card's name and power limit, and the result line
 `{"ok": true, "device": {...}}`.
@@ -129,6 +138,7 @@ HANABI = dict(T=10, B=20000, H=512)      # 100*1000*2/10 chunks of L=10
 #   hatrpo_spread: its Fisher-vector product differentiates the GRU
 #     twice, which the kernels cannot, so its GRU is the plain scan, as
 #     the JAX package routes it (models/gru.py)                = 0, 0
+#   hanabi_forward: feed-forward                               = 0, 0
 TRAIN_RUNS = (("flagship", "train_mpe", "flagship", (), 10, 20, 20),
               ("bench_mappo", "train_mpe", "bench_mappo", (), 3, 0, 0),
               ("bench_rmappo", "train_mpe", "bench_rmappo", (), 3, 20, 20),
@@ -141,7 +151,23 @@ TRAIN_RUNS = (("flagship", "train_mpe", "flagship", (), 10, 20, 20),
               ("bench_hanabi_width", "train_hanabi", "bench_hanabi_width", (),
                2, 0, 0),
               ("mpe_mat", "train_mpe", "mpe_mat", (), 3, 0, 0),
-              ("hatrpo_spread", "train_mpe", "hatrpo_spread", (), 3, 0, 0))
+              ("hatrpo_spread", "train_mpe", "hatrpo_spread", (), 3, 0, 0),
+              ("hanabi_forward", "train_hanabi", "hanabi_forward", (), 3, 0,
+               0))
+# phase 5's card-vs-CPU Hanabi runs (2 agents): Hanabi-Small rMAPPO on the
+# device engine at 8 fleets, T=20, hidden 128, so that the CUDA-core
+# kernels carry its update (T=10, B=32, H=128); and on the C++ engine
+# through the host seat loop at 6 games, T=20, hidden 32, the algorithm
+# given with it
+_SMALL_CHECK = ["--hanabi_name", "Hanabi-Small", "--num_agents", "2",
+                "--episode_length", "20", "--ppo_epoch", "2"]
+HANABI_DEVICE_CHECK = _SMALL_CHECK + [
+    "--algorithm_name", "rmappo", "--n_rollout_threads", "8",
+    "--num_env_steps", "320", "--hidden_size", "128", "--use_jax_env",
+    "--use_scan_rounds"]
+HANABI_HOST_CHECK = _SMALL_CHECK + [
+    "--n_rollout_threads", "6", "--num_env_steps", "240", "--hidden_size",
+    "32"]
 # phase 3's layer shapes, each run with f32 and with bf16 streams:
 # (case, T, B, H, options of check_layer)
 SHAPES = (
@@ -775,48 +801,53 @@ def check_small_against_cpu(torch, name, tol, update_tol, **flags):
         + " of its norm  ok")
 
 
-def check_hanabi_against_cpu(torch, cg, tol=(1e-3, 1e-4), update_tol=1e-3):
-    """Hanabi-Small rMAPPO at 8 fleets, T=20 and hidden 128, so that the
-    CUDA-core kernels carry its update (T=10, B=32, H=128): an untrained
-    episode, then a trained one (the deferred update on the first
-    episode's buffer, 2 PPO epochs), on the card and on the CPU from the
-    same parameters and decks, each policy's mode taken. Each buffer field
-    must agree within `tol` relative to its largest entry; the update's
-    metrics within rtol `tol[0]`; the update itself (new - old
-    parameters) differs by at most `update_tol` of its norm, and the
-    trained parameters agree within `tol`, as `check_small_against_cpu`
-    holds the f32 MPE runs."""
+def check_hanabi_against_cpu(torch, cg, name, argv, tol=(1e-3, 1e-4),
+                             update_tol=1e-3):
+    """A Hanabi runner of `argv` (2 agents) on the card and on the CPU, from
+    the same parameters, each policy's mode taken: an untrained episode,
+    then a trained one (the deferred update on the first episode's buffer).
+    The device round loop takes the same decks on both; the host seat loop
+    plays both C++ engines from the same seed. Each buffer field must
+    agree within `tol` relative to its largest entry; the update's metrics
+    within rtol `tol[0]`; the update itself (new - old parameters) differs
+    by at most `update_tol` of its norm, and the trained parameters agree
+    within `tol`, as `check_small_against_cpu` holds the f32 MPE runs. A
+    recurrent policy's update launches the backward kernel twice an epoch
+    (actor and critic), a feed-forward one no GRU kernel."""
     from onpolicy_torch.envs.hanabi import torch_engine as te
     from onpolicy_torch.runner.hanabi_runner import HanabiRunner
     from onpolicy_torch.scripts.train_hanabi import config_from_args
     from onpolicy_torch.utils.tree import tree_leaves
-    argv = ["--algorithm_name", "rmappo", "--hanabi_name", "Hanabi-Small",
-            "--num_agents", "2", "--n_rollout_threads", "8",
-            "--episode_length", "20", "--num_env_steps", "320",
-            "--hidden_size", "128", "--ppo_epoch", "2", "--use_jax_env",
-            "--use_scan_rounds"]
     gpu = HanabiRunner(config_from_args(argv + ["--device", "cuda"]))
     cpu = HanabiRunner(config_from_args(argv + ["--device", "cpu"]))
     gpu.det_collect = cpu.det_collect = True
     T = gpu.cfg.episode_length
-    g = torch.Generator().manual_seed(3)
-    decks = [te.shuffled_decks(gpu.envs.game, gpu.N, g, "cpu")
-             for _ in range(2 * T + 1)]
-    ts_g, c_g, b_g = gpu.init(decks[0].cuda())
+    if gpu.host_loop:
+        decks = [None] * (2 * T + 1)
+        episode = lambda r, ts, c, b, do_train, ds: r.episode(ts, c, b,
+                                                              do_train)
+    else:
+        g = torch.Generator().manual_seed(3)
+        decks = [te.shuffled_decks(gpu.envs.game, gpu.N, g, "cpu")
+                 for _ in range(2 * T + 1)]
+        episode = lambda r, ts, c, b, do_train, ds: r._device_episode(
+            ts, c, b, do_train, ds)
+    on_card = lambda d: None if d is None else d.cuda()
+    ts_g, c_g, b_g = gpu.init(on_card(decks[0]))
     ts_c, c_c, b_c = cpu.init(decks[0])
     err, moved = 0.0, {}
-    launches = cg.BWD_LAUNCHES
+    launches = cg.FWD_LAUNCHES, cg.BWD_LAUNCHES
     for ep, do_train in enumerate((False, True)):
         ds = decks[1 + ep * T:1 + (ep + 1) * T]
         old_g, old_c = ts_g, ts_c
-        ts_g, c_g, b_g, m_g = gpu._device_episode(
-            ts_g, c_g, b_g, do_train, [d.cuda() for d in ds])
-        ts_c, c_c, b_c, m_c = cpu._device_episode(ts_c, c_c, b_c, do_train, ds)
+        ts_g, c_g, b_g, m_g = episode(gpu, ts_g, c_g, b_g, do_train,
+                                      [on_card(d) for d in ds])
+        ts_c, c_c, b_c, m_c = episode(cpu, ts_c, c_c, b_c, do_train, ds)
         torch.cuda.synchronize()
         for k, b in b_c.items():
             a = b_g[k].cpu()
             scale = float(b.abs().max()) or 1.0
-            assert_close(torch, f"hanabi episode {ep} buffer {k}", a, b,
+            assert_close(torch, f"{name} episode {ep} buffer {k}", a, b,
                          *tol, scale)
             err = max(err, max_err(a, b, scale))
         if not do_train:
@@ -825,7 +856,7 @@ def check_hanabi_against_cpu(torch, cg, tol=(1e-3, 1e-4), update_tol=1e-3):
                   "critic_grad_norm"):
             a, b = float(m_g[k]), float(m_c[k])
             if not abs(a - b) <= tol[0] * abs(b):
-                raise AssertionError(f"hanabi train {k}: card {a:.6g}, CPU "
+                raise AssertionError(f"{name} train {k}: card {a:.6g}, CPU "
                                      f"{b:.6g} (rtol {tol[0]})")
         for part in ("actor_params", "critic_params"):
             pairs = list(zip(tree_leaves(getattr(ts_g, part)),
@@ -837,23 +868,31 @@ def check_hanabi_against_cpu(torch, cg, tol=(1e-3, 1e-4), update_tol=1e-3):
             moved[part] = float((d_g - d_c).norm() / d_c.norm())
             if not moved[part] <= update_tol:
                 raise AssertionError(
-                    f"hanabi train {part}: card's update differs from the "
+                    f"{name} train {part}: card's update differs from the "
                     f"CPU's by {moved[part]:.3e} of its norm (limit "
                     f"{update_tol})")
             for i, (a, b, _, _) in enumerate(pairs):
-                assert_close(torch, f"hanabi train {part}[{i}]", a.cpu(), b,
+                assert_close(torch, f"{name} train {part}[{i}]", a.cpu(), b,
                              *tol)
                 err = max(err, max_err(a.cpu(), b))
-    if cg.BWD_LAUNCHES - launches != 2 * gpu.cfg.ppo_epoch:
-        raise AssertionError("the Hanabi update did not run the kernels")
-    log(f"  card vs CPU, hanabi rmappo f32 H=128, 2 episodes at N=8: max err "
-        f"{err:.2e} (buffer relative to each field's largest entry), update "
-        f"differs by {moved['actor_params']:.3e} (actor) / "
-        f"{moved['critic_params']:.3e} (critic) of its norm  ok")
+    fwd = cg.FWD_LAUNCHES - launches[0]
+    bwd = cg.BWD_LAUNCHES - launches[1]
+    if gpu.cfg.use_recurrent_policy:
+        if bwd != 2 * gpu.cfg.ppo_epoch or fwd < bwd:
+            raise AssertionError(f"{name}: the update launched fwd {fwd} bwd "
+                                 f"{bwd} GRU kernels, want bwd "
+                                 f"{2 * gpu.cfg.ppo_epoch}")
+    elif (fwd, bwd) != (0, 0):
+        raise AssertionError(f"{name}: a feed-forward policy launched GRU "
+                             f"kernels (fwd {fwd} bwd {bwd})")
+    log(f"  card vs CPU, {name}, 2 episodes at N={gpu.N}: max err {err:.2e} "
+        f"(buffer relative to each field's largest entry), update differs by "
+        f"{moved['actor_params']:.3e} (actor) / {moved['critic_params']:.3e} "
+        f"(critic) of its norm, GRU launches fwd {fwd} bwd {bwd}  ok")
 
 
 def train_main_path(torch, cg, name, script, config, extra, episodes,
-                    fwd_per_episode, bwd_per_episode):
+                    fwd_per_episode, bwd_per_episode, evaluate=False):
     """`scripts/<script>.main` with its `CONFIGS[config]` and the `extra`
     flags for `episodes` episodes, the launch counts set to 0 just before
     and read just after. Every logged metric must be finite, and each GRU
@@ -861,9 +900,12 @@ def train_main_path(torch, cg, name, script, config, extra, episodes,
     train_mpe (an eval logged each episode with `--use_eval`), all but the
     first of train_hanabi (training is deferred one episode, and the first
     is not logged). Where the forward is the wide one it launches its step
-    kernel T = data_chunk_length times a forward. Returns (fwd launches,
-    bwd launches, env-steps/s over the run, env-steps/s of the last
-    episode)."""
+    kernel T = data_chunk_length times a forward. Every parameter of the
+    trained state must be on the card. With `evaluate`, the checkpoint the
+    run saved is evaluated by `scripts/eval_hanabi.main` with
+    scripts/eval_hanabi_forward.sh's flags (the C++ engine) over 8 games.
+    Returns (fwd launches, bwd launches, env-steps/s over the run,
+    env-steps/s of the last episode)."""
     import importlib
     module = importlib.import_module(f"onpolicy_torch.scripts.{script}")
     hanabi = script == "train_hanabi"
@@ -881,12 +923,33 @@ def train_main_path(torch, cg, name, script, config, extra, episodes,
         cg.FWD_STEP_LAUNCHES = 0
         cg.WIDE_LAUNCHES = dict.fromkeys(cg.WIDE_LAUNCHES, 0)
         t0 = time.perf_counter()
-        _, history = module.main(argv)
+        state, history = module.main(argv)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         fwd, bwd = cg.FWD_LAUNCHES, cg.BWD_LAUNCHES
         fwd_steps = cg.FWD_STEP_LAUNCHES
         pieces = dict(cg.WIDE_LAUNCHES)
+        if evaluate:
+            from onpolicy_torch.scripts import eval_hanabi
+            models = next(Path(tmp).rglob("models"))
+            t1 = time.perf_counter()
+            score = eval_hanabi.main(eval_hanabi.EVAL_FORWARD + [
+                "--model_dir", str(models), "--eval_games", "8",
+                "--device", "cuda"])
+            if not 0.0 <= score <= 25.0:
+                raise AssertionError(f"{name}: eval score {score}")
+            log(f"  {name}: eval_hanabi (eval_hanabi_forward.sh, C++ engine) "
+                f"on its checkpoint, 8 games: average score {score:.4f} in "
+                f"{time.perf_counter() - t1:.2f} s")
+    from onpolicy_torch.utils.tree import tree_leaves
+    states = state if isinstance(state, tuple) else (state,)
+    off_card = [f.name for s in states for f in dataclasses.fields(s)
+                if f.name.endswith("params")
+                for x in tree_leaves(getattr(s, f.name))
+                if x.device.type != "cuda"]
+    if off_card:
+        raise AssertionError(f"{name}: parameters off the card in "
+                             f"{sorted(set(off_card))}")
     reward = "average_score" if hanabi else "average_episode_rewards"
     trained = episodes - 1 if hanabi else episodes
     logged = len([r for r in history if reward in r])
@@ -1056,15 +1119,32 @@ def main() -> int:
         "and HATRPO's Fisher-vector product differentiates the GRU twice, "
         "which the kernels' backward refuses, so its GRU runs as the plain "
         "scan on the card, as the JAX package routes it")
-    check_hanabi_against_cpu(torch, cg)
+    # the device engine at H=128 (the CUDA-core kernels carry its update)
+    check_hanabi_against_cpu(torch, cg, "hanabi rmappo f32 H=128 (device "
+                             "engine, decks injected)", HANABI_DEVICE_CHECK)
+    # the C++ engine through the host seat loop, train_hanabi_forward.sh's
+    # path, feed-forward and recurrent (the tensor-core kernels at H=32)
+    for algo in ("mappo", "rmappo"):
+        check_hanabi_against_cpu(
+            torch, cg, f"hanabi {algo} f32 H=32 (C++ engine, host seat loop)",
+            HANABI_HOST_CHECK + ["--algorithm_name", algo])
     # each run's launches go to the kernel rows of its GRU shape
     launches = {"f32": {}, "bf16": {}, "hanabi": {}}
     for name, script, config, extra, episodes, fwd_pe, bwd_pe in TRAIN_RUNS:
         fwd, bwd, _, _ = train_main_path(torch, cg, name, script, config,
-                                         extra, episodes, fwd_pe, bwd_pe)
+                                         extra, episodes, fwd_pe, bwd_pe,
+                                         evaluate=name == "hanabi_forward")
         shape = ("bf16" if config.startswith("bench")
                  else "hanabi" if script == "train_hanabi" else "f32")
         launches[shape][name] = {"fwd": fwd, "bwd": bwd}
+    from onpolicy_torch.scripts import profile_episode
+    prof = profile_episode.main(["--config", "hanabi_forward", "--episodes",
+                                 "2", "--warmup", "1"])
+    log(f"  hanabi_forward episodes on the card: rollout ms "
+        f"{prof['rollout_ms']} (100 host seat rounds on the C++ engine), "
+        f"update ms {prof['update_ms']}, device idle share "
+        f"{prof['device_idle_share']:.3f}, kernel launches an episode "
+        f"{prof['kernel_launches']}")
 
     row_errs = lambda case, streams: dict(zip(("fwd", "bwd"),
                                               errs[case, streams]))

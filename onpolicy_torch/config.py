@@ -70,8 +70,9 @@ class Config:
     use_pallas_gru: Optional[bool] = None
     # Hanabi: `use_jax_env` runs the device-resident engine (in the port a
     # tensor engine, envs/hanabi/torch_engine.py; the flag keeps its name so
-    # the launch scripts run unchanged), and either collect flag the
-    # device episode loop (runner/hanabi_runner.py)
+    # the launch scripts run unchanged), else the C++ engine; either
+    # collect flag runs the device round loop, neither the host seat loop
+    # (runner/hanabi_runner.py)
     use_device_collect: bool = False
     use_scan_rounds: bool = False
     use_jax_env: bool = False

@@ -16,6 +16,9 @@ Two APIs over the engine (`torch_engine.py`):
 Decks are shuffled on the fleet's device from its generator;
 `reset_states` and `masked_reset` also take decks [N, deck_len], so that a
 test can hand two implementations the same deals.
+
+`CppHanabiFleet` gives the C++ engine's fleet (`hanabi_env.HanabiVecEnv`)
+the same two APIs, so that the runner's device round drives either engine.
 """
 from __future__ import annotations
 
@@ -120,3 +123,88 @@ class TorchHanabiFleet:
                                                  for x in out[1:])
         cur = self.states.cur_player.cpu().numpy()
         return obs, share, rewards, done.astype(bool), cur, avail, scr
+
+
+def upload(device, *arrays):
+    """numpy arrays → float32 tensors of the same shapes on `device`, in
+    one host-to-device copy: packed end to end, so each is a contiguous
+    slice of the copy."""
+    flat = [np.asarray(a, np.float32).ravel() for a in arrays]
+    packed = torch.from_numpy(np.concatenate(flat)).to(device)
+    out, at = [], 0
+    for a, f in zip(arrays, flat):
+        out.append(packed[at:at + f.size].view(np.shape(a)))
+        at += f.size
+    return out
+
+
+class CppHanabiFleet:
+    """The pure API of `TorchHanabiFleet` over the C++ engine's numpy
+    fleet `env` (a `HanabiVecEnv`), whose protocol `reset` / `step` it
+    passes on. The engine holds the one state of its games, so the
+    `states` it takes and returns are None. A step copies the actions to
+    the host and the engine's outputs back, once each; `masked_reset`
+    resets the engine only when some game is chosen."""
+
+    def __init__(self, env, device):
+        self.env = env
+        self.device = torch.device(device)
+        for name in ("n_envs", "num_agents", "obs_dim", "share_dim",
+                     "n_moves", "observation_space",
+                     "share_observation_space", "action_space"):
+            setattr(self, name, getattr(env, name))
+        # observe()'s tuple after the last step or reset, and the host's
+        # done and score, which a reset does not return
+        self._seen = None
+        self._done = np.zeros(self.n_envs, bool)
+        self._score = np.zeros(self.n_envs, np.int32)
+
+    def _put(self, obs, share, avail, cur, *more):
+        obs, share, avail, cur, done, score, *more = upload(
+            self.device, obs, share, avail, cur, self._done, self._score,
+            *more)
+        self._seen = (obs, share, avail, cur.long(), done > 0, score)
+        return more
+
+    def _reset(self, mask):
+        obs, share, avail, cur = self.env.reset(mask)
+        fresh = np.ones(self.n_envs, bool) if mask is None else mask
+        self._done = self._done & ~fresh
+        self._score = np.where(fresh, 0, self._score)
+        self._put(obs, share, avail, cur)
+
+    # ---- pure API ------------------------------------------------------
+    def reset_states(self, decks: Optional[torch.Tensor] = None):
+        if decks is not None:
+            raise ValueError("the C++ engine deals its own decks")
+        self._reset(None)
+
+    def observe(self, states):
+        """→ (obs, share, avail, cur, done, score) after the last step or
+        reset, on the device."""
+        return self._seen
+
+    def pure_step(self, states, actions: torch.Tensor):
+        obs, share, rewards, self._done, cur, avail, self._score = \
+            self.env.step(actions.cpu().numpy().astype(np.int64))
+        (rewards,) = self._put(obs, share, avail, cur, rewards)
+        obs, share, avail, _, done, score = self._seen
+        return None, obs, share, rewards, done, avail, score
+
+    def masked_reset(self, states, mask: torch.Tensor,
+                     decks: Optional[torch.Tensor] = None):
+        if decks is not None:
+            raise ValueError("the C++ engine deals its own decks")
+        mask = mask.cpu().numpy()
+        if mask.any():
+            self._reset(mask)
+
+    # ---- HanabiVecEnv's numpy protocol --------------------------------
+    def reset(self, reset_choose: Optional[np.ndarray] = None):
+        return self.env.reset(reset_choose)
+
+    def step(self, actions: np.ndarray):
+        return self.env.step(actions)
+
+    def close(self):
+        self.env.close()

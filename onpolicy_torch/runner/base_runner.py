@@ -34,11 +34,9 @@ def refuse_unported(cfg):
     todo = []
     if int(np.prod(cfg.mesh_shape)) > 1:
         todo.append("multi-device mesh_shape (ROADMAP.md, Slice G)")
-    if cfg.env_name == "Hanabi" and not (
-            cfg.use_jax_env and (cfg.use_scan_rounds or cfg.use_device_collect)):
-        todo.append("Hanabi on the C++ engine or through the host seat loop; "
-                    "the port runs --use_jax_env with --use_scan_rounds or "
-                    "--use_device_collect (ROADMAP.md, item E2)")
+    if cfg.env_name in ("StarCraft2", "SMAC", "StarCraft2v2", "SMACv2",
+                        "Football"):
+        todo.append(f"the {cfg.env_name} host runners (ROADMAP.md, Slice F)")
     if todo:
         raise NotImplementedError("not ported yet: " + "; ".join(todo))
 

@@ -1,10 +1,10 @@
-"""Turn-based Hanabi runner (shared policy) on the device-resident engine.
+"""Turn-based Hanabi runner (shared policy).
 
-Port of the device path of `onpolicy_tpu/runner/hanabi_runner.py` (the
-reference's `runner/shared/hanabi_runner_forward.py`). One buffer step is
-one full seat round: per seat, only the games with available actions act
-(the others no-op with −1); rewards accrue to a seat from the moment it
-acts until its next action; games finishing mid-round blank the remaining
+Port of `onpolicy_tpu/runner/hanabi_runner.py` (the reference's
+`runner/shared/hanabi_runner_forward.py`). One buffer step is one full
+seat round: per seat, only the games with available actions act (the
+others no-op with −1); rewards accrue to a seat from the moment it acts
+until its next action; games finishing mid-round blank the remaining
 seats' staging and are reset after the round. Buffer writes use
 choose-insert slotting (obs at t, masks at t+1), and TRAINING IS DEFERRED
 one buffer step: at step 0 of the next episode the previous episode's
@@ -13,16 +13,23 @@ GAE + PPO run.
 
 The actor runs per seat on the whole [N] fleet (its action feeds the
 next seat's observation; rows that do not act are discarded), and the
-critic once per round on the staged [N·M] rows. The episode is a Python
-loop over rounds and seats on tensors that stay on the run's device: the
-engine (`envs/hanabi/torch_fleet.py`), the staging and the buffer. Nothing
-inside a round moves to the host; `run` reads the episode's scalars once
-an episode. `det_collect` makes collection take each policy's mode (the
-tests' lockstep with the JAX package), and the round and the episode take
-the decks of the games they reset, for the same reason.
-
-The C++ engine, the host seat loop (`_host_round`) and the host
-`evaluate` are ROADMAP.md item E2 and raise.
+critic once per round on the staged [N·M] rows. Policy, staging, buffer
+and update live on the run's device. Two round loops over two engines:
+  * the host seat loop `_host_round` (no collect flag, as JAX's default):
+    the engine's numpy protocol, one copy of the actions to the host and
+    one of the observations back a seat, the masked reset after the
+    round; on the C++ engine (`envs/hanabi/hanabi_env.HanabiVecEnv`, the
+    reference's data path) or the tensor engine's fleet (`--use_jax_env`);
+  * the device round `_device_round` (`--use_device_collect` or
+    `--use_scan_rounds`): the fleet's pure API, the masked reset inside
+    the round; on the tensor engine (`envs/hanabi/torch_fleet.py`), where
+    nothing inside a round leaves the device, or on the C++ engine through
+    `torch_fleet.CppHanabiFleet`.
+Both stage through the same code and give the same numbers. `run` reads
+the episode's scalars once an episode. `det_collect` makes collection
+take each policy's mode (the tests' lockstep with the JAX package), and
+on the tensor engine the round and the episode take the decks of the
+games they reset, for the same reason.
 """
 from __future__ import annotations
 
@@ -35,12 +42,12 @@ import torch
 from onpolicy_torch import buffer as buf_lib
 from onpolicy_torch.algorithms.mappo import MAPPO
 from onpolicy_torch.envs.hanabi import torch_engine as te
-from onpolicy_torch.envs.hanabi.torch_fleet import TorchHanabiFleet
+from onpolicy_torch.envs.hanabi.hanabi_env import HanabiVecEnv
+from onpolicy_torch.envs.hanabi.torch_fleet import (CppHanabiFleet,
+                                                    TorchHanabiFleet, upload)
 from onpolicy_torch.runner.base_runner import refuse_unported
 from onpolicy_torch.utils import checkpoint as ckpt_lib
 from onpolicy_torch.utils.profiling import PhaseTimer
-
-E2 = "ROADMAP.md, item E2"
 
 
 def _put_seat(x, seat, new, when):
@@ -51,7 +58,11 @@ def _put_seat(x, seat, new, when):
 
 
 class HanabiRunner:
-    def __init__(self, cfg):
+    def __init__(self, cfg, vec_env=None, eval_env=None):
+        """`vec_env`: the training fleet (default: the C++ engine's
+        `HanabiVecEnv`, or the tensor engine's fleet under
+        `--use_jax_env`); `eval_env`: the fleet of `--use_eval`'s
+        evaluation (numpy protocol), None for none."""
         cfg = cfg.validate()
         refuse_unported(cfg)
         if cfg.episodes_per_call != 1 or cfg.profile_dir:
@@ -66,12 +77,23 @@ class HanabiRunner:
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(cfg.seed)
         self.init_generator = torch.Generator().manual_seed(cfg.seed)
-        name = (cfg.scenario_name if cfg.scenario_name.startswith("Hanabi")
-                else "Hanabi-Small")
-        self.envs = TorchHanabiFleet(
-            name, cfg.num_agents, cfg.n_rollout_threads, self.device,
-            self.generator,
-            use_obs_instead_of_state=cfg.use_obs_instead_of_state)
+        self.host_loop = not (cfg.use_device_collect or cfg.use_scan_rounds)
+        if vec_env is None:
+            name = (cfg.scenario_name if cfg.scenario_name.startswith("Hanabi")
+                    else "Hanabi-Small")
+            if cfg.use_jax_env:
+                vec_env = TorchHanabiFleet(
+                    name, cfg.num_agents, cfg.n_rollout_threads, self.device,
+                    self.generator,
+                    use_obs_instead_of_state=cfg.use_obs_instead_of_state)
+            else:
+                vec_env = HanabiVecEnv(
+                    name, cfg.num_agents, cfg.n_rollout_threads, seed=cfg.seed,
+                    use_obs_instead_of_state=cfg.use_obs_instead_of_state)
+        # every fleet speaks both the numpy protocol and the pure API
+        self.envs = (vec_env if hasattr(vec_env, "pure_step")
+                     else CppHanabiFleet(vec_env, self.device))
+        self.eval_envs = eval_env
         self.num_agents = self.envs.num_agents
         self.N = self.envs.n_envs
         obs_space = self.envs.observation_space[0]
@@ -107,12 +129,12 @@ class HanabiRunner:
             "available_actions": one(T + 1, N, M, A),
         }
 
-    def _fresh_staging(self, env_states) -> dict:
-        """The round carry for a fresh fleet: the next seat's inputs
-        (use_*), the per-seat staging [N, M, ...] and the engine state."""
+    def _fresh_staging(self, obs, share, avail, env_states=None) -> dict:
+        """The round carry for a fresh fleet from its observation (tensors
+        on the device): the next seat's inputs (use_*), the per-seat
+        staging [N, M, ...] and the engine state of the device round."""
         N, M = self.N, self.num_agents
         L, H = self.cfg.recurrent_N, self.cfg.hidden_size
-        obs, share, avail, _, _, _ = self.envs.observe(env_states)
         if not self.cfg.use_centralized_V:
             share = obs
         z = lambda *s: torch.zeros(s, device=self.device)
@@ -129,21 +151,102 @@ class HanabiRunner:
         }
 
     def init(self, decks: Optional[torch.Tensor] = None):
-        """→ (train_state, carry, buffer) of a fresh run; `decks` [N,
-        deck_len] deal the first games instead of the fleet's draw."""
-        carry = self._fresh_staging(self.envs.reset_states(decks))
+        """→ (train_state, carry, buffer) of a fresh run, the whole fleet
+        reset; `decks` [N, deck_len] deal the device round's first games on
+        the tensor engine instead of the fleet's draw."""
+        if self.host_loop:
+            if decks is not None:
+                raise ValueError("the host seat loop takes no decks")
+            obs, share, avail, _ = upload(self.device, *self.envs.reset())
+            carry = self._fresh_staging(obs, share, avail)
+        else:
+            states = self.envs.reset_states(decks)
+            carry = self._fresh_staging(*self.envs.observe(states)[:3],
+                                        env_states=states)
         train_state = self.algo.init_state(self.init_generator, self.device)
         return train_state, carry, self._alloc_buffer()
 
     # ---- one seat round --------------------------------------------------
+    def _act(self, train_state, c: dict, seat: int):
+        """The actor on the whole fleet for `seat` → (actions, logp, rnn)."""
+        return self.algo.actor.forward(
+            train_state.actor_params, c["use_obs"], c["rnn"][:, seat],
+            c["masks"][:, seat], self.generator, c["use_avail"],
+            deterministic=self.det_collect)
+
+    @staticmethod
+    def _stage_choice(c: dict, seat: int, choose, actions, logp, rnn):
+        """The chosen games' inputs and outputs of `seat` into the staging."""
+        c1, c2 = choose[:, None], choose[:, None, None]
+        for name, new, when in (("obs", c["use_obs"], c1),
+                                ("share_obs", c["use_share"], c1),
+                                ("avail", c["use_avail"], c1),
+                                ("actions", actions, c1),
+                                ("logp", logp, c1), ("rnn", rnn, c2)):
+            c[name] = _put_seat(c[name], seat, new, when)
+
+    @staticmethod
+    def _stage_outcome(c: dict, seat: int, choose, rewards, done):
+        """After the step of `seat`: reward accrual since each seat's last
+        action; the games that ended (`done & choose`, returned) blank
+        their future seats and their recurrent states; the others keep
+        their masks."""
+        c1, c2 = choose[:, None], choose[:, None, None]
+        c["rewards"] = _put_seat(c["rewards"], seat, c["accum"][:, seat], c1)
+        c["accum"] = _put_seat(c["accum"], seat, 0.0, c1)
+        c["accum"] = c["accum"] + torch.where(c2, rewards, 0.0)
+
+        nd = done & choose
+        nd1, nd2 = nd[:, None], nd[:, None, None]
+        c["use_avail"] = torch.where(nd1, 0.0, c["use_avail"])
+        c["masks"] = torch.where(nd2, 0.0, c["masks"])
+        c["rnn"] = torch.where(nd[:, None, None, None], 0.0, c["rnn"])
+        c["active"] = _put_seat(c["active"], seat, 1.0, nd1)
+        M = c["active"].shape[1]
+        if seat + 1 < M:
+            def blank(name, new):
+                out = c[name].clone()
+                out[:, seat + 1:] = torch.where(nd2, new, c[name][:, seat + 1:])
+                c[name] = out
+            blank("active", 0.0)
+            blank("rewards", c["accum"][:, seat + 1:])
+            blank("accum", 0.0)
+            blank("obs", 0.0)
+            blank("share_obs", 0.0)
+        alive = ((~done) & choose)[:, None]
+        c["masks"] = _put_seat(c["masks"], seat, 1.0, alive)
+        c["active"] = _put_seat(c["active"], seat, 1.0, alive)
+        return nd
+
+    def _deferred_critic(self, train_state, c: dict, rnn_c0, masks0, chose,
+                         zeroed, done_this_round):
+        """One [N·M] critic pass over the staged share_obs from the
+        round-start states and masks: the chosen slots take the fresh value
+        and state, the future seats blanked at a game's end (`zeroed`)
+        value 0, the games that ended zero critic states, the rest keep
+        their staging."""
+        N, M = self.N, self.num_agents
+        L, H = rnn_c0.shape[2:]
+        v_all, rnn_c_all = self.algo.critic.forward(
+            train_state.critic_params, c["share_obs"].reshape(N * M, -1),
+            rnn_c0.reshape(N * M, L, H), masks0.reshape(N * M, 1))
+        v_all = v_all.reshape(N, M, 1)
+        rnn_c_all = rnn_c_all.reshape(N, M, L, H)
+        c["values"] = torch.where(
+            zeroed[..., None], 0.0,
+            torch.where(chose[..., None], v_all, c["values"]))
+        c["rnn_critic"] = torch.where(
+            done_this_round[:, None, None, None], 0.0,
+            torch.where(chose[:, :, None, None], rnn_c_all, c["rnn_critic"]))
+
     @torch.no_grad()
     def _device_round(self, train_state, carry: dict,
                       decks: Optional[torch.Tensor] = None):
-        """One full seat round, then the deferred critic and the masked
-        reset of the games that ended (from `decks` if given). Returns
-        (carry, aux) with aux: reset_choose [N], masks_insert (the masks
-        before the reset, which the buffer slots at t+1), score_sum,
-        score_n and true_delta (0-dim tensors)."""
+        """One full seat round through the fleet's pure API, then the
+        deferred critic and the masked reset of the games that ended (from
+        `decks` if given). Returns (carry, aux) with aux: reset_choose [N],
+        masks_insert (the masks before the reset, which the buffer slots at
+        t+1), score_sum, score_n and true_delta (0-dim tensors)."""
         cfg, N, M = self.cfg, self.N, self.num_agents
         dev = self.device
         c = dict(carry)
@@ -158,19 +261,10 @@ class HanabiRunner:
 
         for seat in range(M):
             choose = (c["use_avail"] == 1).any(1)                   # [N]
-            c1, c2 = choose[:, None], choose[:, None, None]
-            actions, logp, rnn = self.algo.actor.forward(
-                train_state.actor_params, c["use_obs"], c["rnn"][:, seat],
-                c["masks"][:, seat], self.generator, c["use_avail"],
-                deterministic=self.det_collect)
+            actions, logp, rnn = self._act(train_state, c, seat)
             chose_l.append(choose)
             zero_l.append(done_this_round)
-            for name, new, when in (("obs", c["use_obs"], c1),
-                                    ("share_obs", c["use_share"], c1),
-                                    ("avail", c["use_avail"], c1),
-                                    ("actions", actions, c1),
-                                    ("logp", logp, c1), ("rnn", rnn, c2)):
-                c[name] = _put_seat(c[name], seat, new, when)
+            self._stage_choice(c, seat, choose, actions, logp, rnn)
             env_actions = torch.where(choose, actions[:, 0].long(), -1)
 
             (c["env_states"], obs, share, rewards, done, avail,
@@ -180,54 +274,15 @@ class HanabiRunner:
             true_delta = true_delta + choose.sum(dtype=torch.int32)
             c["use_obs"], c["use_share"], c["use_avail"] = obs, share, avail
 
-            # reward accrual since each seat's last action
-            c["rewards"] = _put_seat(c["rewards"], seat, c["accum"][:, seat], c1)
-            c["accum"] = _put_seat(c["accum"], seat, 0.0, c1)
-            c["accum"] = c["accum"] + torch.where(c2, rewards, 0.0)
-
-            nd = done & choose
-            nd1, nd2 = nd[:, None], nd[:, None, None]
+            nd = self._stage_outcome(c, seat, choose, rewards, done)
             reset_choose = reset_choose | nd
             done_this_round = done_this_round | nd
-            c["use_avail"] = torch.where(nd1, 0.0, c["use_avail"])
-            c["masks"] = torch.where(nd2, 0.0, c["masks"])
-            c["rnn"] = torch.where(nd[:, None, None, None], 0.0, c["rnn"])
-            c["active"] = _put_seat(c["active"], seat, 1.0, nd1)
-            if seat + 1 < M:
-                def blank(name, new):
-                    out = c[name].clone()
-                    out[:, seat + 1:] = torch.where(nd2, new,
-                                                    c[name][:, seat + 1:])
-                    c[name] = out
-                blank("active", 0.0)
-                blank("rewards", c["accum"][:, seat + 1:])
-                blank("accum", 0.0)
-                blank("obs", 0.0)
-                blank("share_obs", 0.0)
             score_sum = score_sum + torch.where(nd, score.float(), 0.0).sum()
             score_n = score_n + nd.sum(dtype=torch.int32)
-            alive = ((~done) & choose)[:, None]
-            c["masks"] = _put_seat(c["masks"], seat, 1.0, alive)
-            c["active"] = _put_seat(c["active"], seat, 1.0, alive)
 
-        # deferred critic: one [N·M] pass over the staged share_obs; chosen
-        # slots take the fresh value and state, future-seat slots blanked
-        # on done take 0, the rest keep their previous staging
-        chose_m = torch.stack(chose_l, 1)                           # [N, M]
-        zero_m = torch.stack(zero_l, 1)
-        BA = N * M
-        L, H = rnn_c0.shape[2:]
-        v_all, rnn_c_all = self.algo.critic.forward(
-            train_state.critic_params, c["share_obs"].reshape(BA, -1),
-            rnn_c0.reshape(BA, L, H), masks0.reshape(BA, 1))
-        v_all = v_all.reshape(N, M, 1)
-        rnn_c_all = rnn_c_all.reshape(N, M, L, H)
-        c["values"] = torch.where(
-            zero_m[..., None], 0.0,
-            torch.where(chose_m[..., None], v_all, c["values"]))
-        c["rnn_critic"] = torch.where(
-            done_this_round[:, None, None, None], 0.0,
-            torch.where(chose_m[:, :, None, None], rnn_c_all, c["rnn_critic"]))
+        self._deferred_critic(train_state, c, rnn_c0, masks0,
+                              torch.stack(chose_l, 1), torch.stack(zero_l, 1),
+                              done_this_round)
 
         masks_insert = c["masks"]
         c["env_states"] = self.envs.masked_reset(c["env_states"], reset_choose,
@@ -246,10 +301,76 @@ class HanabiRunner:
                "true_delta": true_delta}
         return c, aux
 
-    def _host_round(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the host seat loop over the C++ engine is not ported yet "
-            f"({E2}); run with --use_jax_env and --use_scan_rounds")
+    @torch.no_grad()
+    def _host_round(self, train_state, carry: dict):
+        """One full seat round through the fleet's numpy protocol (JAX's
+        `_host_round`): per seat one copy of the actions to the engine and
+        one of its outputs back. The games that end are not reset here:
+        `_host_reset` does it after the buffer insert. Returns (carry, aux)
+        with aux: reset_choose [N] and the finished games' scores (numpy),
+        true_delta (int)."""
+        cfg, N, M = self.cfg, self.N, self.num_agents
+        c = dict(carry)
+        reset_choose = np.zeros(N, bool)
+        chose = np.zeros((N, M), bool)
+        # the seat at which each game ended this round (M: it did not);
+        # it blanks the future seats also where the loop breaks before it
+        # visits them
+        done_at = np.full(N, M)
+        scores, true_delta = [], 0
+        rnn_c0, masks0 = c["rnn_critic"], c["masks"]
+        for seat in range(M):
+            choose = (c["use_avail"] == 1).any(1)
+            actions, logp, rnn = self._act(train_state, c, seat)
+            # the seat's one copy to the host
+            env_actions = torch.where(choose, actions[:, 0].long(),
+                                      -1).cpu().numpy()
+            choose_np = env_actions >= 0
+            if not choose_np.any():      # every game ended this round
+                reset_choose[:] = True
+                break
+            chose[:, seat] = choose_np
+            self._stage_choice(c, seat, choose, actions, logp, rnn)
+
+            obs, share, rewards, done, _, avail, score = self.envs.step(
+                env_actions)
+            if not cfg.use_centralized_V:
+                share = obs
+            true_delta += int(choose_np.sum())
+            c["use_obs"], c["use_share"], c["use_avail"], rewards_t, done_t = \
+                upload(self.device, obs, share, avail, rewards, done)
+            self._stage_outcome(c, seat, choose, rewards_t, done_t > 0)
+
+            nd = done & choose_np
+            reset_choose |= nd
+            done_at[nd] = seat
+            scores.extend(score[nd].tolist())
+
+        chose_t, zeroed_t, ended_t = upload(
+            self.device, chose, done_at[:, None] < np.arange(M)[None, :],
+            done_at < M)
+        self._deferred_critic(train_state, c, rnn_c0, masks0, chose_t > 0,
+                              zeroed_t > 0, ended_t > 0)
+        return c, {"reset_choose": reset_choose, "scores": scores,
+                   "true_delta": true_delta}
+
+    def _host_reset(self, carry: dict, reset_choose: np.ndarray) -> dict:
+        """The masked reset after a host round: fresh games where
+        `reset_choose`, their masks back to 1."""
+        if not reset_choose.any():
+            return carry
+        obs, share, avail, _ = self.envs.reset(reset_choose)
+        if not self.cfg.use_centralized_V:
+            share = obs
+        obs, share, avail, rc = upload(self.device, obs, share, avail,
+                                       reset_choose)
+        rc = rc > 0
+        c = dict(carry)
+        c["use_obs"] = torch.where(rc[:, None], obs, c["use_obs"])
+        c["use_share"] = torch.where(rc[:, None], share, c["use_share"])
+        c["use_avail"] = torch.where(rc[:, None], avail, c["use_avail"])
+        c["masks"] = torch.where(rc[:, None, None], 1.0, c["masks"])
+        return c
 
     # ---- one episode ---------------------------------------------------
     @staticmethod
@@ -282,14 +403,29 @@ class HanabiRunner:
             use_proper_time_limits=cfg.use_proper_time_limits)
         return self.algo.train(train_state, buf, self.generator)
 
+    def _deferred_train(self, train_state, carry: dict, dbuf: dict, phase):
+        """hanabi_runner_forward.py:52-67: patch the previous episode's
+        tail slot with the fresh round, shift rewards one step, train.
+        Returns (train_state, metrics)."""
+        dbuf["share_obs"][-1] = carry["share_obs"]
+        dbuf["obs"][-1] = carry["obs"]
+        dbuf["available_actions"][-1] = carry["avail"]
+        dbuf["active_masks"][-1] = carry["active"]
+        dbuf["rewards"] = torch.cat([dbuf["rewards"][1:],
+                                     carry["rewards"][None]], 0)
+        with phase("update"):
+            train_state, metrics = self._compute_and_train(train_state, dbuf)
+        metrics["average_step_rewards"] = dbuf["rewards"].mean()
+        return train_state, metrics
+
     def _device_episode(self, train_state, carry: dict, dbuf: dict,
                         do_train: bool,
                         decks: Optional[Sequence[torch.Tensor]] = None,
                         timer=None):
-        """One episode: the first round, then (with `do_train`) the
-        deferred training on the previous episode's buffer, then the T−1
-        remaining rounds, each written into `dbuf` (in place). `decks[t]`
-        deals the games that round t resets; `timer` (a
+        """One episode of device rounds: the first round, then (with
+        `do_train`) the deferred training on the previous episode's
+        buffer, then the T−1 remaining rounds, each written into `dbuf` (in
+        place). `decks[t]` deals the games that round t resets; `timer` (a
         `utils.profiling.PhaseTimer`) times the "rollout" and "update"
         phases. Returns (train_state, carry, dbuf, metrics): the training
         metrics and the episode's _score_sum, _score_n and _true_delta, all
@@ -303,18 +439,8 @@ class HanabiRunner:
         true_delta = aux["true_delta"]
         metrics = {}
         if do_train:
-            # hanabi_runner_forward.py:52-67: patch the previous episode's
-            # tail slot with this fresh round, shift rewards one step
-            dbuf["share_obs"][-1] = carry["share_obs"]
-            dbuf["obs"][-1] = carry["obs"]
-            dbuf["available_actions"][-1] = carry["avail"]
-            dbuf["active_masks"][-1] = carry["active"]
-            dbuf["rewards"] = torch.cat([dbuf["rewards"][1:],
-                                         carry["rewards"][None]], 0)
-            with phase("update"):
-                train_state, metrics = self._compute_and_train(train_state,
-                                                               dbuf)
-            metrics["average_step_rewards"] = dbuf["rewards"].mean()
+            train_state, metrics = self._deferred_train(train_state, carry,
+                                                        dbuf, phase)
         with phase("rollout"):
             self._write_slot(dbuf, 0, carry, aux["masks_insert"])
             for step in range(1, T):
@@ -327,6 +453,38 @@ class HanabiRunner:
                        _true_delta=true_delta)
         return train_state, carry, dbuf, metrics
 
+    def _host_episode(self, train_state, carry: dict, dbuf: dict,
+                      do_train: bool, timer=None):
+        """One episode of host rounds (JAX's host branch of `run`): each
+        round, then at step 0 (with `do_train`) the deferred training, the
+        choose-insert and the masked reset. As `_device_episode`, but
+        _score_sum, _score_n and _true_delta are host numbers."""
+        phase = (timer or PhaseTimer()).phase
+        scores, true_delta, metrics = [], 0, {}
+        for step in range(self.cfg.episode_length):
+            with phase("rollout"):
+                carry, aux = self._host_round(train_state, carry)
+            scores += aux["scores"]
+            true_delta += aux["true_delta"]
+            if step == 0 and do_train:
+                train_state, metrics = self._deferred_train(
+                    train_state, carry, dbuf, phase)
+            with phase("rollout"):
+                self._write_slot(dbuf, step, carry, carry["masks"])
+                carry = self._host_reset(carry, aux["reset_choose"])
+        metrics.update(_score_sum=float(np.sum(scores)), _score_n=len(scores),
+                       _true_delta=true_delta)
+        return train_state, carry, dbuf, metrics
+
+    def episode(self, train_state, carry: dict, dbuf: dict, do_train: bool,
+                timer=None):
+        """One episode of the round loop the flags choose."""
+        if self.host_loop:
+            return self._host_episode(train_state, carry, dbuf, do_train,
+                                      timer)
+        return self._device_episode(train_state, carry, dbuf, do_train,
+                                    timer=timer)
+
     # ---- training loop -------------------------------------------------
     def run(self, log_fn=print, save_dir=None):
         """Train for cfg.num_env_steps. The first episode (and the first
@@ -334,7 +492,8 @@ class HanabiRunner:
         one before. With cfg.model_dir: the train state, the generators,
         the episode counter and the true-step count come from its
         checkpoint, and the fleet starts fresh, as in the JAX package.
-        Returns (train_state, logged rows)."""
+        With cfg.use_eval and an eval fleet, `evaluate` every
+        cfg.eval_interval episodes. Returns (train_state, logged rows)."""
         cfg = self.cfg
         T = cfg.episode_length
         train_state, carry, dbuf = self.init()
@@ -346,11 +505,16 @@ class HanabiRunner:
         history, metrics = [], {}
         start = time.perf_counter()
         for episode in range(start_episode, self.episodes):
-            train_state, carry, dbuf, m = self._device_episode(
+            train_state, carry, dbuf, m = self.episode(
                 train_state, carry, dbuf, do_train=episode > start_episode)
             # the one transfer of the episode
-            values = dict(zip(m, torch.stack([v.float() for v in m.values()])
-                              .tolist()))
+            values = {k: v for k, v in m.items() if not torch.is_tensor(v)}
+            on_device = {k: v.float() for k, v in m.items()
+                         if torch.is_tensor(v)}
+            if on_device:
+                values.update(zip(on_device,
+                                  torch.stack(list(on_device.values()))
+                                  .tolist()))
             self.true_total_num_steps += int(values.pop("_true_delta"))
             if save_dir and (episode % max(cfg.save_interval, 1) == 0
                              or episode == self.episodes - 1):
@@ -359,6 +523,10 @@ class HanabiRunner:
                               self._generators(),
                               {"true_total_num_steps": torch.tensor(
                                   self.true_total_num_steps)})
+            if cfg.use_eval and self.eval_envs is not None \
+                    and episode % cfg.eval_interval == 0:
+                metrics["eval_average_score"] = self.evaluate(
+                    train_state, cfg.eval_episodes, env=self.eval_envs)
             if (episode % cfg.log_interval == 0 and episode > 0) \
                     or episode == self.episodes - 1:
                 n_scores = int(values.pop("_score_n"))
@@ -382,15 +550,19 @@ class HanabiRunner:
     def evaluate_device(self, train_state, n_games: int,
                         generator: Optional[torch.Generator] = None,
                         max_steps: Optional[int] = None) -> float:
-        """Device-resident `eval_100k` (hanabi_runner_forward.py:281-329):
-        generations of N one-shot games, each policy's mode taken, run for
-        `max_steps` seat steps (finished games no-op); the mean score of
-        the first `n_games` finished games. Every play or discard draws
-        from the deck, hint streaks are bounded by the info tokens, and a
-        game ends one round after the deck empties, so the default bound
-        2·deck + max_info + players + 8 covers any game. Decks come from
-        `generator` (default: seeded with cfg.seed + 5)."""
+        """Device-resident `eval_100k` (hanabi_runner_forward.py:281-329)
+        on the tensor engine (`--use_jax_env`): generations of N one-shot
+        games, each policy's mode taken, run for `max_steps` seat steps
+        (finished games no-op); the mean score of the first `n_games`
+        finished games. Every play or discard draws from the deck, hint
+        streaks are bounded by the info tokens, and a game ends one round
+        after the deck empties, so the default bound 2·deck + max_info +
+        players + 8 covers any game. Decks come from `generator` (default:
+        seeded with cfg.seed + 5)."""
         cfg, env = self.cfg, self.envs
+        if not isinstance(env, TorchHanabiFleet):
+            raise ValueError("evaluate_device requires --use_jax_env (the "
+                             "tensor engine's fleet)")
         g, N = env.game, env.n_envs
         if max_steps is None:
             max_steps = 2 * g.deck_len + g.max_info + g.players + 8
@@ -418,7 +590,42 @@ class HanabiRunner:
             scores.extend(scr[done].tolist())
         return float(np.mean(np.asarray(scores[:n_games], np.float64)))
 
-    def evaluate(self, *args, **kwargs):
-        raise NotImplementedError(
-            "Hanabi evaluation on the C++ engine is not ported yet "
-            f"({E2}); use evaluate_device (--use_jax_env)")
+    @torch.no_grad()
+    def evaluate(self, train_state, n_games: int, env=None) -> float:
+        """Deterministic evaluation through a fleet's numpy protocol (`env`,
+        default the training fleet) until `n_games` games finish, or
+        100,000 steps pass; → their mean score (`eval` / `eval_100k`,
+        hanabi_runner_forward.py:228-329). Finished games are reset and
+        their recurrent states zeroed; the policy runs on the device."""
+        cfg = self.cfg
+        env = env or self.envs
+        N = env.n_envs
+        obs, _, avail, _ = env.reset()
+        rnn = torch.zeros(N, cfg.recurrent_N, cfg.hidden_size,
+                          device=self.device)
+        masks = torch.ones(N, 1, device=self.device)
+        scores = []
+        guard = 0
+        while len(scores) < n_games and guard < 100000:
+            guard += 1
+            choose = np.any(avail == 1, axis=1)
+            if not choose.any():
+                obs, _, avail, _ = env.reset()
+                rnn = torch.zeros_like(rnn)
+                continue
+            obs_t, avail_t = upload(self.device, obs, avail)
+            actions, rnn = self.algo.act(train_state, obs_t, rnn, masks,
+                                         available_actions=avail_t,
+                                         deterministic=True)
+            env_actions = np.full(N, -1, np.int64)
+            env_actions[choose] = actions[:, 0].cpu().numpy()[choose]
+            obs, _, _, done, _, avail, score = env.step(env_actions)
+            newly = done & choose
+            if newly.any():
+                scores.extend(score[newly].tolist())
+                o2, _, a2, _ = env.reset(newly)
+                obs[newly] = o2[newly]
+                avail[newly] = a2[newly]
+                (fresh,) = upload(self.device, newly)
+                rnn = torch.where(fresh[:, None, None] > 0, 0.0, rnn)
+        return float(np.mean(scores[:n_games])) if scores else 0.0

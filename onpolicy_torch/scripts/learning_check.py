@@ -21,7 +21,9 @@ card:
     fleets, hidden 256x2, the JAX package's defaults for every other flag
     but logging, on the device engine) to 1,024,000 buffer steps, its mark
     an average score of 0.5 by 215k buffer steps (the JAX package read
-    0.59, random play 0.02);
+    0.59, random play 0.02), and "hanabi_small_host", the same on the C++
+    engine through the host seat loop (the engine RESULTS.md:135-138 puts
+    the figure beside);
   * "hanabi_device" (`train_hanabi.CONFIGS`, train_hanabi_device.sh at
     full width) until the deadline; no mark is set;
 each Hanabi run logging every episode, its level at a step the
@@ -53,10 +55,11 @@ from pathlib import Path
 from onpolicy_torch.scripts import train_hanabi
 from onpolicy_torch.scripts.train_mpe import CONFIGS
 
-HANABI_SMALL = ["--env_name", "Hanabi", "--algorithm_name", "mappo",
-                "--hanabi_name", "Hanabi-Small", "--num_agents", "2",
-                "--n_rollout_threads", "256", "--hidden_size", "256",
-                "--layer_N", "2", "--use_jax_env", "--use_scan_rounds"]
+HANABI_SMALL_HOST = ["--env_name", "Hanabi", "--algorithm_name", "mappo",
+                     "--hanabi_name", "Hanabi-Small", "--num_agents", "2",
+                     "--n_rollout_threads", "256", "--hidden_size", "256",
+                     "--layer_N", "2"]
+HANABI_SMALL = HANABI_SMALL_HOST + ["--use_jax_env", "--use_scan_rounds"]
 # name → (script, flags, steps to run, steps at which to read the level)
 RUNS = {"reference": ("train_mpe", CONFIGS["reference"], 3_000_000,
                       (2_000_000, 3_000_000)),
@@ -66,6 +69,8 @@ RUNS = {"reference": ("train_mpe", CONFIGS["reference"], 3_000_000,
                          (3_400_000,)),
         "hanabi_small": ("train_hanabi", HANABI_SMALL, 1_024_000,
                          (215_000,)),
+        "hanabi_small_host": ("train_hanabi", HANABI_SMALL_HOST, 1_024_000,
+                              (215_000,)),
         "hanabi_device": ("train_hanabi", train_hanabi.CONFIGS["hanabi_device"],
                           10_000_000_000, ()),
         "mpe_mat": ("train_mpe", CONFIGS["mpe_mat"], 20_000_000,
@@ -199,9 +204,10 @@ def main(argv=None):
     if "comm" in runs:
         result["comm"]["first_reaching_-13"] = first_reaching(
             "comm", all_rows["comm"], COMM_MARK)
-    if "hanabi_small" in runs:
-        result["hanabi_small"]["first_reaching_0.5"] = first_reaching(
-            "hanabi_small", all_rows["hanabi_small"], HANABI_SMALL_MARK)
+    for name in ("hanabi_small", "hanabi_small_host"):
+        if name in runs:
+            result[name]["first_reaching_0.5"] = first_reaching(
+                name, all_rows[name], HANABI_SMALL_MARK)
     print(card)
     print(json.dumps({k: ({**v, "curve": len(v["curve"])}
                           if isinstance(v, dict) else v)

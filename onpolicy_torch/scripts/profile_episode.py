@@ -3,7 +3,7 @@
     python -m onpolicy_torch.scripts.profile_episode \
         [--config flagship|bench_mappo|bench_rmappo|reference|comm|
                   happo_spread|mpe_mat|mpe_mat_dec|hatrpo_spread|
-                  hanabi_device|bench_hanabi_width] \
+                  hanabi_device|bench_hanabi_width|hanabi_forward] \
         [--episodes 3] [--warmup 2]
 
 Runs one of `train_mpe.CONFIGS` (through the shared or the separated
@@ -15,10 +15,14 @@ rollout threads in bf16, train_mpe_mat.sh (MAT, 128 threads, n_embd 64:
 its rollout decodes the M=3 agents one after another), HATRPO on
 simple_spread (separated runner, one TRPO step an agent),
 train_hanabi_device.sh (rMAPPO, Hanabi-Full, hidden 512x2, 1000 fleets,
-T=100, 15 PPO epochs) or the JAX package's Hanabi bench configuration
-(the same in feed-forward MAPPO, bf16). Prints one JSON object:
+T=100, 15 PPO epochs), the JAX package's Hanabi bench configuration
+(the same in feed-forward MAPPO, bf16), or train_hanabi_forward.sh
+(feed-forward MAPPO in f32 on the C++ engine through the host seat loop).
+Prints one JSON object:
   * host wall time per episode, split into rollout (T env steps, or T
-    Hanabi seat rounds, with the policy's acts, and GAE) and update
+    Hanabi seat rounds, with the policy's acts, and GAE; on the C++
+    engine the engine's steps and the copies to and from the host) and
+    update
     (ppo_epoch PPO steps, or the separated runner's agent-by-agent
     update; for Hanabi the deferred update on the previous episode), each
     phase ended by `torch.cuda.synchronize()`;
@@ -124,8 +128,8 @@ def _hanabi_episodes(config):
 
     def episode(timer):
         state, carry, dbuf, trained = box
-        state, carry, dbuf, _ = runner._device_episode(
-            state, carry, dbuf, do_train=trained, timer=timer)
+        state, carry, dbuf, _ = runner.episode(state, carry, dbuf,
+                                               do_train=trained, timer=timer)
         box[:] = state, carry, dbuf, True
     return cfg, episode
 

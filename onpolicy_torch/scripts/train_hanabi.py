@@ -2,26 +2,35 @@
 
 Port of `onpolicy_tpu/scripts/train_hanabi.py` (the reference's
 `train_hanabi_forward.py`: flags `--hanabi_name`, `--num_agents`); runs
-on the card unless `--device cpu` is given. The device path
-(`--use_jax_env` with `--use_scan_rounds` or `--use_device_collect`) runs
-the port's tensor engine and episode loop (`runner/hanabi_runner.py`);
-the C++ engine and the host seat loop are ROADMAP.md item E2 and raise.
-`scripts/train_hanabi_scripts/train_hanabi_device.sh`, rMAPPO on
-Hanabi-Full at hidden 512x2 over 1000 fleets:
+on the card unless `--device cpu` is given. The policy, the buffer and
+the update run on the card; the games run on the C++ engine
+(`cpp/hanabi`, built with g++ into `onpolicy_torch/_build/libhanabi.so`)
+through the host seat loop, or with `--use_jax_env` on the port's tensor
+engine; `--use_scan_rounds` or `--use_device_collect` run the device
+round loop over either (`runner/hanabi_runner.py`). `--use_eval`
+evaluates on a C++ fleet of `--n_eval_rollout_threads` games every
+`--eval_interval` episodes.
+
+`scripts/train_hanabi_scripts/train_hanabi_forward.sh`, the reference
+paper's Hanabi-Full run (MAPPO, feed-forward, hidden 512x2, 1000 games):
 
     python -m onpolicy_torch.scripts.train_hanabi --env_name Hanabi \
-        --algorithm_name rmappo --experiment_name device \
+        --algorithm_name mappo --experiment_name check \
         --hanabi_name Hanabi-Full --num_agents 2 --seed 1 \
         --n_rollout_threads 1000 --num_mini_batch 1 --episode_length 100 \
-        --num_env_steps 10000000000 --ppo_epoch 15 --gain 0.01 \
+        --num_env_steps 10000000000000 --ppo_epoch 15 --gain 0.01 \
         --lr 7e-4 --critic_lr 1e-3 --hidden_size 512 --layer_N 2 \
-        --entropy_coef 0.015 --use_scan_rounds --use_jax_env \
-        --log_interval 1 --save_interval 5
+        --entropy_coef 0.015
 
-`CONFIGS` holds that script's flags and the JAX package's Hanabi bench
-configuration (`bench.py:188-244`: feed-forward MAPPO in bf16 at the same
-width, fleets, T and epochs), without a step count, for `chip_smoke.py`,
-`profile_episode.py` and `learning_check.py`.
+`train_hanabi_full.sh` adds `--use_eval` (and 1e10 steps);
+`train_hanabi_device.sh` is rMAPPO with `--use_scan_rounds --use_jax_env`
+and `--log_interval 1 --save_interval 5`.
+
+`CONFIGS` holds the flags of train_hanabi_device.sh, of
+train_hanabi_forward.sh and of the JAX package's Hanabi bench
+configuration (`bench.py:188-244`: feed-forward MAPPO in bf16 at the
+same width, fleets, T and epochs on the device engine), without a step
+count, for `chip_smoke.py`, `profile_episode.py` and `learning_check.py`.
 """
 from __future__ import annotations
 
@@ -36,16 +45,21 @@ _FULL_WIDTH = ["--env_name", "Hanabi", "--hanabi_name", "Hanabi-Full",
                "--num_mini_batch", "1", "--episode_length", "100",
                "--ppo_epoch", "15", "--gain", "0.01", "--lr", "7e-4",
                "--critic_lr", "1e-3", "--hidden_size", "512",
-               "--layer_N", "2", "--entropy_coef", "0.015",
-               "--use_scan_rounds", "--use_jax_env"]
+               "--layer_N", "2", "--entropy_coef", "0.015"]
+_DEVICE_ENGINE = ["--use_scan_rounds", "--use_jax_env"]
 CONFIGS = {
     # scripts/train_hanabi_scripts/train_hanabi_device.sh
-    "hanabi_device": _FULL_WIDTH + ["--algorithm_name", "rmappo", "--seed",
-                                    "1", "--log_interval", "1",
-                                    "--save_interval", "5"],
+    "hanabi_device": _FULL_WIDTH + _DEVICE_ENGINE + [
+        "--algorithm_name", "rmappo", "--seed", "1", "--log_interval", "1",
+        "--save_interval", "5"],
     # bench.py:188-244
-    "bench_hanabi_width": _FULL_WIDTH + ["--algorithm_name", "mappo",
-                                         "--use_bf16"],
+    "bench_hanabi_width": _FULL_WIDTH + _DEVICE_ENGINE + [
+        "--algorithm_name", "mappo", "--use_bf16"],
+    # scripts/train_hanabi_scripts/train_hanabi_forward.sh: the C++ engine
+    # through the host seat loop
+    "hanabi_forward": _FULL_WIDTH + ["--algorithm_name", "mappo",
+                                     "--experiment_name", "check", "--seed",
+                                     "1"],
 }
 
 
@@ -65,14 +79,16 @@ def config_from_args(argv) -> Config:
 
 
 def main(argv=None):
-    from onpolicy_torch.runner.hanabi_runner import E2, HanabiRunner
+    from onpolicy_torch.envs.hanabi.hanabi_env import HanabiVecEnv
+    from onpolicy_torch.runner.hanabi_runner import HanabiRunner
     cfg = config_from_args(argv if argv is not None else sys.argv[1:])
+    eval_env = None
     if cfg.use_eval:
-        raise NotImplementedError(
-            "training-time Hanabi eval runs on the C++ engine, which is not "
-            f"ported yet ({E2}); evaluate a checkpoint with "
-            "scripts/eval_hanabi.py --use_jax_env")
-    runner = HanabiRunner(cfg)
+        eval_env = HanabiVecEnv(
+            cfg.scenario_name, cfg.num_agents, cfg.n_eval_rollout_threads,
+            seed=cfg.seed * 50000,
+            use_obs_instead_of_state=cfg.use_obs_instead_of_state)
+    runner = HanabiRunner(cfg, eval_env=eval_env)
     run_dir = make_run_dir(cfg)
     logger = MetricsLogger(run_dir, cfg)
     try:
@@ -80,6 +96,8 @@ def main(argv=None):
                                     save_dir=run_dir / "models")
     finally:
         logger.close()
+        if eval_env is not None:
+            eval_env.close()
     return state, history
 
 

@@ -17,7 +17,8 @@ JAX's states (or replays JAX's key chain) and hands them to the port.
     outputs at the bf16 model limit 0.05.
 Then the runner's own mechanics, as tests/test_jax_hanabi.py checks the
 JAX package's: a short run, a resume, `evaluate_device`, the scripts, and
-the refusal (ROADMAP.md item E2) of the C++ engine and the host loop.
+one round of each round loop over each engine (the host path itself is
+held to JAX's in tests/test_torch_hanabi_host.py).
 """
 import jax
 import numpy as np
@@ -282,9 +283,23 @@ def test_scripts_train_and_eval(tmp_path, monkeypatch):
     dict(use_scan_rounds=False),
     dict(use_jax_env=True, use_scan_rounds=False, use_device_collect=False),
 ])
-def test_host_path_raises_e2(flags):
-    with pytest.raises(NotImplementedError, match="E2"):
-        _port_runner(**flags)
+def test_every_round_loop_runs_a_round(flags):
+    """The C++ engine through the device round, and the tensor engine and
+    the C++ engine through the host seat loop: each runner builds and
+    runs one round."""
+    r = _port_runner(**flags)
+    assert r.host_loop == (not r.cfg.use_scan_rounds)
+    ts, carry, _ = r.init()
+    if r.host_loop:
+        carry, aux = r._host_round(ts, carry)
+        true_delta = aux["true_delta"]
+    else:
+        carry, aux = r._device_round(ts, carry)
+        true_delta = int(aux["true_delta"])
+    # every game moves at seat 0; one that ends there skips seat 1
+    assert r.N <= true_delta <= r.N * r.num_agents
+    assert torch.isfinite(carry["values"]).all()
+    assert (carry["active"] == 1).any()
 
 
 @pytest.mark.parametrize("flags", [dict(episodes_per_call=2),
@@ -292,19 +307,6 @@ def test_host_path_raises_e2(flags):
 def test_flags_the_hanabi_runner_does_not_take_raise(flags):
     with pytest.raises(ValueError, match="profile_episode"):
         _port_runner(**flags)
-
-
-def test_host_round_and_host_evaluate_raise_e2(tmp_path):
-    r = _port_runner(use_device_collect=True, use_scan_rounds=False)
-    with pytest.raises(NotImplementedError, match="E2"):
-        r._host_round()
-    with pytest.raises(NotImplementedError, match="E2"):
-        r.evaluate(None, 8)
-    with pytest.raises(NotImplementedError, match="E2"):
-        train_hanabi.main(train_hanabi.CONFIGS["hanabi_device"] + [
-            "--device", "cpu", "--use_eval"])
-    with pytest.raises(NotImplementedError, match="E2"):
-        eval_hanabi.main(["--device", "cpu", "--eval_games", "1"])
 
 
 def test_the_buffer_is_the_ports():

@@ -189,12 +189,12 @@ def test_config_refuses_what_it_cannot_run():
 
 
 @pytest.mark.parametrize("override", [
-    dict(mesh_shape=(2,)), dict(env_name="Hanabi"),
+    dict(mesh_shape=(2,)), dict(env_name="StarCraft2"),
     dict(scenario_name="simple_tag"),
     dict(algorithm_name="mat", use_popart=True, use_valuenorm=False),
     dict(use_popart=True, use_valuenorm=False)])
 def test_runner_refuses_unported_options(override):
-    """Each names its ROADMAP.md item (G, E2, B3, B4 for MAT and MAPPO)."""
+    """Each names its ROADMAP.md item (G, F, B3, B4 for MAT and MAPPO)."""
     from onpolicy_torch.runner.shared_runner import SharedRunner
     cfg = canonicalize_algorithm(Config(
         algorithm_name=override.pop("algorithm_name", "rmappo"),
