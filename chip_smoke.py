@@ -63,8 +63,15 @@ Phases, each of which fails the run (non-zero exit) if it fails:
               and MAPPO and rMAPPO at H=32 (6 games) on the C++ engine
               through the host seat loop from the same engine seed, each
               an untrained episode and a trained one, the GRU launches of
-              the update asserted): rollout, update metrics, and the
-              parameters' change;
+              the update asserted), rMAPPO with PopArt (in place of
+              ValueNorm) and rMAPPO on simple_world_comm (6 agents
+              through the separated runner): rollout, update metrics,
+              and the parameters' change; then, at a small size, the
+              Box, MultiBinary and mixed heads and the CNN base
+              (Box((4, 10, 10)) observations) forward and gradients, and
+              each of the seven scenarios ported last (and
+              simple_world_comm with walls, action and comm noise)
+              stepped 26 steps, card against CPU in f32;
               then the port's `scripts/train_mpe.main` or
               `scripts/train_hanabi.main` for each run of `TRAIN_RUNS`: the
               flagship rMAPPO for 10 episodes, the JAX package's two
@@ -83,7 +90,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
               MAPPO, the same width, on the C++ engine through the host
               seat loop) for 3, then `scripts/eval_hanabi.main` with
               eval_hanabi_forward.sh's flags on its checkpoint (8 games on
-              the C++ engine). Each run's kernel launches are asserted
+              the C++ engine), the flagship with PopArt for 3 and
+              `world_comm` (the flagship's flags on simple_world_comm,
+              separated policies) for 5. Each run's kernel launches are asserted
               (derived beside `TRAIN_RUNS`), and the wide forward's step
               launches (T a forward) where it runs; every parameter on
               the card; every logged metric finite; env-steps/s printed
@@ -139,6 +148,11 @@ HANABI = dict(T=10, B=20000, H=512)      # 100*1000*2/10 chunks of L=10
 #     twice, which the kernels cannot, so its GRU is the plain scan, as
 #     the JAX package routes it (models/gru.py)                = 0, 0
 #   hanabi_forward: feed-forward                               = 0, 0
+#   flagship+popart: the flagship with PopArt in place of
+#     ValueNorm; the GRU shapes are the flagship's           = 20, 20
+#   world_comm (separated, 6 agents, 10 epochs, rMAPPO, so no
+#     whole-episode log-probs): 6 x 10 x 2, at T=10 B=320 per agent
+#                                                              = 120, 120
 TRAIN_RUNS = (("flagship", "train_mpe", "flagship", (), 10, 20, 20),
               ("bench_mappo", "train_mpe", "bench_mappo", (), 3, 0, 0),
               ("bench_rmappo", "train_mpe", "bench_rmappo", (), 3, 20, 20),
@@ -153,7 +167,28 @@ TRAIN_RUNS = (("flagship", "train_mpe", "flagship", (), 10, 20, 20),
               ("mpe_mat", "train_mpe", "mpe_mat", (), 3, 0, 0),
               ("hatrpo_spread", "train_mpe", "hatrpo_spread", (), 3, 0, 0),
               ("hanabi_forward", "train_hanabi", "hanabi_forward", (), 3, 0,
-               0))
+               0),
+              ("flagship+popart", "train_mpe", "flagship",
+               ("--use_popart", "--use_valuenorm", "false"), 3, 20, 20),
+              ("world_comm", "train_mpe", "world_comm", (), 5, 120, 120))
+# phase 5's scenario checks: (case, scenario, num_agents, num_landmarks,
+# num_good_agents, num_adversaries, walls and noise), the arguments of the
+# JAX package's golden test of each scenario (simple_attack: 2 + 2 agents
+# on 4 landmarks); the last case adds two walls, action noise and comm
+# noise to simple_world_comm
+SCENARIO_CHECKS = (
+    ("simple_adversary", "simple_adversary", 3, 2, 1, 3, False),
+    ("simple_tag", "simple_tag", 4, 2, 1, 3, False),
+    ("simple_push", "simple_push", 2, 2, 1, 3, False),
+    ("simple_crypto", "simple_crypto", 3, 2, 1, 3, False),
+    ("simple_crypto_display", "simple_crypto_display", 3, 2, 1, 3, False),
+    ("simple_attack", "simple_attack", 4, 4, 2, 2, False),
+    ("simple_world_comm", "simple_world_comm", 6, 1, 2, 4, False),
+    ("world_comm walls+noise", "simple_world_comm", 6, 1, 2, 4, True))
+# the flags of phase 5's world_comm card-vs-CPU episode
+WORLD_COMM = dict(scenario_name="simple_world_comm", num_agents=6,
+                  num_landmarks=1, num_good_agents=2, num_adversaries=4,
+                  share_policy=False)
 # phase 5's card-vs-CPU Hanabi runs (2 agents): Hanabi-Small rMAPPO on the
 # device engine at 8 fleets, T=20, hidden 128, so that the CUDA-core
 # kernels carry its update (T=10, B=32, H=128); and on the C++ engine
@@ -801,6 +836,131 @@ def check_small_against_cpu(torch, name, tol, update_tol, **flags):
         + " of its norm  ok")
 
 
+def check_models_against_cpu(torch, cg, tol=(1e-3, 1e-4)):
+    """The heads and the base this slice added, on the card against the
+    CPU from the same parameters and inputs, at a small size: an MLP actor
+    (8 features) with the Box, the MultiBinary and the mixed Box+Discrete
+    head, and an `Actor` / `Critic` pair on a Box((4, 10, 10)) image space
+    (the CNN base), all recurrent at hidden 32 (the card's sequence GRU is
+    the kernels), over [L=5, B=24] sequences: the log-probs, the entropy,
+    the values and the gradient of every parameter of both networks, each
+    within `tol` relative to its largest entry (phase 5's f32
+    tolerance)."""
+    from onpolicy_torch.config import Config
+    from onpolicy_torch.models import actor_critic
+    from onpolicy_torch.utils import spaces as sp
+    from onpolicy_torch.utils.tree import tree_leaves, tree_map
+    cfg = Config(hidden_size=32, use_ReLU=False, gain=0.5, device="cpu")
+    L, B = 5, 24
+    err, f0 = 0.0, cg.FWD_LAUNCHES
+    for name, obs_space, act_space in (
+            ("box head", sp.Box((8,)), sp.Box((3,))),
+            ("multibinary head", sp.Box((8,)), sp.MultiBinary(4)),
+            ("mixed head", sp.Box((8,)), sp.MixedSpace(2, 4)),
+            ("cnn base", sp.Box((4, 10, 10)), sp.Discrete(5))):
+        actor = actor_critic.Actor(cfg, obs_space, act_space)
+        critic = actor_critic.Critic(cfg, obs_space)
+        g = torch.Generator().manual_seed(0)
+        params = [actor.init(g, "cpu"), critic.init(g, "cpu")]
+        scale = 255.0 if name == "cnn base" else 2.0
+        obs = torch.rand(L, B, *obs_space.shape, generator=g) * scale
+        h0 = torch.randn(B, 1, 32, generator=g) * 0.5
+        masks = (torch.rand(L, B, 1, generator=g) > 0.2).float()
+        actions, _, _ = actor.forward(
+            params[0], obs.reshape(L * B, *obs_space.shape),
+            h0.repeat(L, 1, 1), masks.reshape(L * B, 1), g)
+        actions = actions.reshape(L, B, -1)
+
+        def run(device):
+            p = tree_map(lambda x: x.to(device).requires_grad_(True), params)
+            to = lambda x: x.to(device)
+            lp, ent = actor.evaluate_seq(p[0], to(obs), to(h0), to(actions),
+                                         to(masks))
+            v = critic.forward_seq(p[1], to(obs), to(h0), to(masks))
+            grads = torch.autograd.grad(
+                lp.sum() + ent + v.square().sum(), tree_leaves(p))
+            return [x.detach().cpu() for x in (lp, ent, v, *grads)]
+        got, want = run("cuda"), run("cpu")
+        torch.cuda.synchronize()
+        for i, (a, b) in enumerate(zip(got, want)):
+            what = ("log_probs", "entropy", "values")[i] if i < 3 \
+                else f"grad[{i - 3}]"
+            big = float(b.abs().max()) or 1.0
+            assert_close(torch, f"{name} {what}", a, b, *tol, big)
+            err = max(err, max_err(a, b, big))
+    if cg.FWD_LAUNCHES == f0:
+        raise AssertionError("the models' sequence GRU launched no kernel")
+    log(f"  card vs CPU, the Box, MultiBinary and mixed heads and the CNN "
+        f"base (L={L} B={B} H=32): log-probs, entropy, values and every "
+        f"gradient, max err {err:.2e} relative to each one's largest entry"
+        "  ok")
+
+
+def check_scenarios_against_cpu(torch, steps=26, n_envs=16,
+                                tol=(1e-4, 1e-4)):
+    """Each scenario of `SCENARIO_CHECKS` stepped on the card and on the
+    CPU in f32 from the same resets (drawn on the CPU), the same random
+    actions and, where the world has noise, the same standard normal
+    draws; every env finishes at step 25 and restarts from the same
+    injected worlds. Observations, rewards and positions agree within
+    `tol` (rtol, atol) at every step; the sums of the collision, wall and
+    distance terms reorder between the two devices."""
+    from onpolicy_torch.envs.mpe import world as world_lib
+    from onpolicy_torch.envs.mpe.env import MPEEnv, MPEVecEnv
+    from onpolicy_torch.envs.mpe.world import WorldState
+    from onpolicy_torch.utils.tree import tree_map
+    worst = {}
+    for case, name, M, K, good, adv, special in SCENARIO_CHECKS:
+        env = MPEEnv(name, M, K, 25, good, adv)
+        if special:
+            env.spec = dataclasses.replace(
+                env.spec,
+                walls=(world_lib.WallSpec("H", 0.3, (-0.5, 0.6)),
+                       world_lib.WallSpec("V", -0.2, (-0.8, 0.4), 0.2, False)),
+                agent_ghost=tuple(i % 2 == 1 for i in range(M)),
+                agent_u_noise=(0.3,) * M,
+                agent_c_noise=(0.5,) + (None,) * (M - 1))
+        g = torch.Generator().manual_seed(7)
+        vecs = {d: MPEVecEnv(env, n_envs, d, torch.Generator(device=d))
+                for d in ("cuda", "cpu")}
+        on = lambda st, d: WorldState.from_tensors(
+            tree_map(lambda t: t.to(d), st.tensors()))
+        state, _ = env.reset(n_envs, g, "cpu")
+        states = {d: on(state, d) for d in vecs}
+        heads = [getattr(s, "nvec", None) or (s.n,) for s in env.action_space]
+        width = max(len(h) for h in heads)
+        err = 0.0
+        for t in range(steps):
+            acts = torch.stack([torch.stack(
+                [torch.randint(0, h[c] if c < len(h) else 1, (n_envs,),
+                               generator=g) for c in range(width)], -1)
+                for h in heads], 1)
+            resets, _ = env.reset(n_envs, g, "cpu")
+            noise = env.draw_noise(n_envs, g, state.agent_pos)
+            out = {}
+            for d, vec in vecs.items():
+                to = lambda x: tree_map(lambda y: y.to(d), x)
+                out[d] = vec.step(states[d], acts.to(d), on(resets, d),
+                                  to(noise))
+                states[d] = out[d][0]
+            (s_g, o_g, r_g, d_g), (s_c, o_c, r_c, d_c) = (out["cuda"],
+                                                          out["cpu"])
+            if not torch.equal(d_g.cpu(), d_c):
+                raise AssertionError(f"{case} step {t}: dones differ")
+            pairs = [(f"obs {i}", a, b) for i, (a, b) in enumerate(zip(o_g,
+                                                                      o_c))]
+            pairs += [("rewards", r_g, r_c),
+                      ("agent_pos", s_g.agent_pos, s_c.agent_pos)]
+            for what, a, b in pairs:
+                assert_close(torch, f"{case} step {t} {what}", a.cpu(), b,
+                             *tol)
+                err = max(err, max_err(a.cpu(), b))
+        worst[case] = err
+    log(f"  card vs CPU, MPE scenarios, {steps} steps of {n_envs} envs (an "
+        f"auto-reset at 25), f32, max abs err: "
+        + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()) + "  ok")
+
+
 def check_hanabi_against_cpu(torch, cg, name, argv, tol=(1e-3, 1e-4),
                              update_tol=1e-3):
     """A Hanabi runner of `argv` (2 agents) on the card and on the CPU, from
@@ -1119,6 +1279,17 @@ def main() -> int:
         "and HATRPO's Fisher-vector product differentiates the GRU twice, "
         "which the kernels' backward refuses, so its GRU runs as the plain "
         "scan on the card, as the JAX package routes it")
+    # PopArt in place of ValueNorm, and the 6 agents of simple_world_comm
+    # through the separated runner; then the new heads and the CNN base,
+    # and every new scenario with the world's walls and noise
+    check_small_against_cpu(torch, "rmappo popart f32", (1e-3, 1e-4), 1e-3,
+                            algorithm_name="rmappo", use_popart=True,
+                            use_valuenorm=False)
+    check_small_against_cpu(torch, "rmappo world_comm f32 (6 agents)",
+                            (1e-3, 1e-4), 1e-3, algorithm_name="rmappo",
+                            **WORLD_COMM)
+    check_models_against_cpu(torch, cg)
+    check_scenarios_against_cpu(torch)
     # the device engine at H=128 (the CUDA-core kernels carry its update)
     check_hanabi_against_cpu(torch, cg, "hanabi rmappo f32 H=128 (device "
                              "engine, decks injected)", HANABI_DEVICE_CHECK)

@@ -5,8 +5,9 @@ Port of `onpolicy_tpu/algorithms/happo.py` (the reference's
 jointly over action heads, exp(Σ_k Δlogp_k) keepdim, and the clipped
 surrogate weighted by the running `factor` of the sequential agent-by-agent
 update, which the separated runner keeps (`runner/separated_runner.py`).
-Under PopArt it would use the stats-only normalizer; PopArt itself is
-ROADMAP.md item B4 and raises.
+Under `use_popart` it keeps the stats-only normalizer and leaves the
+critic's head as it is (`popart_rescales_head = False`; the reference's
+popart_hatrpo.py is a ValueNorm clone).
 """
 from __future__ import annotations
 

@@ -16,8 +16,12 @@ minibatch:
       positive improvement wins; if none does the old parameters are kept
       (:277-321).
 
-The KL is the reference's smoothed logit-space surrogate exp(Δ) − 1 − Δ
-for categoricals against the detached old logits (`kl_approx`, :130-153).
+The KL is the reference's: for a Box head the closed-form gaussian
+KL(old ‖ new), log σ − log σ_old + (σ_old² + (μ_old − μ)²)/(2σ²) − ½,
+summed keepdim; for categoricals the smoothed logit-space surrogate
+exp(Δ) − 1 − Δ (`kl_approx`, :130-153); the old side is given detached.
+The critic's normalizer updates under `use_popart` or `use_valuenorm`
+(the stats-only normalizer, as HAPPO's).
 The JAX package takes the Fisher-vector product forward-over-reverse
 (`jax.jvp` of the KL gradient); here it is reverse-over-reverse, the
 reference trainer's own form: the KL gradient is taken once with
@@ -25,8 +29,7 @@ reference trainer's own form: the KL gradient is taken once with
 The actor's parameters are flattened into one vector (`_flatten`) for the
 CG and the line search, and unflattened for each evaluation. The
 sequence GRU of this actor runs as the plain scan (`models/gru.py`): the
-product differentiates it twice. The Gaussian KL of a Box head is
-ROADMAP.md item B4, with the head itself (`models/act.py`).
+product differentiates it twice.
 """
 from __future__ import annotations
 
@@ -84,10 +87,19 @@ class HATRPO(HAPPO):
 
     @staticmethod
     def _kl(new_out, old_out):
-        """KL(old ‖ new) per row, summed keepdim: the smoothed categorical
-        form against the old logits (given detached)."""
-        delta = new_out[4] - old_out[4]
-        return (torch.exp(delta) - 1.0 - delta).sum(-1, keepdim=True)
+        """KL(old ‖ new) per row, summed keepdim, against the old outputs
+        (given detached): closed-form gaussian when the head has a mean,
+        else the smoothed categorical form over the logits."""
+        _, _, mu, std, logits = new_out
+        _, _, mu_old, std_old, logits_old = old_out
+        if mu is None:
+            delta = logits - logits_old
+            kl = torch.exp(delta) - 1.0 - delta
+        else:
+            kl = (torch.log(std) - torch.log(std_old)
+                  + (std_old.square() + (mu_old - mu).square())
+                  / (2.0 * std.square()) - 0.5)
+        return kl.sum(-1, keepdim=True)
 
     def _rows(self, mb):
         """The minibatch's flat per-row terms of the surrogate."""
@@ -111,7 +123,7 @@ class HATRPO(HAPPO):
         value loss, gradient norm)."""
         cfg = self.cfg
         vnorm = state.vnorm
-        if cfg.use_valuenorm:
+        if cfg.use_popart or cfg.use_valuenorm:
             vnorm = vn.update(vnorm, mb["returns"].reshape(-1, 1))
         cp = tree_map(lambda x: x.detach().requires_grad_(True),
                       state.critic_params)

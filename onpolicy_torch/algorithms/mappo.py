@@ -20,7 +20,14 @@ the critic once per env. HAPPO (`algorithms/happo.py`) is this trainer
 with the joint ratio over action heads; its sequential-update `factor`
 goes through `train` to the sampler and the loss, and
 `evaluate_full_logp` gives the whole-episode log-probs it is built from.
-PopArt is ROADMAP.md item B4 and raises here.
+
+`use_popart` (JAX `mappo.py:83, 136-146`): the statistics live in the
+state's `vnorm`, which exists under `use_popart` or `use_valuenorm`.
+Before each loss `popart.update` folds the returns into them and rescales
+the critic's `v_out` so that its denormalized outputs stay put
+(`popart_rescales_head`); Adam's moments of `v_out` are not rescaled, in
+either package. HAPPO and HATRPO keep the stats-only normalizer under
+`use_popart` (the reference's popart_hatrpo.py is a ValueNorm clone).
 """
 from __future__ import annotations
 
@@ -31,7 +38,7 @@ from typing import Any, Optional, Sequence, Tuple
 import torch
 
 from onpolicy_torch import buffer as buf_lib
-from onpolicy_torch.models import actor_critic
+from onpolicy_torch.models import actor_critic, popart
 from onpolicy_torch.ops import losses, schedules, valuenorm as vn
 from onpolicy_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -56,9 +63,6 @@ class MAPPO:
 
     def __init__(self, cfg, obs_space, share_obs_space, act_space,
                  total_updates: int = 1):
-        if cfg.use_popart:
-            raise NotImplementedError(
-                "use_popart is not ported yet (ROADMAP.md, item B4)")
         self.cfg = cfg
         self.act_space = act_space
         self.actor = actor_critic.Actor(cfg, obs_space, act_space)
@@ -84,7 +88,8 @@ class MAPPO:
         to `device`."""
         actor_params = self.actor.init(generator, device)
         critic_params = self.critic.init(generator, device)
-        vnorm = vn.create(1, device=device) if self.cfg.use_valuenorm else None
+        vnorm = vn.create(1, device=device) \
+            if (self.cfg.use_valuenorm or self.cfg.use_popart) else None
         return TrainState(
             actor_params=actor_params, critic_params=critic_params,
             actor_opt_state=self.actor_tx.init(actor_params),
@@ -166,13 +171,20 @@ class MAPPO:
 
     def _update(self, state: TrainState, mb: dict) -> Tuple[TrainState, dict]:
         """One PPO minibatch update (`r_mappo.ppo_update`)."""
+        cfg = self.cfg
         vnorm = state.vnorm
-        if self.cfg.use_valuenorm:
-            vnorm = vn.update(vnorm, mb["returns"].reshape(-1, 1))
+        critic_params = state.critic_params
+        returns = mb["returns"].reshape(-1, 1)
+        if cfg.use_popart and self.popart_rescales_head:
+            v_out, vnorm = popart.update(critic_params["v_out"], vnorm,
+                                         returns)
+            critic_params = {**critic_params, "v_out": v_out}
+        elif cfg.use_popart or cfg.use_valuenorm:
+            vnorm = vn.update(vnorm, returns)
 
         leaf = lambda x: x.detach().requires_grad_(True)
         ap = tree_map(leaf, state.actor_params)
-        cp = tree_map(leaf, state.critic_params)
+        cp = tree_map(leaf, critic_params)
         a_leaves, c_leaves = tree_leaves(ap), tree_leaves(cp)
         with torch.enable_grad():
             total, aux = self._loss(ap, cp, vnorm, mb)
@@ -189,8 +201,8 @@ class MAPPO:
             tree_unflatten(state.actor_params, a_grads),
             state.actor_opt_state, state.actor_params)
         critic_params, c_opt = self.critic_tx.update(
-            tree_unflatten(state.critic_params, c_grads),
-            state.critic_opt_state, state.critic_params)
+            tree_unflatten(critic_params, c_grads),
+            state.critic_opt_state, critic_params)
         return state.replace(actor_params=actor_params,
                              critic_params=critic_params,
                              actor_opt_state=a_opt, critic_opt_state=c_opt,

@@ -10,7 +10,10 @@ get_actions / get_values / act / train interface the shared runner calls
 (rnn-state arguments pass through untouched,
 `transformer_policy.py:117-119`). The critic is the encoder's value head;
 it reads obs, or the centralized state under `encode_state`
-(`critic_reads`).
+(`critic_reads`). MAT has no PopArt branch: it normalizes its targets
+only under `use_valuenorm` (JAX `mat.py:75, 121`), whatever `use_popart`
+says. Box action spaces decode with the transformer's gaussian head; their
+log-probs and entropies are per action dimension.
 """
 from __future__ import annotations
 
@@ -44,9 +47,6 @@ class MAT:
 
     def __init__(self, cfg, obs_space, share_obs_space, act_space,
                  total_updates: int = 1, num_agents: int = None):
-        if cfg.use_popart:
-            raise NotImplementedError(
-                "use_popart is not ported yet (ROADMAP.md, item B4)")
         self.cfg = cfg
         self.num_agents = num_agents if num_agents is not None \
             else cfg.num_agents

@@ -14,6 +14,8 @@ Semantics kept:
     returns the fresh obs with the terminal step's rewards/dones.
 
 Actions arrive in storage format: integer indices [N, M, n_heads].
+A world with action or comm noise (`world.has_noise`) takes standard
+normal draws each step: from the vec env's generator, or given (`noise`).
 """
 from __future__ import annotations
 
@@ -24,7 +26,8 @@ import numpy as np
 import torch
 
 from onpolicy_torch.envs.mpe import scenarios as scenario_registry
-from onpolicy_torch.envs.mpe.world import WorldState, physics_step, select
+from onpolicy_torch.envs.mpe.world import (WorldState, has_noise,
+                                           physics_step, select)
 from onpolicy_torch.utils import spaces as sp
 
 
@@ -108,10 +111,29 @@ class MPEEnv:
             c = torch.zeros(a.shape[0], M, 1, dtype=like.dtype, device=like.device)
         return u, c
 
-    def step(self, state: WorldState, actions: torch.Tensor):
-        """→ (state', obs tuple, rewards [N, M, 1], done [N] bool)."""
+    def draw_noise(self, n_envs: int, generator, like: torch.Tensor):
+        """The standard normal draws one step of this world's noise takes
+        (`physics_step`'s `noise`), None if it has none."""
+        need_u, need_c = has_noise(self.spec)
+        if not (need_u or need_c):
+            return None
+        M = self.spec.n_agents
+        randn = lambda *shape: torch.randn(*shape, generator=generator,
+                                           dtype=like.dtype,
+                                           device=like.device)
+        noise = {}
+        if need_u:
+            noise["u"] = randn(n_envs, M, 2)
+        if need_c:
+            noise["c"] = randn(n_envs, M, self.spec.dim_c)
+        return noise
+
+    def step(self, state: WorldState, actions: torch.Tensor, noise=None):
+        """→ (state', obs tuple, rewards [N, M, 1], done [N] bool).
+        `noise`: the world's noise draws (`draw_noise`), where it has
+        noise."""
         u, c = self._decode_actions(actions, state.agent_pos)
-        state = physics_step(self.spec, state, u, c)
+        state = physics_step(self.spec, state, u, c, noise)
         obs = self.scenario.observation(self.spec, state)
         rew = self.scenario.reward(self.spec, state)                # [N, M]
         if getattr(self.scenario, "shared_reward", False):
@@ -141,13 +163,17 @@ class MPEVecEnv:
                               self.dtype)
 
     def step(self, states: WorldState, actions: torch.Tensor,
-             reset_states: Optional[WorldState] = None):
+             reset_states: Optional[WorldState] = None, noise=None):
         """actions [N, M, heads] → (states', obs, rewards [N, M, 1],
         dones [N, M]). Finished envs restart from `reset_states` when
         given (pre-drawn, e.g. by a test), else from a fresh draw of the
         env's generator; they return the fresh obs with the terminal
-        rewards/dones."""
-        states2, obs, rew, done = self.env.step(states, actions)
+        rewards/dones. A world with noise takes `noise` when given, else
+        draws it from the env's generator."""
+        if noise is None:
+            noise = self.env.draw_noise(self.n_envs, self.generator,
+                                        states.agent_pos)
+        states2, obs, rew, done = self.env.step(states, actions, noise)
         if reset_states is None:
             reset_states, reset_obs = self.reset()
         else:

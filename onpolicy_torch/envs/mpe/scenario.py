@@ -59,3 +59,30 @@ def gather_landmarks(state: WorldState, idx: torch.Tensor) -> torch.Tensor:
     """Positions of the landmarks `idx` [N, P] of each world → [N, P, 2]."""
     return state.landmark_pos.gather(
         1, idx.long()[..., None].expand(*idx.shape, 2))
+
+
+def landmark_rel(state: WorldState, p_i: torch.Tensor) -> torch.Tensor:
+    """Every landmark's position relative to p_i [N, 2] → [N, 2K]."""
+    return (state.landmark_pos - p_i[:, None]).reshape(p_i.shape[0], -1)
+
+
+def mask(flags, like: torch.Tensor) -> torch.Tensor:
+    """A per-agent (or per-entity) tuple of bools as a bool tensor on
+    `like`'s device."""
+    return torch.tensor(flags, dtype=torch.bool, device=like.device)
+
+
+def values(numbers, like: torch.Tensor) -> torch.Tensor:
+    """A per-agent (or per-entity) tuple of numbers (sizes) as a tensor
+    in `like`'s dtype and device."""
+    return torch.tensor(numbers, dtype=like.dtype, device=like.device)
+
+
+def bound_penalty(x: torch.Tensor) -> torch.Tensor:
+    """The soft screen-exit penalty of |coordinate| x (the reference's
+    `bound`, simple_tag.py:102-108): 0 below 0.9, linear to 1, then
+    exp(2x − 2) capped at 10."""
+    return torch.where(
+        x < 0.9, 0.0,
+        torch.where(x < 1.0, (x - 0.9) * 10.0,
+                    torch.clamp_max(torch.exp(2.0 * x - 2.0), 10.0)))

@@ -55,7 +55,7 @@ def observation(spec: WorldSpec, state):
         p_i = pos[:, i]
         obs.append(torch.cat([
             state.agent_vel[:, i],
-            (state.landmark_pos - p_i[:, None]).reshape(pos.shape[0], -1),
+            sc.landmark_rel(state, p_i),
             colors[goal_b[:, i] % colors.shape[0]],
             sc.others_concat(state.agent_comm[..., :spec.dim_c], i),
         ], -1))

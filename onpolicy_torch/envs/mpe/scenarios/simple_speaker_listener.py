@@ -53,7 +53,7 @@ def observation(spec: WorldSpec, state):
     speaker = colors[state.extras["goal"] % colors.shape[0]]
     listener = torch.cat([
         state.agent_vel[:, 1],
-        (state.landmark_pos - pos[:, 1:2]).reshape(pos.shape[0], -1),
+        sc.landmark_rel(state, pos[:, 1]),
         state.agent_comm[:, 0, :spec.dim_c],      # the speaker's utterance
     ], -1)
     return (speaker, listener)

@@ -47,7 +47,7 @@ def observation(spec: WorldSpec, state):
         obs.append(torch.cat([
             state.agent_vel[:, i],
             p_i,
-            (state.landmark_pos - p_i[:, None]).reshape(pos.shape[0], -1),
+            sc.landmark_rel(state, p_i),
             sc.others_concat(pos - p_i[:, None], i),
             sc.others_concat(state.agent_comm[..., :spec.dim_c], i),
         ], -1))

@@ -13,9 +13,16 @@ Semantics kept (quirks included):
     and contact_margin=1e-3, mass-ratio weighting for movable pairs. The
     penetration is `logaddexp(0, x)`, not `F.softplus`, which turns linear
     above its threshold and would break the float64 comparison;
+  * wall contact forces on agents (`_wall_forces`): the same softplus
+    penetration against a wall's face, its ends rounded by the agent's
+    size; ghost agents pass through soft walls;
+  * action noise u_noise·ε added to the action force, comm noise
+    c_noise·ε to the comm action, ε standard normal: the draws
+    ([N, M, 2] and [N, M, dim_c]) come in through `physics_step`'s `noise`,
+    so a test can give it the JAX package's;
   * semi-implicit Euler: v ← v·(1−damping) + F/m·dt; speed clamp with the
     EPS floor under the square root; p ← p + v·dt;
-  * comm state: zeros when silent, else the comm action.
+  * comm state: zeros when silent, else the comm action (+ noise).
 
 Entity order: agents then landmarks. Static metadata lives in `WorldSpec`,
 the dynamic state in `WorldState`.
@@ -161,29 +168,79 @@ def _collision_forces(spec: WorldSpec, pos: torch.Tensor) -> torch.Tensor:
     return (w[..., None] * force).sum(2)
 
 
+def _wall_forces(spec: WorldSpec, pos: torch.Tensor) -> torch.Tensor:
+    """Wall contact forces on agents. pos: [N, M, 2] → [N, M, 2]."""
+    if not spec.walls:
+        return torch.zeros_like(pos)
+    s = _const(np.array(spec.agent_size, np.float64), pos)         # [M]
+    ghost = np.array(spec.agent_ghost, bool)
+    k = spec.contact_margin
+    total = torch.zeros_like(pos)
+    for wall in spec.walls:
+        prll, perp = (0, 1) if wall.orient == "H" else (1, 0)
+        p_prll, p_perp = pos[..., prll], pos[..., perp]             # [N, M]
+        lo, hi = wall.endpoints
+        beyond = (p_prll < lo - s) | (p_prll > hi + s)
+        below, above = p_prll < lo, p_prll > hi
+        past_end = (torch.where(below, p_prll - lo, 0.0)
+                    + torch.where(above, p_prll - hi, 0.0))
+        partial = below | above
+        theta = torch.where(partial,
+                            torch.arcsin(torch.clamp(past_end / s, -1.0, 1.0)),
+                            0.0)
+        dist_min = torch.where(partial, torch.cos(theta) * s, s) \
+            + 0.5 * wall.width
+        delta = p_perp - wall.axis_pos
+        dist = torch.clamp_min(delta.abs(), EPS)
+        x = -(dist - dist_min) / k
+        penetration = torch.logaddexp(torch.zeros_like(x), x) * k
+        fmag = spec.contact_force * delta / dist * penetration
+        f = torch.zeros_like(pos)
+        f[..., perp] = torch.cos(theta) * fmag
+        f[..., prll] = torch.sin(theta) * fmag.abs()
+        passes = _const(ghost & (not wall.hard), pos).bool()       # [M]
+        total = total + torch.where((~beyond & ~passes)[..., None], f, 0.0)
+    return total
+
+
+def _noise_scale(noise_per_agent) -> np.ndarray:
+    return np.array([n if n else 0.0 for n in noise_per_agent], np.float64)
+
+
+def has_noise(spec: WorldSpec) -> Tuple[bool, bool]:
+    """(action noise, comm noise): whether a step needs each draw."""
+    return (bool(_noise_scale(spec.agent_u_noise).any()),
+            spec.dim_c > 0 and bool(_noise_scale(spec.agent_c_noise).any()))
+
+
 def physics_step(spec: WorldSpec, state: WorldState, u: torch.Tensor,
-                 c: torch.Tensor) -> WorldState:
+                 c: torch.Tensor, noise: Optional[dict] = None) -> WorldState:
     """One step of N worlds. u: [N, M, 2] sensitivity-scaled control;
-    c: [N, M, dim_c]."""
-    if spec.walls or any(spec.agent_u_noise) or any(spec.agent_c_noise):
-        raise NotImplementedError(
-            "MPE walls and action/comm noise are not ported yet; no ported "
-            "scenario has them (ROADMAP.md, item B3)")
+    c: [N, M, dim_c]. `noise` holds the standard normal draws the spec's
+    noise needs (`has_noise`): "u" [N, M, 2] and "c" [N, M, dim_c]."""
     M = spec.n_agents
     like = state.agent_pos
+    need_u, need_c = has_noise(spec)
+    if (need_u or need_c) and noise is None:
+        raise ValueError("this world has action or comm noise: pass its "
+                         "standard normal draws as `noise`")
     accel = np.array([a if a is not None else np.nan
                       for a in spec.agent_accel], np.float64)
     mass_a = np.array(spec.agent_mass, np.float64)
     movable_a = np.array(spec.agent_movable, bool)
     factor = np.where(np.isnan(accel), mass_a, mass_a * accel)
     action_force = _const(factor, like)[:, None] * u
+    if need_u:
+        action_force = action_force + noise["u"].to(like.dtype) * _const(
+            _noise_scale(spec.agent_u_noise), like)[:, None]
     action_force = torch.where(_const(movable_a, like).bool()[:, None],
                                action_force, 0.0)
 
     pos = torch.cat([state.agent_pos, state.landmark_pos], 1)
     vel = torch.cat([state.agent_vel, state.landmark_vel], 1)
     force = _collision_forces(spec, pos)
-    force = torch.cat([force[:, :M] + action_force, force[:, M:]], 1)
+    force = torch.cat([force[:, :M] + action_force
+                       + _wall_forces(spec, state.agent_pos), force[:, M:]], 1)
 
     _, _, movable, mass = spec.entity_arrays()
     new_vel = vel * (1.0 - spec.damping) + (force / _const(mass, like)[:, None]) * spec.dt
@@ -203,6 +260,9 @@ def physics_step(spec: WorldSpec, state: WorldState, u: torch.Tensor,
 
     silent = np.array(spec.agent_silent, bool)
     if spec.dim_c > 0:
+        if need_c:
+            c = c + noise["c"].to(like.dtype) * _const(
+                _noise_scale(spec.agent_c_noise), like)[:, None]
         comm = torch.where(_const(silent, like).bool()[:, None], 0.0, c)
     else:
         comm = state.agent_comm

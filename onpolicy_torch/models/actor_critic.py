@@ -7,9 +7,10 @@ trees (nested dicts of tensors in the JAX layout). Two layouts:
     feed-forward policy's training evaluation (`Actor.evaluate`);
   * sequence `[L, B, ...]` — chunked-BPTT and naive-recurrent training
     through `gru.sequence` (the CUDA kernels on the card).
-Under `use_bf16` the bases and the GRU compute in bf16 and the heads in
-f32 (`act.py` and the value head take `x.float()`).
-Image observations (`models/cnn.py`) are ROADMAP.md item B4 and raise.
+The base is the MLP, or for image observations (a 3-D obs shape
+[C, W, H]) the CNN of `models/cnn.py`. Under `use_bf16` the bases and the
+GRU compute in bf16 and the heads in f32 (`act.py` and the value head
+take `x.float()`).
 """
 from __future__ import annotations
 
@@ -18,17 +19,32 @@ from typing import Tuple
 import torch
 
 from onpolicy_torch.models import act as act_layer
-from onpolicy_torch.models import common, gru, mlp
+from onpolicy_torch.models import cnn, common, gru, mlp
 from onpolicy_torch.utils import spaces as sp
 
 
-def _flat_obs_shape(space):
-    shape = sp.obs_shape(space)
-    if len(shape) != 1:
-        raise NotImplementedError(
-            "image observations (cnn base) are not ported yet "
-            "(ROADMAP.md, item B4)")
-    return shape
+def _is_image(obs_shape) -> bool:
+    return len(obs_shape) == 3
+
+
+def _base_init(cfg, obs_shape, generator, device):
+    if _is_image(obs_shape):
+        return cnn.init(cfg, obs_shape, generator, device)
+    return mlp.init(cfg, obs_shape[0], generator, device)
+
+
+def _features(cfg, obs_shape, params, obs):
+    """The base's features of flat rows [B, *obs_shape] → [B, hidden]."""
+    if _is_image(obs_shape):
+        return cnn.apply(cfg, params["base"], obs)
+    return mlp.apply(cfg, params["base"], obs)
+
+
+def _seq_features(cfg, obs_shape, params, obs):
+    """[L, B, *obs_shape] → [L, B, hidden]."""
+    L, B = obs.shape[0], obs.shape[1]
+    x = _features(cfg, obs_shape, params, obs.reshape(L * B, *obs.shape[2:]))
+    return x.reshape(L, B, -1)
 
 
 class Actor:
@@ -36,11 +52,11 @@ class Actor:
         self.cfg = cfg
         self.obs_space = obs_space
         self.action_space = action_space
-        self.obs_shape = _flat_obs_shape(obs_space)
+        self.obs_shape = sp.obs_shape(obs_space)
 
     def init(self, generator: torch.Generator, device):
         cfg = self.cfg
-        params = {"base": mlp.init(cfg, self.obs_shape[0], generator, device),
+        params = {"base": _base_init(cfg, self.obs_shape, generator, device),
                   "act": act_layer.init(cfg, self.action_space,
                                         cfg.hidden_size, generator, device)}
         if cfg.is_recurrent:
@@ -53,7 +69,7 @@ class Actor:
         """obs [B, ...] → (actions, log_probs, new_rnn_states). Given
         `actions`, they are taken instead of a draw; `deterministic` takes
         the mode of each head."""
-        x = mlp.apply(self.cfg, params["base"], obs)
+        x = _features(self.cfg, self.obs_shape, params, obs)
         if self.cfg.is_recurrent:
             x, rnn_states = gru.step(self.cfg, params["rnn"], x, rnn_states,
                                      masks)
@@ -66,7 +82,7 @@ class Actor:
                  available_actions=None, active_masks=None):
         """Flat-batch evaluation (feed-forward, or one recurrent step):
         obs [B, ...] → ([B, 1] log-probs, scalar entropy)."""
-        x = mlp.apply(self.cfg, params["base"], obs)
+        x = _features(self.cfg, self.obs_shape, params, obs)
         if self.cfg.is_recurrent:
             x, _ = gru.step(self.cfg, params["rnn"], x, rnn_states, masks)
         return act_layer.evaluate(self.cfg, params["act"], self.action_space,
@@ -77,8 +93,7 @@ class Actor:
         """obs/action/masks [L, B, ...], rnn_states [B, N, H] at the chunk
         start. Returns ([L, B, 1] log-probs, scalar entropy)."""
         L, B = obs.shape[0], obs.shape[1]
-        x = mlp.apply(self.cfg, params["base"], obs.reshape(L * B, -1))
-        x = x.reshape(L, B, -1)
+        x = _seq_features(self.cfg, self.obs_shape, params, obs)
         if self.cfg.is_recurrent:
             x, _ = gru.sequence(self.cfg, params["rnn"], x, rnn_states, masks)
         flat = lambda a: None if a is None else a.reshape(L * B, *a.shape[2:])
@@ -91,7 +106,7 @@ class Actor:
                       available_actions=None, active_masks=None):
         """HATRPO's flat-batch evaluation: (log_probs, entropy, mu, std,
         all_probs) of `act.evaluate_trpo`."""
-        x = mlp.apply(self.cfg, params["base"], obs)
+        x = _features(self.cfg, self.obs_shape, params, obs)
         if self.cfg.is_recurrent:
             x, _ = gru.step(self.cfg, params["rnn"], x, rnn_states, masks)
         return act_layer.evaluate_trpo(self.cfg, params["act"],
@@ -104,8 +119,7 @@ class Actor:
         rnn_states [B, N, H] at the chunk start; the outputs flat
         [L·B, ...] (the reference's trpo path works on flat rows)."""
         L, B = obs.shape[0], obs.shape[1]
-        x = mlp.apply(self.cfg, params["base"], obs.reshape(L * B, -1))
-        x = x.reshape(L, B, -1)
+        x = _seq_features(self.cfg, self.obs_shape, params, obs)
         if self.cfg.is_recurrent:
             x, _ = gru.sequence(self.cfg, params["rnn"], x, rnn_states, masks)
         flat = lambda a: None if a is None else a.reshape(L * B, *a.shape[2:])
@@ -117,11 +131,11 @@ class Actor:
 class Critic:
     def __init__(self, cfg, cent_obs_space):
         self.cfg = cfg
-        self.obs_shape = _flat_obs_shape(cent_obs_space)
+        self.obs_shape = sp.obs_shape(cent_obs_space)
 
     def init(self, generator: torch.Generator, device):
         cfg = self.cfg
-        params = {"base": mlp.init(cfg, self.obs_shape[0], generator, device),
+        params = {"base": _base_init(cfg, self.obs_shape, generator, device),
                   "v_out": common.linear_init(
                       cfg.hidden_size, 1, gain=1.0,
                       use_orthogonal=cfg.use_orthogonal,
@@ -132,7 +146,7 @@ class Critic:
 
     def forward(self, params, cent_obs, rnn_states, masks):
         """[B, ...] → (values [B, 1], new_rnn_states). Value head in f32."""
-        x = mlp.apply(self.cfg, params["base"], cent_obs)
+        x = _features(self.cfg, self.obs_shape, params, cent_obs)
         if self.cfg.is_recurrent:
             x, rnn_states = gru.step(self.cfg, params["rnn"], x, rnn_states,
                                      masks)
@@ -153,9 +167,7 @@ class Critic:
 
     def forward_seq(self, params, cent_obs, rnn_states, masks):
         """[L, B, ...] → values [L, B, 1]."""
-        L, B = cent_obs.shape[0], cent_obs.shape[1]
-        x = mlp.apply(self.cfg, params["base"], cent_obs.reshape(L * B, -1))
-        x = x.reshape(L, B, -1)
+        x = _seq_features(self.cfg, self.obs_shape, params, cent_obs)
         if self.cfg.is_recurrent:
             x, _ = gru.sequence(self.cfg, params["rnn"], x, rnn_states, masks)
         return common.linear_apply(params["v_out"], x.float())

@@ -22,11 +22,15 @@ orthogonal, gain 0.01 on projections, relu gain on pre-GELU layers, zero
 bias.
 
 Decoding: `autoregressive_act` loops over the agents (rollout; each
-agent's one-hot feeds the next slot), `parallel_act` teacher-forces the
-shifted actions in one decoder pass (training). Attention is plain
-PyTorch, as the JAX package computes it in plain jnp. Only Discrete
-actions are ported: the Box branch needs the DiagGaussian of ROADMAP.md
-item B4 and raises.
+agent's one-hot, or for Box actions its continuous action, feeds the next
+slot), `parallel_act` teacher-forces the shifted actions in one decoder
+pass (training). Attention is plain PyTorch, as the JAX package computes
+it in plain jnp.
+
+Box actions (JAX `transformer.py:136, 287-294, 340`): the decoder gives
+per-agent means, its `log_std` starts at ones and the std is
+σ(log_std)·0.5; the act embedding is a biased Linear(A); log-probs and
+entropies are kept per action dimension [B, M, A], as the reference does.
 """
 from __future__ import annotations
 
@@ -41,12 +45,7 @@ from onpolicy_torch.ops import distributions as D
 
 GAIN = 0.01
 
-
-def _require_discrete(action_type: str):
-    if action_type != "Discrete":
-        raise NotImplementedError(
-            f"MAT with {action_type} actions is not ported yet (ROADMAP.md, "
-            "item B4: the DiagGaussian head); the port has the Discrete one")
+LOG_2PI = math.log(2.0 * math.pi)
 
 
 def _lin(din, dout, generator, device, activate=False, bias=True):
@@ -132,9 +131,10 @@ def encoder_apply(p, obs, n_head):
 def decoder_init(obs_dim, action_dim, n_block, n_embd, n_agent, generator,
                  device, action_type="Discrete", dec_actor=False,
                  share_actor=False):
-    _require_discrete(action_type)
     ln = lambda d: cm.layer_norm_init(d, device)
     lin = lambda *a, **k: _lin(*a, generator=generator, device=device, **k)
+    discrete = action_type == "Discrete"
+    p = {} if discrete else {"log_std": torch.ones(action_dim, device=device)}
     if dec_actor:
         def actor_mlp():
             return {"ln0": ln(obs_dim),
@@ -144,10 +144,12 @@ def decoder_init(obs_dim, action_dim, n_block, n_embd, n_agent, generator,
                     "ln2": ln(n_embd),
                     "out": lin(n_embd, action_dim)}
         if share_actor:
-            return {"mlp": actor_mlp()}
-        return {"mlps": [actor_mlp() for _ in range(n_agent)]}
+            return {**p, "mlp": actor_mlp()}
+        return {**p, "mlps": [actor_mlp() for _ in range(n_agent)]}
     return {
-        "act_embed": lin(action_dim + 1, n_embd, activate=True, bias=False),
+        **p,
+        "act_embed": lin(action_dim + 1 if discrete else action_dim, n_embd,
+                         activate=True, bias=not discrete),
         "obs_ln": ln(obs_dim),
         "obs_embed": lin(obs_dim, n_embd, activate=True),
         "ln": ln(n_embd),
@@ -164,7 +166,7 @@ def decoder_init(obs_dim, action_dim, n_block, n_embd, n_agent, generator,
 
 def decoder_apply(p, shifted_action, obs_rep, obs, n_head,
                   dec_actor=False, share_actor=False):
-    """→ per-agent logits [B, M, A]."""
+    """→ per-agent logits (Box: means) [B, M, A]."""
     if dec_actor:
         mlps = [p["mlp"]] * obs.shape[1] if share_actor else p["mlps"]
         outs = []
@@ -193,7 +195,6 @@ class MATConfig:
     def __init__(self, n_agent, action_dim, n_block, n_embd, n_head,
                  action_type="Discrete", dec_actor=False, share_actor=False,
                  encode_state=False):
-        _require_discrete(action_type)
         self.n_agent = n_agent
         self.action_dim = action_dim
         self.n_block = n_block
@@ -228,45 +229,78 @@ def _decode(mcfg, params, shifted, obs_rep, obs):
 def autoregressive_act(mcfg: MATConfig, params, obs,
                        generator: Optional[torch.Generator],
                        available_actions=None, deterministic=False,
-                       enc_in=None, actions=None):
+                       enc_in=None, actions=None, noise=None):
     """Rollout decode, one agent after another (`discrete_autoregreesive_
-    act`): agent i's one-hot action fills decoder slot i+1 before agent
-    i+1 decodes. → (actions [B,M,1] float, logp [B,M,1], values [B,M,1]).
-    `enc_in` overrides the encoder input (the centralized state under
-    encode_state). Given `actions` [B, M, 1] (drawn elsewhere, e.g. by a
-    test), agent i takes `actions[:, i]` instead of a draw."""
+    act` / `continuous_autoregreesive_act`): agent i's action (its one-hot,
+    or the continuous action) fills decoder slot i+1 before agent i+1
+    decodes. → (actions, logp, values [B,M,1]): Discrete actions and logp
+    [B,M,1], Box both [B,M,A]. `enc_in` overrides the encoder input (the
+    centralized state under encode_state). Given `actions` (drawn
+    elsewhere, e.g. by a test), agent i takes `actions[:, i]` instead of a
+    draw; for Box, `noise` [B,M,A] gives the standard normal draws."""
     B, M, _ = obs.shape
     A = mcfg.action_dim
+    discrete = mcfg.action_type == "Discrete"
     v_loc, obs_rep = encoder_apply(
         params["encoder"], enc_in if enc_in is not None else obs, mcfg.n_head)
-    shifted = torch.zeros(B, M, A + 1, device=obs.device)
-    shifted[:, 0, 0] = 1.0
+    shifted = torch.zeros(B, M, A + 1 if discrete else A, device=obs.device)
+    if discrete:
+        shifted[:, 0, 0] = 1.0
+    else:
+        std = torch.sigmoid(params["decoder"]["log_std"]) * 0.5
     acts, lps = [], []
     for i in range(M):
-        logits = _decode(mcfg, params, shifted, obs_rep, obs)[:, i]
-        dist = D.Categorical.create(
-            logits, None if available_actions is None
-            else available_actions[:, i])
-        if actions is not None:
-            a = actions[:, i].long()
+        out = _decode(mcfg, params, shifted, obs_rep, obs)[:, i]
+        if discrete:
+            dist = D.Categorical.create(
+                out, None if available_actions is None
+                else available_actions[:, i])
+            if actions is not None:
+                a = actions[:, i].long()
+            else:
+                a = dist.mode() if deterministic else dist.sample(generator)
+            lps.append(dist.log_prob(a))
+            slot = F.one_hot(a[:, 0], A).float()
         else:
-            a = dist.mode() if deterministic else dist.sample(generator)
+            if actions is not None:
+                a = actions[:, i]
+            elif deterministic:
+                a = out
+            else:
+                dist = D.DiagGaussian(out, std.log().expand_as(out))
+                a = dist.sample(generator,
+                                None if noise is None else noise[:, i])
+            lps.append(_box_log_prob(a, out, std))
+            slot = a
         acts.append(a.float())
-        lps.append(dist.log_prob(a))
         if i + 1 < M:
             shifted = shifted.clone()
-            shifted[:, i + 1, 1:] = F.one_hot(a[:, 0], A).float()
+            shifted[:, i + 1, 1 if discrete else 0:] = slot
     return torch.stack(acts, 1), torch.stack(lps, 1), v_loc
+
+
+def _box_log_prob(a, mean, std):
+    """Per-dimension gaussian log-density (the reference keeps it per
+    dimension, `transformer_act.py:59-62`)."""
+    return -0.5 * (((a - mean) / std).square() + LOG_2PI + 2.0 * std.log())
 
 
 def parallel_act(mcfg: MATConfig, params, obs, actions,
                  available_actions=None, enc_in=None):
-    """Training decode: teacher-forced one pass (`discrete_parallel_act`).
-    → (logp [B,M,1], values [B,M,1], entropy [B,M,1])."""
+    """Training decode: teacher-forced one pass (`discrete_parallel_act` /
+    `continuous_parallel_act`). → (logp, values [B,M,1], entropy):
+    Discrete logp and entropy [B,M,1], Box [B,M,A]."""
     B, M, _ = obs.shape
     A = mcfg.action_dim
     v_loc, obs_rep = encoder_apply(
         params["encoder"], enc_in if enc_in is not None else obs, mcfg.n_head)
+    if mcfg.action_type != "Discrete":
+        shifted = torch.zeros(B, M, A, device=obs.device)
+        shifted[:, 1:] = actions[:, :-1]
+        mean = _decode(mcfg, params, shifted, obs_rep, obs)
+        std = torch.sigmoid(params["decoder"]["log_std"]) * 0.5
+        ent = (0.5 + 0.5 * LOG_2PI + std.log()).expand_as(mean)
+        return _box_log_prob(actions, mean, std), v_loc, ent
     onehot = F.one_hot(actions[..., 0].long(), A).float()
     shifted = torch.zeros(B, M, A + 1, device=obs.device)
     shifted[:, 0, 0] = 1.0

@@ -1,21 +1,26 @@
 """Action distributions.
 
-Port of `onpolicy_tpu/ops/distributions.py` (Categorical; the other
-distributions come with Slice B of ROADMAP.md), with its reduction
-conventions, which the PPO losses depend on:
+Port of `onpolicy_tpu/ops/distributions.py` (Categorical, DiagGaussian,
+Bernoulli), with its reduction conventions, which the PPO losses depend
+on:
 
-  * ``log_prob`` keeps a trailing singleton axis (shape ``[..., 1]``);
+  * ``log_prob`` reduces the event axis and keeps a trailing singleton
+    axis (shape ``[..., 1]``);
   * ``entropy`` reduces the event axis to shape ``[...]``, with the rule
-    0·log 0 := 0 for fully masked entries;
-  * ``sample`` and ``mode`` return integer actions ``[..., 1]``;
+    0·log 0 := 0 for fully masked categorical entries;
+  * a Categorical's ``sample`` and ``mode`` return integer actions
+    ``[..., 1]``; a DiagGaussian's and a Bernoulli's have the event shape;
   * unavailable actions get the logit ``MASK_NEG = -1e10``.
 
-Sampling is the Gumbel-max rule of `jax.random.categorical`, with the
-uniform draws taken from a `torch.Generator`: elementwise on the card,
-no synchronisation.
+Categorical sampling is the Gumbel-max rule of `jax.random.categorical`,
+with the uniform draws taken from a `torch.Generator`: elementwise on the
+card, no synchronisation. DiagGaussian and Bernoulli take their standard
+normal or uniform draws from a generator, or given (`noise`, `uniform`),
+so a test can feed them the JAX package's draws.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Optional
 
@@ -69,3 +74,84 @@ class Categorical:
         p = ls.exp()
         plogp = torch.where(p > 0, p * ls, torch.zeros_like(ls))
         return -plogp.sum(-1)
+
+
+@dataclass
+class DiagGaussian:
+    """Diagonal gaussian; `mean` / `log_std` shape [..., d]."""
+    mean: torch.Tensor
+    log_std: torch.Tensor
+
+    @property
+    def std(self):
+        return self.log_std.exp()
+
+    def sample(self, generator: Optional[torch.Generator] = None,
+               noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """mean + std·ε, ε standard normal drawn from `generator` or
+        given as `noise`."""
+        if noise is None:
+            noise = torch.randn(self.mean.shape, generator=generator,
+                                dtype=self.mean.dtype,
+                                device=self.mean.device)
+        return self.mean + self.std * noise
+
+    def mode(self) -> torch.Tensor:
+        return self.mean
+
+    def log_prob(self, actions: torch.Tensor) -> torch.Tensor:
+        var = self.std.square()
+        lp = -0.5 * ((actions - self.mean).square() / var
+                     + math.log(2.0 * math.pi) + 2.0 * self.log_std)
+        return lp.sum(-1, keepdim=True)
+
+    def entropy(self) -> torch.Tensor:
+        per_dim = 0.5 + 0.5 * math.log(2.0 * math.pi) + self.log_std
+        return per_dim.sum(-1)
+
+    def kl(self, other: "DiagGaussian") -> torch.Tensor:
+        """KL(self ‖ other), closed form, summed over the event axis,
+        keepdim."""
+        var0, var1 = self.std.square(), other.std.square()
+        kl = (other.log_std - self.log_std
+              + (var0 + (self.mean - other.mean).square()) / (2.0 * var1)
+              - 0.5)
+        return kl.sum(-1, keepdim=True)
+
+
+@dataclass
+class Bernoulli:
+    """Independent bernoullis; `logits` shape [..., d]."""
+    logits: torch.Tensor
+
+    @property
+    def probs(self):
+        return torch.sigmoid(self.logits)
+
+    def sample(self, generator: Optional[torch.Generator] = None,
+               uniform: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """1 where u < p, u uniform on [0, 1) drawn from `generator` or
+        given as `uniform`; float."""
+        if uniform is None:
+            uniform = torch.rand(self.logits.shape, generator=generator,
+                                 dtype=self.logits.dtype,
+                                 device=self.logits.device)
+        return (uniform < self.probs).float()
+
+    def mode(self) -> torch.Tensor:
+        return (self.probs > 0.5).float()
+
+    def log_prob(self, actions: torch.Tensor) -> torch.Tensor:
+        lp = -binary_cross_entropy_with_logits(self.logits, actions)
+        return lp.sum(-1, keepdim=True)
+
+    def entropy(self) -> torch.Tensor:
+        return binary_cross_entropy_with_logits(self.logits,
+                                                self.probs).sum(-1)
+
+
+def binary_cross_entropy_with_logits(logits, labels):
+    """max(l, 0) − l·y + log(1 + exp(−|l|)), elementwise: the stable form
+    the JAX package writes out."""
+    return (torch.clamp_min(logits, 0.0) - logits * labels
+            + torch.log1p(torch.exp(-logits.abs())))

@@ -2,7 +2,7 @@
 
     python -m onpolicy_torch.scripts.profile_episode \
         [--config flagship|bench_mappo|bench_rmappo|reference|comm|
-                  happo_spread|mpe_mat|mpe_mat_dec|hatrpo_spread|
+                  happo_spread|mpe_mat|mpe_mat_dec|hatrpo_spread|world_comm|
                   hanabi_device|bench_hanabi_width|hanabi_forward] \
         [--episodes 3] [--warmup 2]
 
@@ -13,7 +13,8 @@ T=25, L=10, 10 PPO epochs, hidden 64; the default), the JAX package's
 bench MAPPO (feed-forward, critic dedup) or bench rMAPPO at 16,384
 rollout threads in bf16, train_mpe_mat.sh (MAT, 128 threads, n_embd 64:
 its rollout decodes the M=3 agents one after another), HATRPO on
-simple_spread (separated runner, one TRPO step an agent),
+simple_spread (separated runner, one TRPO step an agent), the flagship's
+flags on simple_world_comm (6 agents through the separated runner),
 train_hanabi_device.sh (rMAPPO, Hanabi-Full, hidden 512x2, 1000 fleets,
 T=100, 15 PPO epochs), the JAX package's Hanabi bench configuration
 (the same in feed-forward MAPPO, bf16), or train_hanabi_forward.sh

@@ -61,10 +61,26 @@ recipe:
         --episode_length 25 --num_env_steps 3000000 --ppo_epoch 10 \
         --num_mini_batch 1 --lr 7e-4 --critic_lr 7e-4 --hidden_size 64
 
+No launch script of the reference runs the other seven scenarios
+(simple_adversary, simple_tag, simple_push, simple_crypto,
+simple_crypto_display, simple_attack, simple_world_comm); `world_comm` is
+the flagship's flags on the one with the most in it, through separated
+policies (6 agents: a speaking leader with a MultiDiscrete (5, 4) head,
+3 silent adversaries, 2 good agents; food, forests, per-agent rewards),
+at the arguments of the JAX package's golden test of it:
+
+    python -m onpolicy_torch.scripts.train_mpe --env_name MPE \
+        --algorithm_name rmappo --scenario_name simple_world_comm \
+        --num_agents 6 --num_landmarks 1 --num_good_agents 2 \
+        --num_adversaries 4 --share_policy false --seed 1 \
+        --n_rollout_threads 128 --episode_length 25 --ppo_epoch 10 \
+        --num_mini_batch 1 --lr 7e-4 --critic_lr 7e-4 --hidden_size 64 \
+        --use_ReLU false --gain 0.01 --num_env_steps 2000000
+
 `share_policy false` (and happo and hatrpo, which imply it) trains
 through `runner/separated_runner.py`, everything else (MAT included)
 through `runner/shared_runner.py`; `--use_eval` adds an eval env of
-`n_eval_rollout_threads` worlds. `CONFIGS` holds these nine as flag lists
+`n_eval_rollout_threads` worlds. `CONFIGS` holds these ten as flag lists
 (without a step count), for `chip_smoke.py`, `learning_check.py` and
 `profile_episode.py`.
 """
@@ -122,6 +138,12 @@ CONFIGS["mpe_mat_dec"] = [
 # happo_spread
 CONFIGS["hatrpo_spread"] = _SPREAD + ["--algorithm_name", "hatrpo",
                                       "--n_rollout_threads", "128"]
+# the flagship's flags on simple_world_comm, separated policies (the later
+# flags take the place of _SPREAD's)
+CONFIGS["world_comm"] = CONFIGS["flagship"] + [
+    "--scenario_name", "simple_world_comm", "--num_agents", "6",
+    "--num_landmarks", "1", "--num_good_agents", "2",
+    "--num_adversaries", "4", "--share_policy", "false"]
 
 
 def make_runner(cfg):

@@ -5,7 +5,10 @@ linear weights `[in, out]` and the GRU's `w_ih [in, 3H]`, `w_hh [H, 3H]`.
 These functions take and give numpy only (the caller does the
 `jax.device_get`), so the port never imports JAX:
 
-  * parameter trees: numpy leaves ↔ tensors;
+  * parameter trees: numpy leaves ↔ tensors; the one layout that differs
+    is a CNN base's convolution kernel (a `"conv"` node's 4-D `"w"`),
+    HWIO in JAX and OIHW in the port (`models/cnn.py`), moved by
+    `to_torch` / `to_numpy` (optimizer moments too);
   * optimizer state: optax's `(EmptyState, (ScaleByAdamState(count, mu,
     nu), ...))` chain ↔ the port's `{"count", "mu", "nu"}`;
   * `ValueNormState` (running_mean, running_mean_sq, debiasing_term);
@@ -26,16 +29,34 @@ from onpolicy_torch.ops import valuenorm as vn
 from onpolicy_torch.utils.tree import tree_map
 
 
+def _conv_kernels(tree, fn):
+    """`tree` with `fn` applied to each CNN convolution kernel (the 4-D
+    "w" of a "conv" node)."""
+    if isinstance(tree, dict):
+        out = {k: _conv_kernels(v, fn) for k, v in tree.items()}
+        conv = out.get("conv")
+        if isinstance(conv, dict) and getattr(conv.get("w"), "ndim", 0) == 4:
+            out["conv"] = {**conv, "w": fn(conv["w"])}
+        return out
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_conv_kernels(v, fn) for v in tree)
+    return tree
+
+
 def to_torch(tree, device="cpu", dtype=None):
-    """Nested dicts/lists of numpy arrays → the same tree of tensors."""
+    """Nested dicts/lists of numpy arrays → the same tree of tensors (a
+    convolution kernel HWIO → OIHW)."""
     def conv(x):
         t = torch.as_tensor(np.array(x), device=device)
         return t.to(dtype) if dtype is not None and t.is_floating_point() else t
-    return tree_map(conv, tree)
+    return _conv_kernels(tree_map(conv, tree),
+                         lambda w: w.permute(3, 2, 0, 1).contiguous())
 
 
 def to_numpy(tree):
-    return tree_map(lambda t: t.detach().cpu().numpy(), tree)
+    """Tensors → numpy (a convolution kernel OIHW → HWIO)."""
+    return _conv_kernels(tree_map(lambda t: t.detach().cpu().numpy(), tree),
+                         lambda w: np.ascontiguousarray(w.transpose(2, 3, 1, 0)))
 
 
 def _fields(s) -> tuple:

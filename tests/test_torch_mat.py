@@ -187,8 +187,42 @@ def test_encode_state_reads_the_centralized_state():
 
 
 def test_box_actions_are_refused():
-    with pytest.raises(NotImplementedError, match="B4"):
-        tfm.MATConfig(M, A, 1, 16, 1, action_type="Box")
+    """MAT with Box actions, refused until B4 was ported: the port's own
+    decoder has JAX's layout (log_std at ones, a biased act embedding of
+    width A), and on JAX's parameters the deterministic decode, the
+    sampled one fed JAX's draws and the teacher-forced pass give JAX's
+    actions, log-probs, values and entropies, all per action dimension."""
+    j_cfg = j_tfm.MATConfig(M, A, 1, 16, 1, action_type="Box")
+    t_cfg = tfm.MATConfig(M, A, 1, 16, 1, action_type="Box")
+    mine = tfm.mat_init(t_cfg, DO, torch.Generator().manual_seed(0), "cpu")
+    assert torch.equal(mine["decoder"]["log_std"], torch.ones(A))
+    assert mine["decoder"]["act_embed"]["w"].shape == (A, 16)
+    jp = jax.device_get(j_tfm.mat_init(jax.random.PRNGKey(4), DO, A, M, 1,
+                                       16, "Box"))
+    tp = to_torch(jp)
+    obs = np.random.default_rng(9).standard_normal((B, M, DO)).astype(
+        np.float32)
+    acts, logp, values = j_tfm.autoregressive_act(
+        j_cfg, jp, obs, jax.random.PRNGKey(1), deterministic=True)
+    got = tfm.autoregressive_act(t_cfg, tp, _t(obs), None, deterministic=True)
+    for k, a, b in zip(("actions", "logp", "values"), got,
+                       (acts, logp, values)):
+        assert a.shape == (B, M, A if k != "values" else 1), k
+        _close(a, b, f"autoregressive_act {k}", EXACT)
+    # sampled: agent i's standard normal draws are JAX's, from
+    # fold_in(key, i)
+    key = jax.random.PRNGKey(2)
+    acts, logp, values = j_tfm.autoregressive_act(j_cfg, jp, obs, key)
+    noise = np.stack([np.asarray(jax.random.normal(
+        jax.random.fold_in(key, i), (B, A))) for i in range(M)], 1)
+    got = tfm.autoregressive_act(t_cfg, tp, _t(obs), None, noise=_t(noise))
+    for k, a, b in zip(("actions", "logp", "values"), got,
+                       (acts, logp, values)):
+        _close(a, b, f"sampled autoregressive_act {k}", EXACT)
+    want = j_tfm.parallel_act(j_cfg, jp, obs, acts)
+    got = tfm.parallel_act(t_cfg, tp, _t(obs), _t(np.asarray(acts)))
+    for k, a, b in zip(("logp", "values", "entropy"), got, want):
+        _close(a, b, f"parallel_act {k}", EXACT)
 
 
 # ---------------------------------------------------------------------------

@@ -271,6 +271,23 @@ def test_actor_deterministic_forward_matches(space):
 
 
 def test_unported_heads_name_their_roadmap_item():
-    _, tc = _cfgs()
-    with pytest.raises(NotImplementedError, match="item B4"):
-        act.init(tc, sp.Box((2,)), 16, torch.Generator(), "cpu")
+    """The Box head, refused until B4 was ported: the port's own init has
+    JAX's layout (a [16, 2] mean and a zero log_std), and on JAX's
+    parameters its mode and log-probs are JAX's."""
+    jc, tc = _cfgs()
+    mine = act.init(tc, sp.Box((2,)), 16, torch.Generator().manual_seed(0),
+                    "cpu")
+    params = jax.device_get(j_act.init(jax.random.PRNGKey(3), jc,
+                                       j_sp.Box((2,)), 16))
+    assert [tuple(v.shape) for v in tree_leaves(mine)] == \
+        [tuple(v.shape) for v in jax.tree_util.tree_leaves(params)] == \
+        [(2,), (2,), (16, 2)]  # log_std, mean b, mean w
+    assert not mine["log_std"].any()
+    x = _rng(5).standard_normal((11, 16)).astype(np.float32)
+    j_a, j_lp = j_act.sample(jc, params, j_sp.Box((2,)), x,
+                             jax.random.PRNGKey(0), deterministic=True)
+    t_a, t_lp = act.sample(tc, to_torch(params), sp.Box((2,)),
+                           torch.tensor(x), None, deterministic=True)
+    np.testing.assert_allclose(t_a.numpy(), _np(j_a), **FWD)
+    np.testing.assert_allclose(t_lp.numpy(), _np(j_lp), **FWD)
+

@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from onpolicy_torch.config import Config, canonicalize_algorithm
+from onpolicy_torch.utils import spaces as sp
 
 torch.set_num_threads(1)
 
@@ -167,9 +168,10 @@ def test_comm_scenario_spaces_and_decode():
 
 
 def test_other_scenarios_name_their_roadmap_item():
+    """Every scenario of the JAX package's registry loads (simple_tag was
+    refused until B3 was ported); an unknown name still raises."""
     from onpolicy_torch.envs.mpe import scenarios
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, item B3"):
-        scenarios.load("simple_tag")
+    assert scenarios.load("simple_tag").shared_reward is False
     with pytest.raises(ValueError):
         scenarios.load("no_such_scenario")
 
@@ -190,17 +192,33 @@ def test_config_refuses_what_it_cannot_run():
 
 @pytest.mark.parametrize("override", [
     dict(mesh_shape=(2,)), dict(env_name="StarCraft2"),
-    dict(scenario_name="simple_tag"),
+    dict(scenario_name="simple_tag", num_agents=4, num_landmarks=2,
+         share_policy=False),
     dict(algorithm_name="mat", use_popart=True, use_valuenorm=False),
     dict(use_popart=True, use_valuenorm=False)])
 def test_runner_refuses_unported_options(override):
-    """Each names its ROADMAP.md item (G, F, B3, B4 for MAT and MAPPO)."""
-    from onpolicy_torch.runner.shared_runner import SharedRunner
+    """The mesh and the StarCraft2 env still raise, naming their ROADMAP.md
+    items (G, F); simple_tag (B3, through the separated runner: its roles
+    see different widths) and PopArt for MAT and MAPPO (B4) build their
+    runner now."""
+    from onpolicy_torch.scripts.train_mpe import make_runner
     cfg = canonicalize_algorithm(Config(
         algorithm_name=override.pop("algorithm_name", "rmappo"),
-        device="cpu", n_rollout_threads=2, episode_length=5)).replace(**override)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SharedRunner(cfg)
+        device="cpu", n_rollout_threads=2, episode_length=5,
+        n_embd=16, hidden_size=16)).replace(**override)
+    if "mesh_shape" in override or "env_name" in override:
+        item = "Slice G" if "mesh_shape" in override else "Slice F"
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.md, {item}"):
+            make_runner(cfg)
+        return
+    runner = make_runner(cfg)
+    state, _ = runner.init()
+    if cfg.scenario_name == "simple_tag":
+        assert [a.act_space for a in runner.algos] == [sp.Discrete(5)] * 4
+    elif cfg.algorithm_name == "mat":
+        assert state.vnorm is None     # MAT normalizes under use_valuenorm only
+    else:
+        assert state.vnorm is not None  # PopArt's statistics
 
 
 @pytest.mark.parametrize("algo", ["mat", "mat_dec", "hatrpo"])

@@ -1,9 +1,12 @@
 """The separated runner against the JAX package's, in lockstep.
 
-One episode of HAPPO on simple_spread (3 agents, a fixed agent order) and
+One episode of HAPPO on simple_spread (3 agents, a fixed agent order),
 one of rMAPPO on simple_speaker_listener (the speaker's Discrete(3) and
 the listener's Discrete(5) heads padded to one column, obs of 3 and 11,
-critic input of 14), N=4 envs, T=25, L=10, H=16, 2 PPO epochs. Both sides
+critic input of 14) and one of rMAPPO on simple_world_comm (6 agents:
+the leader's MultiDiscrete (5, 4) head and the others' Discrete(5)
+padded to two columns, obs of 34 and 28, per-agent rewards), N=4 envs,
+T=25, L=10, H=16, 2 PPO epochs. Both sides
 start from the same per-agent `TrainState`s (JAX's, carried across by
 `utils/params.py`) and the same `golden.reference_reset` worlds. JAX runs
 its own `SeparatedRunner._episode`, with each agent's `train` wrapped to
@@ -47,15 +50,22 @@ CASES = {
     "rmappo_speaker_listener": dict(algorithm_name="rmappo",
                                     scenario_name="simple_speaker_listener",
                                     num_agents=2, share_policy=False),
+    # the arguments of the JAX package's golden test of this scenario
+    "rmappo_world_comm": dict(algorithm_name="rmappo",
+                              scenario_name="simple_world_comm",
+                              num_agents=6, num_landmarks=1,
+                              num_good_agents=2, num_adversaries=4,
+                              share_policy=False),
 }
-ORDER = {"happo_spread": (2, 0, 1), "rmappo_speaker_listener": None}
+ORDER = {"happo_spread": (2, 0, 1), "rmappo_speaker_listener": None,
+         "rmappo_world_comm": None}
 
 
 def _flags(case):
-    return dict(num_landmarks=3, n_rollout_threads=N, episode_length=T,
-                num_env_steps=N * T, hidden_size=16, data_chunk_length=10,
-                ppo_epoch=2, num_mini_batch=1, lr=7e-4, critic_lr=7e-4,
-                n_eval_rollout_threads=N, **CASES[case])
+    return {**dict(num_landmarks=3, n_rollout_threads=N, episode_length=T,
+                   num_env_steps=N * T, hidden_size=16, data_chunk_length=10,
+                   ppo_epoch=2, num_mini_batch=1, lr=7e-4, critic_lr=7e-4,
+                   n_eval_rollout_threads=N), **CASES[case]}
 
 
 def _worlds(env, seed):
