@@ -37,7 +37,10 @@ Phases, each of which fails the run (non-zero exit) if it fails:
               the Hanabi width H=512 (`HANABI_SHAPES`: T=10 B=20,000 as
               train_hanabi_device.sh gives it, ragged B=37, T=1, all-ones
               masks; outs and dW bitwise repeatable) and recurrent_N=2
-              at H=512.
+              at H=512. Then, in f32 at H=64, the host runners' shapes
+              (`HOST_SHAPES`): T=10 B=2,560 (SMAC 3s5z rMAPPO), T=10
+              B=80 and T=400 B=2 (SMACv2 HAPPO per agent, and its
+              whole-episode log-probs), T=10 B=1,500 (GRF 3v1).
   4. times:   kernel, plain version and cuDNN's nn.GRU (yardstick only)
               at the flagship and bench shapes, with CUDA events (`ms`),
               in f32 and with bf16 streams (cuDNN then in bf16); the
@@ -52,7 +55,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
               two forwards in turns, and the old CUDA-core backward and
               the wide one on the same inputs through explicit plans,
               each held against the plain version and timed in turns
-              (old, wide, wide, old), with each wide kernel's device ms.
+              (old, wide, wide, old), with each wide kernel's device ms;
+              then the SMAC shape T=10 B=2,560 H=64 in f32.
   5. train:   one episode at 8 rollout threads on the card against the
               CPU path from the same state (rMAPPO in f32, rMAPPO and
               MAPPO with the critic dedup in bf16 and in f32, HAPPO with
@@ -97,9 +101,26 @@ Phases, each of which fails the run (non-zero exit) if it fails:
               launches (T a forward) where it runs; every parameter on
               the card; every logged metric finite; env-steps/s printed
               for each. Last, `profile_episode.py --config
-              hanabi_forward` prints that run's rollout and update ms.
+              hanabi_forward`, then `smac_3s5z` and `football_3v1` (over
+              the stand-ins below), print each run's rollout and update
+              ms, device idle share and launches an episode.
+              The host-ingestion path runs over the engine stand-ins
+              defined below (no StarCraft II, smac, smacv2 or gfootball
+              exists on either machine), installed in sys.modules of this
+              process: one episode (T=40) of `HostSharedRunner` rMAPPO on
+              the SMAC 3s5z stand-in (8 threads) and one of
+              `HostSeparatedRunner` HAPPO on the SMACv2 protoss 5v5 one
+              (2 threads), card against CPU from the same state with the
+              card's actions injected; then, among `TRAIN_RUNS`,
+              `scripts/train_smac.main` on train_smac_3s5z.sh (2
+              episodes; the eval at episode 0 cut to 8 episodes) and
+              train_happo.sh (SMACv2 HAPPO, 2 episodes, the same cut), and
+              `scripts/train_football.main` on train_football_3v1.sh (50
+              threads, 2 episodes), each over worker processes
+              (`envs/host_vec.HostVecEnv`).
 The last three lines are one JSON object with a row per kernel and
-stream type, the card's name and power limit, and the result line
+stream type (and shape: flagship, bench, Hanabi, SMAC), the card's name
+and power limit, and the result line
 `{"ok": true, "device": {...}}`.
 Exits non-zero with no result line when no CUDA device is present or
 the port's package is not beside this script.
@@ -127,6 +148,7 @@ TF32_FLOP_S = 495e12
 FLAGSHIP = dict(T=10, B=960, H=64)       # 25*128*3/10 chunks of L=10
 BENCH = dict(T=10, B=122880, H=64)       # 16384 rollout threads
 HANABI = dict(T=10, B=20000, H=512)      # 100*1000*2/10 chunks of L=10
+SMAC = dict(T=10, B=2560, H=64)          # 8 threads*400 steps*8 agents/10
 # (name, script, config of its CONFIGS, extra flags, episodes, forward and
 # backward launches an episode). One PPO update of a recurrent policy
 # launches each kernel once for the actor and once for the critic
@@ -153,6 +175,15 @@ HANABI = dict(T=10, B=20000, H=512)      # 100*1000*2/10 chunks of L=10
 #   world_comm (separated, 6 agents, 10 epochs, rMAPPO, so no
 #     whole-episode log-probs): 6 x 10 x 2, at T=10 B=320 per agent
 #                                                              = 120, 120
+# and the host runners over worker processes and the engine stand-ins
+# (every episode trains; the rollout's cell, the bootstrap and the eval
+# are plain torch):
+#   smac_3s5z (rMAPPO, 5 epochs, 1 minibatch, T=10 B=2,560): 5 x 2 = 10, 10
+#   smacv2_happo (5 agents, 5 epochs, T=10 B=80 per agent): 5 x 5 x 2
+#     = 50, plus per agent two forward-only whole-episode log-probs
+#     (T=400 B=2), before and after its update                 = 60, 50
+#   football_3v1 (rMAPPO, 15 epochs, 2 minibatches of B=1,500):
+#     15 x 2 x 2                                                = 60, 60
 TRAIN_RUNS = (("flagship", "train_mpe", "flagship", (), 10, 20, 20),
               ("bench_mappo", "train_mpe", "bench_mappo", (), 3, 0, 0),
               ("bench_rmappo", "train_mpe", "bench_rmappo", (), 3, 20, 20),
@@ -170,7 +201,31 @@ TRAIN_RUNS = (("flagship", "train_mpe", "flagship", (), 10, 20, 20),
                0),
               ("flagship+popart", "train_mpe", "flagship",
                ("--use_popart", "--use_valuenorm", "false"), 3, 20, 20),
-              ("world_comm", "train_mpe", "world_comm", (), 5, 120, 120))
+              ("world_comm", "train_mpe", "world_comm", (), 5, 120, 120),
+              # the eval at episode 0 cut to 8 episodes (the scripts: 32)
+              ("smac_3s5z", "train_smac", "smac_3s5z",
+               ("--eval_episodes", "8"), 2, 10, 10),
+              ("smacv2_happo", "train_smac", "smacv2_happo",
+               ("--eval_episodes", "8"), 2, 60, 50),
+              ("football_3v1", "train_football", "football_3v1", (), 2, 60,
+               60))
+HOST_SCRIPTS = ("train_smac", "train_football")
+# the GRU shapes (H=64 but for Hanabi's 512) at which each run of
+# `TRAIN_RUNS` launches the kernels, beside its launches in a `kernels`
+# row's `launches_by_run`: a row's times are at its own `shape`, so only
+# the launches at that shape multiply them
+_PER_AGENT = "T=10 B=320 per agent"
+RUN_GRU_SHAPES = {
+    "flagship": "T=10 B=960", "bench_rmappo": "T=10 B=122880",
+    "reference": "T=10 B=640", "comm": _PER_AGENT,
+    "happo_spread": _PER_AGENT + " (fwd 60, bwd 60 an episode); T=25 "
+                    "B=128 (fwd 6 an episode)",
+    "flagship+eval": "T=10 B=960", "hanabi_device": "T=10 B=20000 H=512",
+    "flagship+popart": "T=10 B=960", "world_comm": _PER_AGENT,
+    "smac_3s5z": "T=10 B=2560",
+    "smacv2_happo": "T=10 B=80 per agent (fwd 50, bwd 50 an episode); "
+                    "T=400 B=2 (fwd 10 an episode)",
+    "football_3v1": "T=10 B=1500"}
 # phase 5's scenario checks: (case, scenario, num_agents, num_landmarks,
 # num_good_agents, num_adversaries, walls and noise), the arguments of the
 # JAX package's golden test of each scenario (simple_attack: 2 + 2 agents
@@ -246,6 +301,551 @@ HANABI_SHAPES = (
     ("H=512 T=1", 1, 20000, 512, {}),
     ("H=512 all-ones masks", 10, 803, 512, dict(mask_mode="ones")),
 )
+
+
+# ---------------------------------------------------------------------------
+# engine stand-ins: neither machine has StarCraft II, smac, smacv2 or
+# gfootball. These take the place of the simulators only, with the
+# published sizes, behind the port's real adapters (envs/starcraft2/
+# smac_env.py, smacv2_env.py, envs/football/football_env.py) and feature
+# builders. Module-level classes, so that a forked or spawned pool worker
+# finds them; `install_engine_standins` puts them in sys.modules (this
+# process only; the tests do it under monkeypatch).
+# ---------------------------------------------------------------------------
+
+class StandInUnit:
+    """One unit as the engines' attribute surface shows it."""
+
+    def __init__(self, kind, x, y, health, shield, cooldown):
+        self.kind = kind
+        self.pos = _Point(x, y)
+        self.health = self.health_max = float(health)
+        self.shield = self.shield_max = float(shield)
+        self.unit_type = kind
+        self.energy = 0.0
+        self.weapon_cooldown = 0.0
+        self.max_cooldown = float(cooldown)
+
+
+class _Point:
+    def __init__(self, x, y):
+        self.x, self.y = float(x), float(y)
+
+
+class StandInBattle:
+    """A seeded skirmish of n_agents allies against n_enemies enemies on a
+    map_x x map_y map, with SMAC's action layout (0 no-op, 1 stop, 2-5
+    move north/south/east/west, 6 + e attack enemy e) and SMAC's step
+    contract: (reward, terminated, info) with info["battle_won"] and
+    info["episode_limit"]. Enemies walk to the nearest ally and fire in
+    range; the damage each side deals a hit is drawn per episode, so that
+    some battles are won, some lost and some run into the episode limit.
+    Shot range 6, sight range 9, move 2 (SMAC's)."""
+
+    # health, shield, max weapon cooldown (SMAC's Protoss units)
+    UNITS = {"stalker": (80, 80, 35.0), "zealot": (100, 50, 22.0),
+             "colossus": (200, 150, 24.0), "marine": (45, 0, 15.0)}
+    SHOOT, SIGHT, MOVE = 6.0, 9.0, 2.0
+
+    def __init__(self, n_agents, n_enemies, episode_limit, kinds, seed,
+                 map_x=32, map_y=32):
+        import numpy as np
+        self.np = np
+        self.rng = np.random.default_rng(seed)
+        self.n_agents, self.n_enemies = n_agents, n_enemies
+        self.n_actions = 6 + n_enemies
+        self.episode_limit = episode_limit
+        self.kinds = kinds                       # type ids in this order
+        self.map_x = self.map_y = None
+        self._map = (float(map_x), float(map_y))
+        self.max_distance_x, self.max_distance_y = self._map
+        self.unit_type_bits = len(kinds) if len(kinds) > 1 else 0
+        shields = any(self.UNITS[k][1] > 0 for k in kinds)
+        self.shield_bits_ally = self.shield_bits_enemy = int(shields)
+        self.obs_all_health = self.obs_own_health = True
+        self.state_last_action = True
+        self.map_type = "stalkers_and_zealots"
+        self.medivac_id = -1
+        self.battles_won = self.battles_game = self.timeouts = 0
+        self.force_restarts = 0
+        self.win_counted = False
+        self._episode_steps = 0
+        self.agents, self.enemies = {}, {}
+        self.death_tracker_ally = np.zeros(n_agents)
+        self.last_action = np.zeros((n_agents, self.n_actions), np.float32)
+
+    # ---- layout of a new battle (overridden by the SMACv2 stand-in) -----
+    def _teams(self):
+        n = len(self.kinds)
+        ally = [self.kinds[min(i * n // self.n_agents, n - 1)]
+                for i in range(self.n_agents)]
+        enemy = [self.kinds[min(e * n // self.n_enemies, n - 1)]
+                 for e in range(self.n_enemies)]
+        return ally, enemy
+
+    def _positions(self):
+        cx, cy = self._map[0] / 2, self._map[1] / 2
+        r = self.rng
+        ally = [(cx - 4 + r.uniform(-2, 2), cy + r.uniform(-4, 4))
+                for _ in range(self.n_agents)]
+        enemy = [(cx + 4 + r.uniform(-2, 2), cy + r.uniform(-4, 4))
+                 for _ in range(self.n_enemies)]
+        return ally, enemy
+
+    def reset(self):
+        np = self.np
+        self.map_x, self.map_y = self._map      # known once launched
+        ally_kinds, enemy_kinds = self._teams()
+        ally_pos, enemy_pos = self._positions()
+        make = lambda k, p: StandInUnit(k, p[0], p[1], *self.UNITS[k])
+        self.agents = {i: make(k, p) for i, (k, p) in
+                       enumerate(zip(ally_kinds, ally_pos))}
+        self.enemies = {e: make(k, p) for e, (k, p) in
+                        enumerate(zip(enemy_kinds, enemy_pos))}
+        for u in list(self.agents.values()) + list(self.enemies.values()):
+            u.weapon_cooldown = float(self.rng.uniform(0, u.max_cooldown))
+        # the damage of a hit on each side, drawn per battle
+        self.ally_hit = float(self.rng.uniform(3.0, 12.0))
+        self.enemy_hit = float(self.rng.uniform(1.0, 6.0))
+        self.enemy_fire = float(self.rng.uniform(0.1, 0.4))
+        self.death_tracker_ally = np.zeros(self.n_agents)
+        self.last_action = np.zeros((self.n_agents, self.n_actions),
+                                    np.float32)
+        self._episode_steps = 0
+        self.win_counted = False
+        return None
+
+    # ---- the attribute surface the feature builders read ---------------
+    def get_unit_by_id(self, i):
+        return self.agents[i]
+
+    def unit_sight_range(self, i):
+        return self.SIGHT
+
+    def unit_max_cooldown(self, u):
+        return u.max_cooldown
+
+    def unit_max_shield(self, u):
+        return u.shield_max or None
+
+    def get_unit_type_id(self, u, ally):
+        return self.kinds.index(u.kind)
+
+    @staticmethod
+    def _dist(a, b):
+        return ((a.pos.x - b.pos.x) ** 2 + (a.pos.y - b.pos.y) ** 2) ** 0.5
+
+    def get_avail_agent_actions(self, i):
+        u = self.agents[i]
+        avail = [0] * self.n_actions
+        if u.health <= 0:
+            avail[0] = 1
+            return avail
+        avail[1] = 1
+        x, y, m = u.pos.x, u.pos.y, self.MOVE
+        avail[2] = int(y + m < self.map_y)
+        avail[3] = int(y - m > 0)
+        avail[4] = int(x + m < self.map_x)
+        avail[5] = int(x - m > 0)
+        for e, t in self.enemies.items():
+            if t.health > 0 and self._dist(u, t) <= self.SHOOT:
+                avail[6 + e] = 1
+        return avail
+
+    def get_avail_actions(self):
+        return [self.get_avail_agent_actions(i) for i in range(self.n_agents)]
+
+    def get_state(self):
+        np = self.np
+        rows = [[u.health / u.health_max, u.shield / max(u.shield_max, 1),
+                 u.pos.x / self._map[0], u.pos.y / self._map[1]]
+                for u in list(self.agents.values())
+                + list(self.enemies.values())]
+        return np.concatenate([np.asarray(rows, np.float32).ravel(),
+                               self.last_action.ravel()])
+
+    def _hit(self, target, damage):
+        """Damage to the shield first, then to health; → damage dealt."""
+        dealt = 0.0
+        if target.shield > 0:
+            s = min(target.shield, damage)
+            target.shield -= s
+            damage -= s
+            dealt += s
+        h = min(target.health, damage)
+        target.health -= h
+        return dealt + h
+
+    def step(self, actions):
+        np = self.np
+        actions = [int(a) for a in actions]
+        self._episode_steps += 1
+        self.last_action = np.eye(self.n_actions,
+                                  dtype=np.float32)[actions]
+        dealt, kills = 0.0, 0
+        for i, a in enumerate(actions):
+            u = self.agents[i]
+            if u.health <= 0:
+                continue
+            if 2 <= a <= 5:
+                dx, dy = ((0, 1), (0, -1), (1, 0), (-1, 0))[a - 2]
+                u.pos.x += dx * self.MOVE
+                u.pos.y += dy * self.MOVE
+            elif a >= 6:
+                t = self.enemies[a - 6]
+                if t.health > 0:
+                    dealt += self._hit(t, self.ally_hit
+                                       * self.rng.uniform(0.5, 1.5))
+                    kills += int(t.health <= 0)
+                    u.weapon_cooldown = u.max_cooldown
+            u.weapon_cooldown = max(0.0, u.weapon_cooldown - 1.0)
+        alive = [u for u in self.agents.values() if u.health > 0]
+        for t in self.enemies.values():
+            if t.health <= 0 or not alive:
+                continue
+            near = min(alive, key=lambda u: self._dist(u, t))
+            d = self._dist(near, t)
+            if d > self.SHOOT - 1:
+                step = min(self.MOVE, d - (self.SHOOT - 1)) / d
+                t.pos.x += (near.pos.x - t.pos.x) * step
+                t.pos.y += (near.pos.y - t.pos.y) * step
+            elif self.rng.uniform() < self.enemy_fire:
+                self._hit(near, self.enemy_hit * self.rng.uniform(0.5, 1.5))
+        for i, u in self.agents.items():
+            if u.health <= 0:
+                self.death_tracker_ally[i] = 1
+        won = all(t.health <= 0 for t in self.enemies.values())
+        lost = all(u.health <= 0 for u in self.agents.values())
+        enemy_total = sum(t.health_max + t.shield_max
+                          for t in self.enemies.values())
+        max_reward = self.n_enemies * 10 + 200 + enemy_total
+        reward = dealt + 10 * kills + (200 if won else 0)
+        info = {}
+        terminated = won or lost
+        if terminated:
+            self.battles_game += 1
+            if won:
+                self.battles_won += 1
+                self.win_counted = True
+            info["battle_won"] = won
+        elif self._episode_steps >= self.episode_limit:
+            terminated = True
+            self.battles_game += 1
+            self.timeouts += 1
+            info["episode_limit"] = True
+            info["battle_won"] = False
+        return reward / (max_reward / 20.0), terminated, info
+
+    def close(self):
+        pass
+
+
+class StandInStarCraft2Env(StandInBattle):
+    """Stands in for `smac.env.StarCraft2Env` on SMAC's maps, at the
+    sizes of `envs/starcraft2/smac_maps.py` (3s5z: 8 allies against 8
+    enemies, 3 stalkers and 5 zealots a side, 14 actions, unit_type_bits
+    2, Protoss shields, episode_limit 150)."""
+
+    def __init__(self, map_name="3s5z", seed=None, obs_last_action=False,
+                 **kwargs):
+        from onpolicy_torch.envs.starcraft2.smac_maps import get_map_params
+        p = get_map_params(map_name)
+        kinds = (["stalker", "zealot"] if p["map_type"]
+                 == "stalkers_and_zealots" else ["marine"])
+        super().__init__(p["n_agents"], p["n_enemies"], p["limit"], kinds,
+                         seed)
+        self.map_type = p["map_type"]
+        self._seed = seed
+        self.reset()
+        self.map_x = self.map_y = 0          # set again at the first reset
+
+    def _teams(self):
+        if self.kinds != ["stalker", "zealot"]:
+            return super()._teams()
+        stalkers = 3 * self.n_agents // 8
+        ally = ["stalker"] * stalkers + ["zealot"] * (self.n_agents - stalkers)
+        stalkers = 3 * self.n_enemies // 8
+        enemy = ["stalker"] * stalkers + ["zealot"] * (self.n_enemies
+                                                       - stalkers)
+        return ally, enemy
+
+    def get_obs(self):
+        from onpolicy_torch.envs.starcraft2 import obs_builder as ob
+        from onpolicy_torch.envs.starcraft2 import state_builder as sb
+        return ob.all_obs(sb.config_from_smac(self),
+                          sb.snapshot_from_smac(self))
+
+    def get_env_info(self):
+        from onpolicy_torch.envs.starcraft2 import obs_builder as ob
+        from onpolicy_torch.envs.starcraft2 import state_builder as sb
+        cfg = sb.config_from_smac(self)
+        return {"n_agents": self.n_agents, "n_actions": self.n_actions,
+                "episode_limit": self.episode_limit,
+                "obs_shape": ob.obs_dim(cfg),
+                "state_shape": len(self.get_state())}
+
+
+class StandInCapabilityEngine(StandInBattle):
+    """The engine inside the SMACv2 stand-in: teams and start positions
+    drawn from the capability config through the port's
+    `envs/starcraft2/distributions.py` (10gen_protoss: stalker, zealot,
+    colossus at weights 0.45 / 0.45 / 0.1, unit_type_bits 3; surrounded
+    or reflected starts on a 32 x 32 map), episode_limit 200, own
+    positions observed (obs_own_pos), the v2 flags the builders read."""
+
+    def __init__(self, capability_config, map_name, seed):
+        from onpolicy_torch.envs.starcraft2 import distributions as dist
+        cc = capability_config
+        n, ne = cc["n_units"], cc["n_enemies"]
+        team = cc["team_gen"]
+        super().__init__(n, ne, 200, list(team["unit_types"]), seed)
+        self.unit_type_bits = len(team["unit_types"])
+        self.map_type = map_name.split("_")[-1] + "_gen"
+        common = {"n_units": n, "n_enemies": ne}
+        self._team_gen = dist.get_distribution(team["dist_type"])(
+            {**team, **common, "env_key": "team_gen"}, self.rng)
+        self._start_gen = dist.get_distribution(
+            cc["start_positions"]["dist_type"])(
+            {**cc["start_positions"], **common,
+             "env_key": "start_positions"}, self.rng)
+        self.obs_own_pos = True
+        self.obs_last_action = False
+        self.obs_timestep_number = False
+        self.state_timestep_number = False
+        self.replace_teammates = True
+        self.reset()
+
+    def _teams(self):
+        t = self._team_gen.generate()["team_gen"]
+        return t["ally_team"], t["enemy_team"]
+
+    def _positions(self):
+        s = self._start_gen.generate()
+        clip = lambda p: (min(max(p[0], 0.5), self._map[0] - 0.5),
+                          min(max(p[1], 0.5), self._map[1] - 0.5))
+        return ([clip(p) for p in s["ally_start_positions"]["item"]],
+                [clip(p) for p in s["enemy_start_positions"]["item"]])
+
+
+class StandInCapabilityEnvWrapper:
+    """Stands in for `smacv2.env.StarCraftCapabilityEnvWrapper`: `env` is
+    the engine, whose observations come from the port's
+    `envs/starcraft2/v2_builders.py` (the public smacv2 engine computes
+    the same layout)."""
+
+    def __init__(self, capability_config=None, map_name="10gen_protoss",
+                 seed=None, **kwargs):
+        self.env = StandInCapabilityEngine(capability_config, map_name, seed)
+
+    def _cfg_snap(self):
+        from onpolicy_torch.envs.starcraft2 import v2_builders as vb
+        return vb, vb.config_from_smacv2(self.env), \
+            vb.snapshot_from_smacv2(self.env)
+
+    def get_env_info(self):
+        vb, cfg, _ = self._cfg_snap()
+        return {"n_agents": self.env.n_agents,
+                "n_actions": self.env.n_actions,
+                "episode_limit": self.env.episode_limit,
+                "obs_shape": vb.obs_dim(cfg),
+                "state_shape": len(self.env.get_state())}
+
+    def get_obs(self):
+        import numpy as np
+        vb, cfg, snap = self._cfg_snap()
+        return np.stack([vb.agent_obs(cfg, snap, i)
+                         for i in range(self.env.n_agents)])
+
+    def get_avail_actions(self):
+        return self.env.get_avail_actions()
+
+    def get_state(self):
+        return self.env.get_state()
+
+    def reset(self):
+        return self.env.reset()
+
+    def step(self, actions):
+        return self.env.step(actions)
+
+    def close(self):
+        self.env.close()
+
+
+class StandInFootballEnv:
+    """Stands in for `gfootball.env.create_environment(...)` on
+    academy_3_vs_1_with_keeper: 3 controlled left players (and a left
+    keeper) against a defender and a keeper, simple115v2 observations
+    (115 floats a player), 19 actions, game_duration 400. The ball
+    carrier moves, passes (9-11) or shoots (12); a shot scores by its
+    distance to goal, the defender takes the ball with a chance that
+    grows as he closes in; the episode ends on a goal, a lost ball or the
+    last step. Rewards "scoring,checkpoints": 1 a goal, 0.1 for each of
+    ten zones nearer the goal that the carrier first enters."""
+
+    N_ACTIONS, DURATION = 19, 400
+
+    def __init__(self, n_players=3, seed=0, rewards="scoring,checkpoints"):
+        import numpy as np
+        self.np = np
+        self.n = n_players
+        self.rng = np.random.default_rng(seed)
+        self.checkpoints = "checkpoints" in rewards
+        self.observation_space = _GymBox((n_players, 115))
+        self.action_space = _GymMultiDiscrete([self.N_ACTIONS] * n_players)
+        self.unwrapped = self
+        self._reset_state()
+
+    def _reset_state(self):
+        np = self.np
+        r = self.rng
+        # left: keeper, then the three attackers; right: keeper, defender
+        self.left = np.array([[-1.0, 0.0]] + [[0.6 + r.uniform(-0.05, 0.05),
+                                                y + r.uniform(-0.05, 0.05)]
+                                               for y in (0.0, 0.2, -0.2)])
+        self.right = np.array([[1.0, 0.0], [0.75, r.uniform(-0.05, 0.05)]])
+        self.owner = 1 + int(r.integers(3))      # a left player has the ball
+        self.steps_left = self.DURATION
+        self.zones = 0
+        self.sticky = np.zeros((self.n, 10), np.float32)
+
+    def observation(self):
+        np = self.np
+        ball = self.left[self.owner]
+        out = []
+        for i in range(self.n):
+            out.append({"steps_left": self.steps_left,
+                        "active": 1 + i, "designated": self.owner,
+                        "sticky_actions": self.sticky[i].copy(),
+                        "ball": np.array([ball[0], ball[1], 0.0]),
+                        "ball_owned_team": 0,
+                        "score": [0, 0]})
+        return out
+
+    def _obs(self):
+        np = self.np
+        ball = self.left[self.owner]
+        rows = []
+        for i in range(self.n):
+            left = np.zeros((11, 2)); left[:4] = self.left
+            right = np.zeros((11, 2)); right[:2] = self.right
+            active = np.zeros(11); active[1 + i] = 1
+            mode = np.zeros(7); mode[0] = 1
+            rows.append(np.concatenate([
+                left.ravel(), np.zeros(22), right.ravel(), np.zeros(22),
+                [ball[0], ball[1], 0.0], np.zeros(3), [0, 1, 0], active,
+                mode]))
+        return np.asarray(rows, np.float32)
+
+    def reset(self):
+        self._reset_state()
+        return self._obs()
+
+    def step(self, actions):
+        np = self.np
+        r = self.rng
+        self.steps_left -= 1
+        reward = np.zeros(self.n, np.float32)
+        done, scored = False, 0
+        moves = {1: (-1, 0), 2: (-1, 1), 3: (0, 1), 4: (1, 1), 5: (1, 0),
+                 6: (1, -1), 7: (0, -1), 8: (-1, -1)}
+        for i, a in enumerate(actions):
+            p = 1 + i
+            self.sticky[i] = 0
+            if a in moves:
+                self.sticky[i, a - 1 if a <= 8 else 0] = 1
+                self.left[p] += 0.01 * np.asarray(moves[a], float)
+                self.left[p] = np.clip(self.left[p], [-1, -0.42], [1, 0.42])
+            elif p == self.owner and a in (9, 10, 11):
+                self.owner = 1 + int(r.choice([j for j in range(self.n)
+                                               if j != i]))
+            elif p == self.owner and a == 12 and not done:
+                dist = np.hypot(1.0 - self.left[p][0], self.left[p][1])
+                if r.uniform() < max(0.0, 0.6 - dist):
+                    scored, done = 1, True
+                else:
+                    done = True                  # the keeper holds it
+        carrier = self.left[self.owner]
+        d = self.right[1] - carrier
+        self.right[1] -= 0.02 * d / max(np.hypot(*d), 1e-6)
+        if not done and r.uniform() < 0.05 / max(np.hypot(*d), 0.1) ** 2 / 100:
+            done = True                          # the defender wins the ball
+        if self.checkpoints:
+            zone = int(np.clip((np.hypot(1.0 - carrier[0], carrier[1])
+                                ) * -10 + 10, 0, 10))
+            if zone > self.zones and not scored:
+                reward += 0.1 * (zone - self.zones)
+                self.zones = zone
+        if scored:
+            reward += 1.0 + 0.1 * (10 - self.zones)
+        if self.steps_left <= 0:
+            done = True
+        return self._obs(), reward, done, {"score_reward": scored}
+
+    def seed(self, seed=None):
+        self.rng = self.np.random.default_rng(seed)
+
+    def render(self, mode="rgb_array"):
+        return self.np.zeros((72, 96, 3), self.np.uint8)
+
+    def close(self):
+        pass
+
+
+# gym's Box and MultiDiscrete as `spaces.from_gym` and the GRF adapter
+# read them: by class name, with `shape` and `nvec`
+_GymBox = type("Box", (), {"__init__": lambda self, shape: setattr(
+    self, "shape", tuple(shape))})
+_GymMultiDiscrete = type("MultiDiscrete", (), {
+    "__init__": lambda self, nvec: setattr(self, "nvec", list(nvec))})
+
+
+def standin_create_environment(env_name="academy_3_vs_1_with_keeper",
+                               number_of_left_players_agent_controls=3,
+                               rewards="scoring,checkpoints", **kwargs):
+    """`gfootball.env.create_environment`'s stand-in (the adapter passes
+    no seed, so every stand-in starts from seed 0, as every engine of a
+    pool starts from its own default)."""
+    return StandInFootballEnv(number_of_left_players_agent_controls,
+                              rewards=rewards)
+
+
+def engine_standin_modules() -> dict:
+    """The module objects `smac`, `smac.env`, `smacv2`, `smacv2.env`,
+    `gfootball` and `gfootball.env` with the stand-ins in them."""
+    import types
+    mods = {}
+    for pkg, attr, obj in (
+            ("smac", "StarCraft2Env", StandInStarCraft2Env),
+            ("smacv2", "StarCraftCapabilityEnvWrapper",
+             StandInCapabilityEnvWrapper),
+            ("gfootball", "create_environment", standin_create_environment)):
+        env = types.ModuleType(f"{pkg}.env")
+        setattr(env, attr, obj)
+        top = types.ModuleType(pkg)
+        top.env = env
+        mods[pkg], mods[f"{pkg}.env"] = top, env
+    return mods
+
+
+def install_engine_standins():
+    sys.modules.update(engine_standin_modules())
+
+# the host runners' GRU shapes, f32 streams, H=64: SMAC 3s5z rMAPPO's
+# update, SMACv2 HAPPO's per-agent update and its whole-episode log-probs
+# (forward and backward held), GRF 3v1's minibatch
+HOST_SHAPES = (
+    ("SMAC 3s5z T=10 B=2560", *SMAC.values(), dict(repeat=True)),
+    ("SMACv2 HAPPO T=10 B=80 (per agent)", 10, 80, 64, {}),
+    ("SMACv2 HAPPO T=400 B=2 (log-probs)", 400, 2, 64, {}),
+    ("GRF 3v1 T=10 B=1500 (minibatch)", 10, 1500, 64, {}),
+)
+# phase 5's card-vs-CPU host episodes: rMAPPO on the SMAC stand-in (8
+# threads, T=40, L=10) and HAPPO on the SMACv2 one (2 threads, T=40), f32
+HOST_CHECKS = (
+    ("host rmappo f32 (SMAC 3s5z stand-in, 8 threads)", "smac_3s5z"),
+    ("host happo f32 (SMACv2 protoss 5v5 stand-in, 2 threads)",
+     "smacv2_happo"))
 
 
 def log(msg):
@@ -519,26 +1119,37 @@ def time_ms(torch, fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def device_ms_each(torch, fn, names, iters=20):
+def device_ms_each(torch, fn, names, iters=20, attempts=3):
     """Device time per call of the kernels whose names contain each of
     `names`, from torch.profiler: {name: ms}, None where it saw no device
     time. At the flagship width the kernels take less than the host needs
     to launch them, so CUDA events around back-to-back calls read the
-    host."""
+    host. Every call launches the same kernels, so each name's launch
+    count is a whole multiple of `iters`; the profiler now and then loses
+    launches (one reading held 1 of 20 forwards, under the bound), and
+    such a reading is taken again."""
     from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
+    for _ in range(attempts):
+        fn()
         torch.cuda.synchronize()
-    out = {}
-    for n in names:
-        us = sum(float(getattr(e, "self_device_time_total", 0.0)
-                       or getattr(e, "self_cuda_time_total", 0.0))
-                 for e in prof.key_averages() if n in e.key)
-        out[n] = us / iters / 1e3 if us > 0 else None
-    return out
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        out, counts = {}, {}
+        for n in names:
+            evs = [e for e in prof.key_averages() if n in e.key]
+            us = sum(float(getattr(e, "self_device_time_total", 0.0)
+                           or getattr(e, "self_cuda_time_total", 0.0))
+                     for e in evs)
+            out[n] = us / iters / 1e3 if us > 0 else None
+            counts[n] = sum(e.count for e in evs)
+        if all(c % iters == 0 for c in counts.values()):
+            return out
+        log(f"  torch.profiler lost launches ({counts} in {iters} calls); "
+            "reading again")
+    raise AssertionError(f"torch.profiler lost launches of {names} in "
+                         f"{attempts} readings")
 
 
 def device_ms(torch, fn, names, iters=20):
@@ -732,6 +1343,49 @@ def compare_backwards(torch, cg, shape, card):
 # main path
 # ---------------------------------------------------------------------------
 
+# the update's metrics that phase 5 holds the card's to the CPU's
+UPDATE_METRICS = ("value_loss", "dist_entropy", "actor_grad_norm",
+                  "critic_grad_norm", "grad_norm", "kl", "loss_improve")
+
+
+def check_update_against_cpu(torch, name, old, new, metrics, tol,
+                             update_tol):
+    """The card's update against the CPU's from the same state: `old` and
+    `new` are (card, CPU) pairs of tuples of train states, `metrics` the
+    (card, CPU) metrics. Each of `UPDATE_METRICS` within rtol `tol[0]`;
+    for each parameter tree (MAPPO's, HAPPO's and HATRPO's actor and
+    critic, MAT's one), the card's update (new - old parameters) differs
+    from the CPU's by at most `update_tol` of the CPU's norm, and every
+    trained parameter agrees within `tol`. → ({tree: that ratio}, the
+    largest parameter error)."""
+    from onpolicy_torch.utils.tree import tree_leaves
+    m_g, m_c = metrics
+    for k in m_c:
+        if k.split("/")[-1] in UPDATE_METRICS:
+            a, b = float(m_g[k]), float(m_c[k])
+            if not abs(a - b) <= tol[0] * abs(b):
+                raise AssertionError(f"{name} train {k}: card {a:.6g}, CPU "
+                                     f"{b:.6g} (rtol {tol[0]})")
+    leaves = lambda states, part: [x for s in states
+                                   for x in tree_leaves(getattr(s, part))]
+    moved, err = {}, 0.0
+    for part in [f.name for f in dataclasses.fields(new[1][0])
+                 if f.name.endswith("params")]:
+        step = lambda n, o: torch.cat([(a - b).flatten().cpu() for a, b in
+                                       zip(leaves(n, part), leaves(o, part))])
+        d_g, d_c = step(new[0], old[0]), step(new[1], old[1])
+        moved[part] = float((d_g - d_c).norm() / d_c.norm())
+        if not moved[part] <= update_tol:
+            raise AssertionError(
+                f"{name} train {part}: card's update differs from the CPU's "
+                f"by {moved[part]:.3e} of its norm (limit {update_tol})")
+        for i, (a, b) in enumerate(zip(leaves(new[0], part),
+                                       leaves(new[1], part))):
+            assert_close(torch, f"{name} train {part}[{i}]", a.cpu(), b, *tol)
+            err = max(err, max_err(a.cpu(), b))
+    return moved, err
+
+
 def check_small_against_cpu(torch, name, tol, update_tol, **flags):
     """One episode at 8 rollout threads, on the card (kernels) and on the
     CPU (plain versions) from the same parameters, carry and actions;
@@ -761,7 +1415,7 @@ def check_small_against_cpu(torch, name, tol, update_tol, **flags):
     from onpolicy_torch.config import Config, canonicalize_algorithm
     from onpolicy_torch.envs.mpe.world import WorldState
     from onpolicy_torch.scripts.train_mpe import make_runner
-    from onpolicy_torch.utils.tree import tree_leaves, tree_map
+    from onpolicy_torch.utils.tree import tree_map
     base = canonicalize_algorithm(Config(
         n_rollout_threads=8, episode_length=25, num_env_steps=200,
         ppo_epoch=2, use_ReLU=False, lr=7e-4, critic_lr=7e-4, **flags))
@@ -801,35 +1455,10 @@ def check_small_against_cpu(torch, name, tol, update_tol, **flags):
             cpu.algo.train(ts_c, buf_c, cpu.generator))
         ts_g, ts_c, new_g, new_c = ((x,) for x in (ts_g, ts_c, new_g, new_c))
     torch.cuda.synchronize()
-    for k in m_c:
-        if k.split("/")[-1] not in ("value_loss", "dist_entropy",
-                                    "actor_grad_norm", "critic_grad_norm",
-                                    "grad_norm", "kl", "loss_improve"):
-            continue
-        a, b = float(m_g[k]), float(m_c[k])
-        if not abs(a - b) <= tol[0] * abs(b):
-            raise AssertionError(f"{name} train {k}: card {a:.6g}, CPU "
-                                 f"{b:.6g} (rtol {tol[0]})")
-    moved = {}
-    leaves = lambda states, part: [x for s in states
-                                   for x in tree_leaves(getattr(s, part))]
-    # MAPPO's, HAPPO's and HATRPO's actor and critic; MAT's one tree
-    parts = [f.name for f in dataclasses.fields(new_c[0])
-             if f.name.endswith("params")]
-    for part in parts:
-        step = lambda new, old: torch.cat([
-            (n - o).flatten().cpu() for n, o in zip(leaves(new, part),
-                                                    leaves(old, part))])
-        d_g, d_c = step(new_g, ts_g), step(new_c, ts_c)
-        moved[part] = float((d_g - d_c).norm() / d_c.norm())
-        if not moved[part] <= update_tol:
-            raise AssertionError(
-                f"{name} train {part}: card's update differs from the CPU's "
-                f"by {moved[part]:.3e} of its norm (limit {update_tol})")
-        for i, (a, b) in enumerate(zip(leaves(new_g, part),
-                                       leaves(new_c, part))):
-            assert_close(torch, f"{name} train {part}[{i}]", a.cpu(), b, *tol)
-            err = max(err, max_err(a.cpu(), b))
+    moved, perr = check_update_against_cpu(
+        torch, name, (ts_g, ts_c), (new_g, new_c), (m_g, m_c), tol,
+        update_tol)
+    err = max(err, perr)
     log(f"  card vs CPU, {name}, 1 episode at N=8: max err {err:.2e} "
         f"(rollout relative to each field's largest entry), update differs "
         "by " + " / ".join(f"{v:.3e} ({k})" for k, v in moved.items())
@@ -977,7 +1606,6 @@ def check_hanabi_against_cpu(torch, cg, name, argv, tol=(1e-3, 1e-4),
     from onpolicy_torch.envs.hanabi import torch_engine as te
     from onpolicy_torch.runner.hanabi_runner import HanabiRunner
     from onpolicy_torch.scripts.train_hanabi import config_from_args
-    from onpolicy_torch.utils.tree import tree_leaves
     gpu = HanabiRunner(config_from_args(argv + ["--device", "cuda"]))
     cpu = HanabiRunner(config_from_args(argv + ["--device", "cpu"]))
     gpu.det_collect = cpu.det_collect = True
@@ -995,7 +1623,7 @@ def check_hanabi_against_cpu(torch, cg, name, argv, tol=(1e-3, 1e-4),
     on_card = lambda d: None if d is None else d.cuda()
     ts_g, c_g, b_g = gpu.init(on_card(decks[0]))
     ts_c, c_c, b_c = cpu.init(decks[0])
-    err, moved = 0.0, {}
+    err = 0.0
     launches = cg.FWD_LAUNCHES, cg.BWD_LAUNCHES
     for ep, do_train in enumerate((False, True)):
         ds = decks[1 + ep * T:1 + (ep + 1) * T]
@@ -1012,29 +1640,10 @@ def check_hanabi_against_cpu(torch, cg, name, argv, tol=(1e-3, 1e-4),
             err = max(err, max_err(a, b, scale))
         if not do_train:
             continue
-        for k in ("value_loss", "dist_entropy", "actor_grad_norm",
-                  "critic_grad_norm"):
-            a, b = float(m_g[k]), float(m_c[k])
-            if not abs(a - b) <= tol[0] * abs(b):
-                raise AssertionError(f"{name} train {k}: card {a:.6g}, CPU "
-                                     f"{b:.6g} (rtol {tol[0]})")
-        for part in ("actor_params", "critic_params"):
-            pairs = list(zip(tree_leaves(getattr(ts_g, part)),
-                             tree_leaves(getattr(ts_c, part)),
-                             tree_leaves(getattr(old_g, part)),
-                             tree_leaves(getattr(old_c, part))))
-            d_g = torch.cat([(n - o).flatten().cpu() for n, _, o, _ in pairs])
-            d_c = torch.cat([(n - o).flatten() for _, n, _, o in pairs])
-            moved[part] = float((d_g - d_c).norm() / d_c.norm())
-            if not moved[part] <= update_tol:
-                raise AssertionError(
-                    f"{name} train {part}: card's update differs from the "
-                    f"CPU's by {moved[part]:.3e} of its norm (limit "
-                    f"{update_tol})")
-            for i, (a, b, _, _) in enumerate(pairs):
-                assert_close(torch, f"{name} train {part}[{i}]", a.cpu(), b,
-                             *tol)
-                err = max(err, max_err(a.cpu(), b))
+        moved, perr = check_update_against_cpu(
+            torch, name, ((old_g,), (old_c,)), ((ts_g,), (ts_c,)),
+            (m_g, m_c), tol, update_tol)
+        err = max(err, perr)
     fwd = cg.FWD_LAUNCHES - launches[0]
     bwd = cg.BWD_LAUNCHES - launches[1]
     if gpu.cfg.use_recurrent_policy:
@@ -1049,6 +1658,82 @@ def check_hanabi_against_cpu(torch, cg, name, argv, tol=(1e-3, 1e-4),
         f"(buffer relative to each field's largest entry), update differs by "
         f"{moved['actor_params']:.3e} (actor) / {moved['critic_params']:.3e} "
         f"(critic) of its norm, GRU launches fwd {fwd} bwd {bwd}  ok")
+
+
+def check_host_against_cpu(torch, cg, name, config, episode_length=40,
+                           tol=(1e-3, 1e-4), update_tol=1e-3):
+    """One host-runner episode of `train_smac.CONFIGS[config]` at T =
+    `episode_length` on the card and on the CPU, each over its own
+    in-process pool of stand-in engines from the same seeds and from the
+    same parameters, the card's actions injected into the CPU's rollout.
+    Each staged field and the returns agree within `tol` relative to the
+    field's largest entry; the update's metrics within rtol `tol[0]`; the
+    update (new - old parameters) differs by at most `update_tol` of its
+    norm and the trained parameters within `tol`
+    (`check_update_against_cpu`, the limits of `check_small_against_cpu`
+    in f32). HAPPO's agents train in the order M-1, ..., 0. The update
+    must launch the kernels."""
+    from onpolicy_torch.envs.host_vec import DummyVecEnv
+    from onpolicy_torch.runner.host_runner import HostSharedRunner
+    from onpolicy_torch.runner.host_separated_runner import \
+        HostSeparatedRunner
+    from onpolicy_torch.scripts import train_smac
+    runners = {}
+    for device in ("cuda", "cpu"):
+        ns, cfg = train_smac.config_from_args(
+            train_smac.CONFIGS[config] + [
+                "--episode_length", str(episode_length), "--use_eval",
+                "false", "--device", device])
+        envs = DummyVecEnv(train_smac.make_env_fns(
+            ns, cfg, cfg.n_rollout_threads, cfg.seed), protocol="share")
+        Runner = HostSeparatedRunner if cfg.algorithm_name == "happo" \
+            else HostSharedRunner
+        runners[device] = Runner(cfg, envs)
+    gpu, cpu = runners["cuda"], runners["cpu"]
+    try:
+        (ts_g, start_g), (ts_c, start_c) = gpu.init(), cpu.init()
+        _, buf_g, _ = gpu.rollout(ts_g, start_g)
+        inject = [{"actions": buf_g.actions[t].cpu().numpy()}
+                  for t in range(episode_length)]
+        _, buf_c, _ = cpu.rollout(ts_c, start_c, inject)
+        err = 0.0
+        for k in ("obs", "share_obs", "available_actions", "rewards",
+                  "masks", "active_masks", "bad_masks", "action_log_probs",
+                  "value_preds", "rnn_states", "rnn_states_critic",
+                  "returns", "advantages"):
+            a, b = getattr(buf_g, k).cpu(), getattr(buf_c, k)
+            scale = float(b.abs().max()) or 1.0
+            assert_close(torch, f"{name} rollout {k}", a, b, *tol, scale)
+            err = max(err, max_err(a, b, scale))
+        deaths = int((buf_c.active_masks == 0).sum())
+        launches = cg.FWD_LAUNCHES, cg.BWD_LAUNCHES
+        if isinstance(gpu, HostSeparatedRunner):
+            order = tuple(reversed(range(gpu.num_agents)))
+            (new_g, m_g), (new_c, m_c) = (gpu.update(ts_g, buf_g, order),
+                                          cpu.update(ts_c, buf_c, order))
+        else:
+            (new_g, m_g), (new_c, m_c) = (gpu.update(ts_g, buf_g),
+                                          cpu.update(ts_c, buf_c))
+            ts_g, ts_c, new_g, new_c = ((x,) for x in (ts_g, ts_c, new_g,
+                                                       new_c))
+        torch.cuda.synchronize()
+        fwd = cg.FWD_LAUNCHES - launches[0]
+        bwd = cg.BWD_LAUNCHES - launches[1]
+        if not (fwd and bwd):
+            raise AssertionError(f"{name}: the update launched fwd {fwd} "
+                                 f"bwd {bwd} GRU kernels")
+        moved, perr = check_update_against_cpu(
+            torch, name, (ts_g, ts_c), (new_g, new_c), (m_g, m_c), tol,
+            update_tol)
+        err = max(err, perr)
+    finally:
+        gpu.envs.close()
+        cpu.envs.close()
+    log(f"  card vs CPU, {name}, 1 episode of T={episode_length}: max err "
+        f"{err:.2e} (staged buffer and returns relative to each field's "
+        f"largest entry; {deaths} dead agent-steps), update differs by "
+        + " / ".join(f"{v:.3e} ({k})" for k, v in moved.items())
+        + f" of its norm, GRU launches fwd {fwd} bwd {bwd}  ok")
 
 
 def train_main_path(torch, cg, name, script, config, extra, episodes,
@@ -1110,7 +1795,9 @@ def train_main_path(torch, cg, name, script, config, extra, episodes,
     if off_card:
         raise AssertionError(f"{name}: parameters off the card in "
                              f"{sorted(set(off_card))}")
-    reward = "average_score" if hanabi else "average_episode_rewards"
+    host = script in HOST_SCRIPTS
+    reward = ("average_score" if hanabi else "average_step_rewards" if host
+              else "average_episode_rewards")
     trained = episodes - 1 if hanabi else episodes
     logged = len([r for r in history if reward in r])
     if logged != trained:
@@ -1119,6 +1806,15 @@ def train_main_path(torch, cg, name, script, config, extra, episodes,
     if "--use_eval" in extra and not all(
             "eval_average_episode_rewards" in r for r in history):
         raise AssertionError(f"{name}: an episode without its eval")
+    evals_by_episode = [r["episode"] for r in history
+                        if "eval_average_episode_rewards" in r]
+    if script == "train_smac" and (evals_by_episode != [0] or
+                                   "eval_win_rate" not in history[0]):
+        raise AssertionError(f"{name}: evals at episodes {evals_by_episode}"
+                             ", want one with its win rate at episode 0")
+    if script == "train_football" and evals_by_episode:
+        raise AssertionError(f"{name}: train_football hands the runner no "
+                             "eval env, as the JAX package's")
     for r in history:
         for k, v in r.items():
             if isinstance(v, float) and not math.isfinite(v):
@@ -1146,6 +1842,11 @@ def train_main_path(torch, cg, name, script, config, extra, episodes,
     evals = [r["eval_average_episode_rewards"] for r in history
              if "eval_average_episode_rewards" in r]
     more = ""
+    if host:
+        more = "".join(f", {k} by episode {[round(r[k], 4) for r in history]}"
+                       for k in ("incre_win_rate", "dead_ratio", "goal",
+                                 "win_rate")
+                       if all(k in r for r in history))
     if hanabi:
         more = (f", true steps/s {history[-1]['true_steps'] / ends[-1]:.1f} "
                 f"over the run, average_score by episode "
@@ -1179,7 +1880,10 @@ def kernel_rows(times, launches, errs, shape, streams):
             "streams": streams, "shape": shape,
             "variant": times[f"{d}_variant"],
             "launches": sum(n[d] for n in launches.values()),
-            "launches_by_run": {k: n[d] for k, n in launches.items()},
+            "launches_by_run": {
+                k: {"launches": n[d],
+                    "gru_shapes": RUN_GRU_SHAPES.get(k, "no GRU kernel")}
+                for k, n in launches.items()},
             "max_abs_err": errs[d],
             "ms": times[f"{d}_ms"], "device_ms": times[f"{d}_device_ms"],
             "plain_ms": times[f"{d}_plain_ms"],
@@ -1240,6 +1944,10 @@ def main() -> int:
     for case, T, B, H, opts in HANABI_SHAPES:
         errs[case, "f32"] = check_layer(torch, cg, case, T, B, H, **opts)
     check_sequence_layers(torch, cg, None, H=512)
+    log("== 3. kernels against their plain versions at the host runners' "
+        "shapes (f32 streams)")
+    for case, T, B, H, opts in HOST_SHAPES:
+        errs[case, "f32"] = check_layer(torch, cg, case, T, B, H, **opts)
 
     log("== 4. times (CUDA events)")
     t_flag = time_shape(torch, cg, FLAGSHIP, card)
@@ -1251,8 +1959,10 @@ def main() -> int:
     t_hanabi = time_shape(torch, cg, HANABI, card)
     compare_forwards(torch, cg, HANABI, card)
     compare_backwards(torch, cg, HANABI, card)
+    t_smac = time_shape(torch, cg, SMAC, card)
 
-    log("== 5. main path: train_mpe and train_hanabi configurations")
+    log("== 5. main path: train_mpe, train_hanabi, train_smac and "
+        "train_football configurations")
     check_small_against_cpu(torch, "rmappo f32", (1e-3, 1e-4), 1e-3,
                             algorithm_name="rmappo")
     check_small_against_cpu(torch, "rmappo bf16", (5e-2, 5e-2), 0.25,
@@ -1299,14 +2009,19 @@ def main() -> int:
         check_hanabi_against_cpu(
             torch, cg, f"hanabi {algo} f32 H=32 (C++ engine, host seat loop)",
             HANABI_HOST_CHECK + ["--algorithm_name", algo])
+    # the host runners over the engine stand-ins (SMAC, SMACv2)
+    install_engine_standins()
+    for name, config in HOST_CHECKS:
+        check_host_against_cpu(torch, cg, name, config)
     # each run's launches go to the kernel rows of its GRU shape
-    launches = {"f32": {}, "bf16": {}, "hanabi": {}}
+    launches = {"f32": {}, "bf16": {}, "hanabi": {}, "smac": {}}
     for name, script, config, extra, episodes, fwd_pe, bwd_pe in TRAIN_RUNS:
         fwd, bwd, _, _ = train_main_path(torch, cg, name, script, config,
                                          extra, episodes, fwd_pe, bwd_pe,
                                          evaluate=name == "hanabi_forward")
         shape = ("bf16" if config.startswith("bench")
-                 else "hanabi" if script == "train_hanabi" else "f32")
+                 else "hanabi" if script == "train_hanabi"
+                 else "smac" if script in HOST_SCRIPTS else "f32")
         launches[shape][name] = {"fwd": fwd, "bwd": bwd}
     from onpolicy_torch.scripts import profile_episode
     prof = profile_episode.main(["--config", "hanabi_forward", "--episodes",
@@ -1316,6 +2031,15 @@ def main() -> int:
         f"update ms {prof['update_ms']}, device idle share "
         f"{prof['device_idle_share']:.3f}, kernel launches an episode "
         f"{prof['kernel_launches']}")
+    # the host runners over the worker pool and the stand-ins installed above
+    for config in ("smac_3s5z", "football_3v1"):
+        prof = profile_episode.main(["--config", config, "--episodes", "2",
+                                     "--warmup", "1"])
+        log(f"  {config} episodes on the card: rollout ms "
+            f"{prof['rollout_ms']}, update ms {prof['update_ms']}, "
+            f"device idle share {prof['device_idle_share']:.3f}, kernel "
+            f"launches an episode {prof['kernel_launches']} (host-to-device "
+            f"copies {prof['h2d_copies']}, GRU {prof['gru_kernel_launches']})")
 
     row_errs = lambda case, streams: dict(zip(("fwd", "bwd"),
                                               errs[case, streams]))
@@ -1326,6 +2050,9 @@ def main() -> int:
                            "bf16")
     kernels += kernel_rows(t_hanabi, launches["hanabi"],
                            row_errs("Hanabi T=10 B=20000 H=512", "f32"), HANABI,
+                           "f32")
+    kernels += kernel_rows(t_smac, launches["smac"],
+                           row_errs("SMAC 3s5z T=10 B=2560", "f32"), SMAC,
                            "f32")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -16,7 +16,9 @@ reference's `Hanabi_Env.py`):
 
 `HanabiVecEnv` runs all N games in the native batched engine
 (`binding.HanabiBatch`), one call for the fleet; it and `HanabiSingleEnv`
-speak numpy, and the runner moves their arrays to its device. The
+speak numpy, and the runner moves their arrays to its device.
+`HanabiHostPoolEnv` speaks `HanabiVecEnv`'s protocol over a pool of
+`HanabiSingleEnv` worker processes (`envs/host_vec.py`). The
 device-resident fleet is `torch_fleet.TorchHanabiFleet`.
 """
 from __future__ import annotations
@@ -139,3 +141,45 @@ class HanabiSingleEnv:
 
     def close(self):
         self._vec.close()
+
+
+class HanabiHostPoolEnv:
+    """The `HanabiVecEnv` protocol over a pool of one-game engines — the
+    reference's Hanabi data path (`ChooseSubprocVecEnv` of `Hanabi_Env`,
+    `train_hanabi_forward.py:25-47`) through the shared-memory pool.
+    `pool` is an `envs/host_vec.HostVecEnv` or `DummyVecEnv` with protocol
+    "choose" over `HanabiSingleEnv`s. The current player is read from the
+    agent-turn one-hot at the end of obs; the scores come in the step
+    infos."""
+
+    def __init__(self, pool, num_agents: int):
+        self.pool = pool
+        self.n_envs = pool.n_envs
+        self.num_agents = num_agents
+        self.observation_space = pool.observation_space
+        self.share_observation_space = pool.share_observation_space
+        self.action_space = pool.action_space
+        self.obs_dim = self.observation_space[0].shape[0]
+        self.share_dim = self.share_observation_space[0].shape[0]
+        self.n_moves = self.action_space[0].n
+
+    def _cur(self, obs):
+        turn = obs[:, -self.num_agents:]
+        return np.argmax(turn, axis=1).astype(np.int32)
+
+    def reset(self, reset_choose: Optional[np.ndarray] = None):
+        obs, share, avail = self.pool.reset(reset_choose)
+        return obs, share, avail, self._cur(obs)
+
+    def step(self, actions: np.ndarray):
+        """actions [N] (−1 no-op) → (obs, share_obs, rewards [N,M,1],
+        done [N], cur_player [N], avail [N,A], scores [N])."""
+        acts = np.repeat(np.asarray(actions, np.float32)[:, None, None],
+                         self.num_agents, axis=1)
+        obs, share, rewards, dones, infos, avail = self.pool.step(acts)
+        score = np.asarray([i.get("score", 0) for i in infos], np.float32)
+        done = np.asarray(dones)[:, 0].astype(bool)
+        return obs, share, rewards, done, self._cur(obs), avail, score
+
+    def close(self):
+        self.pool.close()

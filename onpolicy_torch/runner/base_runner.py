@@ -31,20 +31,25 @@ from onpolicy_torch.utils import profiling
 
 def refuse_unported(cfg):
     """Raise NotImplementedError for options whose port is still to come."""
-    todo = []
     if int(np.prod(cfg.mesh_shape)) > 1:
-        todo.append("multi-device mesh_shape (ROADMAP.md, Slice G)")
-    if cfg.env_name in ("StarCraft2", "SMAC", "StarCraft2v2", "SMACv2",
-                        "Football"):
-        todo.append(f"the {cfg.env_name} host runners (ROADMAP.md, Slice F)")
-    if todo:
-        raise NotImplementedError("not ported yet: " + "; ".join(todo))
+        raise NotImplementedError("not ported yet: multi-device mesh_shape "
+                                  "(ROADMAP.md, Slice G)")
+
+
+# envs whose simulators run on the host: they train through
+# runner/host_runner.py and runner/host_separated_runner.py
+HOST_ENVS = ("StarCraft2", "SMAC", "StarCraft2v2", "SMACv2", "Football")
 
 
 class BaseRunner:
     def __init__(self, cfg, vec_env=None, eval_env=None):
         cfg = cfg.validate()
         refuse_unported(cfg)
+        if cfg.env_name in HOST_ENVS:
+            raise ValueError(
+                f"{cfg.env_name} runs on the host runners "
+                "(runner/host_runner.py, runner/host_separated_runner.py) "
+                "through scripts/train_smac.py or scripts/train_football.py")
         self.cfg = cfg
         self.device = torch.device(cfg.device)
         self.generator = torch.Generator(device=self.device)

@@ -3,7 +3,8 @@
     python -m onpolicy_torch.scripts.profile_episode \
         [--config flagship|bench_mappo|bench_rmappo|reference|comm|
                   happo_spread|mpe_mat|mpe_mat_dec|hatrpo_spread|world_comm|
-                  hanabi_device|bench_hanabi_width|hanabi_forward] \
+                  hanabi_device|bench_hanabi_width|hanabi_forward|
+                  smac_3s5z|smacv2_protoss_5v5|smacv2_happo|football_3v1] \
         [--episodes 3] [--warmup 2]
 
 Runs one of `train_mpe.CONFIGS` (through the shared or the separated
@@ -18,19 +19,27 @@ flags on simple_world_comm (6 agents through the separated runner),
 train_hanabi_device.sh (rMAPPO, Hanabi-Full, hidden 512x2, 1000 fleets,
 T=100, 15 PPO epochs), the JAX package's Hanabi bench configuration
 (the same in feed-forward MAPPO, bf16), or train_hanabi_forward.sh
-(feed-forward MAPPO in f32 on the C++ engine through the host seat loop).
+(feed-forward MAPPO in f32 on the C++ engine through the host seat loop),
+or one of `train_smac.CONFIGS` / `train_football.CONFIGS` through the
+host runners (`runner/host_runner.py`, `host_separated_runner.py`) over
+the worker-process pool (train_smac_3s5z.sh: rMAPPO, 8 threads, T=400;
+train_football_3v1.sh: rMAPPO, 50 threads, T=200, 2 minibatches). Those
+need the `smac` / `smacv2` / `gfootball` packages in the process, or
+engine stand-ins in their place in `sys.modules` (`chip_smoke.py` installs
+its own and calls `main` on smac_3s5z and football_3v1).
 Prints one JSON object:
   * host wall time per episode, split into rollout (T env steps, or T
     Hanabi seat rounds, with the policy's acts, and GAE; on the C++
-    engine the engine's steps and the copies to and from the host) and
-    update
+    engine or a host pool the engine's steps and the copies to and from
+    the host) and update
     (ppo_epoch PPO steps, or the separated runner's agent-by-agent
     update; for Hanabi the deferred update on the previous episode), each
     phase ended by `torch.cuda.synchronize()`;
   * from `torch.profiler` over one more episode: the device's busy time
     (sum of kernel times; one stream, so kernels do not overlap), its idle
-    share of the unprofiled episode time, kernel launches per episode, the
-    GRU kernels' share, and the kernels that take the most device time;
+    share of the unprofiled episode time, kernel launches per episode
+    (host-to-device copies among them, counted apart), the GRU kernels'
+    share, and the kernels that take the most device time;
   * the card's name and power limit.
 Refuses to run without a CUDA device.
 """
@@ -44,7 +53,7 @@ import sys
 
 import torch
 
-from onpolicy_torch.scripts import train_hanabi
+from onpolicy_torch.scripts import train_football, train_hanabi, train_smac
 from onpolicy_torch.scripts.train_mpe import CONFIGS
 from onpolicy_torch.utils.profiling import PhaseTimer
 
@@ -135,11 +144,45 @@ def _hanabi_episodes(config):
     return cfg, episode
 
 
+def _host_episodes(config):
+    """(cfg, one episode (timer) -> None) for a `train_smac.CONFIGS` or
+    `train_football.CONFIGS` run over the worker-process pool; the
+    episode's `close` ends the pool."""
+    from onpolicy_torch.envs.host_vec import DummyVecEnv, HostVecEnv
+    from onpolicy_torch.runner.host_runner import HostSharedRunner
+    from onpolicy_torch.runner.host_separated_runner import \
+        HostSeparatedRunner
+    smac = config in train_smac.CONFIGS
+    module = train_smac if smac else train_football
+    ns, cfg = module.config_from_args(module.CONFIGS[config]
+                                      + ["--device", "cuda"])
+    fns = (train_smac.make_env_fns(ns, cfg, cfg.n_rollout_threads, cfg.seed)
+           if smac else train_football.make_env_fns(ns, cfg))
+    Pool = DummyVecEnv if cfg.n_rollout_threads == 1 else HostVecEnv
+    pool = Pool(fns, protocol="share" if smac else "basic")
+    Runner = HostSeparatedRunner if cfg.algorithm_name in (
+        "happo", "hatrpo") else HostSharedRunner
+    runner = Runner(cfg, pool)
+    box = list(runner.init())
+
+    def episode(timer):
+        state, start = box
+        with timer.phase("rollout"):
+            start, buf, _ = runner.rollout(state, start)
+        with timer.phase("update"):
+            state, _ = runner.update(state, buf)
+        box[:] = state, start
+    episode.close = pool.close
+    return cfg, episode
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     from onpolicy_torch.config import config_from_args
+    host = sorted(train_smac.CONFIGS) + sorted(train_football.CONFIGS)
     ap.add_argument("--config", choices=sorted(CONFIGS)
-                    + sorted(train_hanabi.CONFIGS), default="flagship")
+                    + sorted(train_hanabi.CONFIGS) + host,
+                    default="flagship")
     ap.add_argument("--episodes", type=int, default=3)
     ap.add_argument("--warmup", type=int, default=2)
     args = ap.parse_args(argv)
@@ -147,7 +190,9 @@ def main(argv=None):
         raise SystemExit("profile_episode: needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if args.config in train_hanabi.CONFIGS:
+    if args.config in host:
+        make = _host_episodes
+    elif args.config in train_hanabi.CONFIGS:
         make = _hanabi_episodes
     elif config_from_args(CONFIGS[args.config]
                           + ["--device", "cpu"]).share_policy:
@@ -155,22 +200,25 @@ def main(argv=None):
     else:
         make = _separated_episodes
     cfg, episode = make(args.config)
-    for _ in range(args.warmup):
-        episode(PhaseTimer())
-    torch.cuda.synchronize()
-
-    rollout_ms, update_ms = [], []
-    for _ in range(args.episodes):
-        timer = _CardTimer()
-        episode(timer)
-        rollout_ms.append(timer.milliseconds("rollout"))
-        update_ms.append(timer.milliseconds("update"))
-
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        episode(PhaseTimer())
+    try:
+        for _ in range(args.warmup):
+            episode(PhaseTimer())
         torch.cuda.synchronize()
+
+        rollout_ms, update_ms = [], []
+        for _ in range(args.episodes):
+            timer = _CardTimer()
+            episode(timer)
+            rollout_ms.append(timer.milliseconds("rollout"))
+            update_ms.append(timer.milliseconds("update"))
+
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            episode(PhaseTimer())
+            torch.cuda.synchronize()
+    finally:
+        getattr(episode, "close", lambda: None)()
     kernels = [e for e in prof.key_averages() if _is_kernel(e)]
     busy_us = sum(_device_time_us(e) for e in kernels)
     episode_ms = (sum(rollout_ms) + sum(update_ms)) / args.episodes
@@ -189,6 +237,7 @@ def main(argv=None):
         "device_busy_ms": busy_us / 1e3,
         "device_idle_share": 1.0 - busy_us / 1e3 / episode_ms,
         "kernel_launches": sum(e.count for e in kernels),
+        "h2d_copies": sum(e.count for e in kernels if "HtoD" in e.key),
         "gru_kernels_ms": sum(_device_time_us(e) for e in kernels
                               if any(k in e.key for k in GRU_KERNELS)) / 1e3,
         "gru_kernel_launches": sum(e.count for e in kernels

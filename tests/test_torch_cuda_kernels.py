@@ -74,7 +74,12 @@ def _close_bf16(got, want, streams):
                                    (10, 960, 40), (10, 37, 40), (1, 300, 40),
                                    # Hanabi width, W read from device
                                    # memory: ragged tiles, T=1
-                                   (3, 37, 512), (1, 1003, 512)])
+                                   (3, 37, 512), (1, 1003, 512),
+                                   # the host runners: SMAC 3s5z rMAPPO,
+                                   # SMACv2 HAPPO per agent and its
+                                   # whole-episode log-probs, GRF 3v1
+                                   (10, 2560, 64), (10, 80, 64),
+                                   (400, 2, 64), (10, 1500, 64)])
 def test_kernels_match_plain_versions_on_the_card(T, B, H):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels run on the card only")

@@ -197,18 +197,21 @@ def test_config_refuses_what_it_cannot_run():
     dict(algorithm_name="mat", use_popart=True, use_valuenorm=False),
     dict(use_popart=True, use_valuenorm=False)])
 def test_runner_refuses_unported_options(override):
-    """The mesh and the StarCraft2 env still raise, naming their ROADMAP.md
-    items (G, F); simple_tag (B3, through the separated runner: its roles
-    see different widths) and PopArt for MAT and MAPPO (B4) build their
-    runner now."""
+    """The mesh still raises, naming its ROADMAP.md item (G); the
+    StarCraft2 env is sent to the host runners (F); simple_tag (B3,
+    through the separated runner: its roles see different widths) and
+    PopArt for MAT and MAPPO (B4) build their runner now."""
     from onpolicy_torch.scripts.train_mpe import make_runner
     cfg = canonicalize_algorithm(Config(
         algorithm_name=override.pop("algorithm_name", "rmappo"),
         device="cpu", n_rollout_threads=2, episode_length=5,
         n_embd=16, hidden_size=16)).replace(**override)
-    if "mesh_shape" in override or "env_name" in override:
-        item = "Slice G" if "mesh_shape" in override else "Slice F"
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md, {item}"):
+    if "mesh_shape" in override:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md, Slice G"):
+            make_runner(cfg)
+        return
+    if "env_name" in override:
+        with pytest.raises(ValueError, match="host_runner.py"):
             make_runner(cfg)
         return
     runner = make_runner(cfg)
