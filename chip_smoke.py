@@ -40,7 +40,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
               at H=512. Then, in f32 at H=64, the host runners' shapes
               (`HOST_SHAPES`): T=10 B=2,560 (SMAC 3s5z rMAPPO), T=10
               B=80 and T=400 B=2 (SMACv2 HAPPO per agent, and its
-              whole-episode log-probs), T=10 B=1,500 (GRF 3v1).
+              whole-episode log-probs), T=10 B=1,500 (GRF 3v1). Then
+              a data-parallel rank's shapes of phase 6 (`DP_FLAGSHIP`
+              T=10 B=480, `DP_SMAC` T=10 B=128; f32, H=64).
   4. times:   kernel, plain version and cuDNN's nn.GRU (yardstick only)
               at the flagship and bench shapes, with CUDA events (`ms`),
               in f32 and with bf16 streams (cuDNN then in bf16); the
@@ -56,7 +58,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
               the wide one on the same inputs through explicit plans,
               each held against the plain version and timed in turns
               (old, wide, wide, old), with each wide kernel's device ms;
-              then the SMAC shape T=10 B=2,560 H=64 in f32.
+              then the SMAC shape T=10 B=2,560 H=64 in f32, and the
+              data-parallel ranks' T=10 B=480 and B=128.
   5. train:   one episode at 8 rollout threads on the card against the
               CPU path from the same state (rMAPPO in f32, rMAPPO and
               MAPPO with the critic dedup in bf16 and in f32, HAPPO with
@@ -118,10 +121,27 @@ Phases, each of which fails the run (non-zero exit) if it fails:
               `scripts/train_football.main` on train_football_3v1.sh (50
               threads, 2 episodes), each over worker processes
               (`envs/host_vec.HostVecEnv`).
+  6. data parallel (`data_parallel_phase`): ranks under `python -m
+              torch.distributed.run --standalone` (torchrun), each
+              running `scripts/<script>.main` through this script's
+              `--dp-rank` mode, which counts its kernel launches from
+              0 and records its parameters. (a) train_mpe's flagship
+              for 2 episodes on 2 ranks (64 threads a rank) sharing the
+              card on gloo (`--mesh_shape 2 --dist_backend gloo`)
+              against one process without torchrun: parameters and the
+              checkpoint rank 0 wrote within 2e-4 of their norm, its
+              carry the global one, the logged metrics at rtol 2e-4 /
+              atol 2e-5, the ranks' parameters bit for bit alike, 20
+              launches of each kernel a rank an episode at T=10 B=480;
+              (b) the same on 1 rank of NCCL under torchrun, bitwise
+              equal to the run without it; (c) train_smac on
+              train_smac_3s5z.sh over the stand-ins at T=40, 2 ranks x
+              4 envs against one process x 8, as (a), 10 launches a
+              rank an episode at T=10 B=128.
 The last three lines are one JSON object with a row per kernel and
-stream type (and shape: flagship, bench, Hanabi, SMAC), the card's name
-and power limit, and the result line
-`{"ok": true, "device": {...}}`.
+stream type (and shape: flagship, bench, Hanabi, SMAC, and a
+data-parallel rank's two), the card's name and power limit, and the
+result line `{"ok": true, "device": {...}}`.
 Exits non-zero with no result line when no CUDA device is present or
 the port's package is not beside this script.
 """
@@ -149,6 +169,10 @@ FLAGSHIP = dict(T=10, B=960, H=64)       # 25*128*3/10 chunks of L=10
 BENCH = dict(T=10, B=122880, H=64)       # 16384 rollout threads
 HANABI = dict(T=10, B=20000, H=512)      # 100*1000*2/10 chunks of L=10
 SMAC = dict(T=10, B=2560, H=64)          # 8 threads*400 steps*8 agents/10
+# phase 6's ranks: the flagship's 960 chunks over 2 ranks, and the 3s5z
+# stand-in's 8 threads*40 steps*8 agents/10 = 256 chunks over 2
+DP_FLAGSHIP = dict(T=10, B=480, H=64)
+DP_SMAC = dict(T=10, B=128, H=64)
 # (name, script, config of its CONFIGS, extra flags, episodes, forward and
 # backward launches an episode). One PPO update of a recurrent policy
 # launches each kernel once for the actor and once for the critic
@@ -226,6 +250,11 @@ RUN_GRU_SHAPES = {
     "smacv2_happo": "T=10 B=80 per agent (fwd 50, bwd 50 an episode); "
                     "T=400 B=2 (fwd 10 an episode)",
     "football_3v1": "T=10 B=1500"}
+# the same for phase 6's runs, by rank
+DP_GRU_SHAPES = {
+    "dp flagship rank 0": "T=10 B=480", "dp flagship rank 1": "T=10 B=480",
+    "dp smac_3s5z rank 0": "T=10 B=128",
+    "dp smac_3s5z rank 1": "T=10 B=128"}
 # phase 5's scenario checks: (case, scenario, num_agents, num_landmarks,
 # num_good_agents, num_adversaries, walls and noise), the arguments of the
 # JAX package's golden test of each scenario (simple_attack: 2 + 2 agents
@@ -1863,6 +1892,297 @@ def train_main_path(torch, cg, name, script, config, extra, episodes,
     return fwd, bwd, history[-1]["fps"], last_rate
 
 
+# ---------------------------------------------------------------------------
+# phase 6: data parallel on the card
+# ---------------------------------------------------------------------------
+
+def dp_rank_main(out_dir, script, argv) -> int:
+    """One rank of phase 6 (`chip_smoke.py --dp-rank OUT SCRIPT -- ARGV`,
+    under torchrun or alone): `scripts/<script>.main(ARGV)` with the GRU
+    launch counts from 0; writes OUT/rank<r>.pt with the rank, the world
+    size, the backend, its launches, its logged rows and its trained
+    parameters, which must lie on the device ARGV names."""
+    import importlib
+
+    import torch
+    sys.path.insert(0, str(ROOT))
+    from onpolicy_torch.ops import cuda_gru as cg
+    from onpolicy_torch.parallel import distributed
+    from onpolicy_torch.utils.tree import tree_leaves
+    if script == "train_smac":
+        install_engine_standins()
+    module = importlib.import_module(f"onpolicy_torch.scripts.{script}")
+    cg.FWD_LAUNCHES = 0
+    cg.BWD_LAUNCHES = 0
+    t0 = time.perf_counter()
+    state, history = module.main(argv)
+    device = argv[argv.index("--device") + 1].split(":")[0]
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    states = state if isinstance(state, tuple) else (state,)
+    params = [x.detach() for s in states
+              for x in tree_leaves((s.actor_params, s.critic_params))]
+    if any(x.device.type != device for x in params):
+        raise AssertionError(f"{script}: parameters off the {device}")
+    rank = distributed.rank()
+    backend = (torch.distributed.get_backend()
+               if torch.distributed.is_initialized() else None)
+    torch.save({"rank": rank, "world": distributed.world_size(),
+                "backend": backend, "fwd": cg.FWD_LAUNCHES,
+                "bwd": cg.BWD_LAUNCHES, "rows": history, "wall": wall,
+                "params": [x.cpu() for x in params]},
+               Path(out_dir) / f"rank{rank}.pt")
+    distributed.shutdown()
+    return 0
+
+
+def start_ranks(name, tmp, script, argv, nproc):
+    """Phase 6's run `name`: `nproc` ranks under torchrun (--standalone,
+    one node), or with nproc 0 one process without it, each a
+    `dp_rank_main`; → (process, its run directory)."""
+    run = Path(tmp) / name
+    (run / "results").mkdir(parents=True)
+    target = [str(ROOT / "chip_smoke.py"), "--dp-rank", str(run), script,
+              "--", *argv]
+    cmd = ([sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc_per_node", str(nproc), *target] if nproc
+           else [sys.executable, *target])
+    env = {**os.environ, "ONPOLICY_TORCH_RESULTS": str(run / "results"),
+           "PYTHONPATH": str(ROOT), "GLOO_SOCKET_IFNAME": "lo"}
+    log_file = open(run / "log.txt", "w")
+    proc = subprocess.Popen(cmd, env=env, cwd=ROOT, stdout=log_file,
+                            stderr=subprocess.STDOUT, start_new_session=True)
+    proc.log_file = log_file
+    return proc, run
+
+
+def stop(proc):
+    """End a run of `start_ranks` and whatever is left of its session (the
+    env pools' workers): SIGTERM, which torchrun passes on to its ranks,
+    then SIGKILL."""
+    import signal
+
+    def signal_session(sig):
+        try:
+            os.killpg(proc.pid, sig)
+        except ProcessLookupError:
+            pass
+    signal_session(signal.SIGTERM)
+    try:
+        proc.wait(timeout=30)
+    except subprocess.TimeoutExpired:
+        pass
+    signal_session(signal.SIGKILL)
+    proc.wait()
+    if not proc.log_file.closed:
+        proc.log_file.close()
+
+
+def finish_ranks(name, proc, run, nproc, timeout=300):
+    """Wait for a run of `start_ranks`; → its ranks' records, rank order."""
+    try:
+        proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        pass
+    stop(proc)
+    if proc.returncode != 0:
+        tail = (run / "log.txt").read_text()[-4000:]
+        raise AssertionError(f"{name}: exit {proc.returncode}\n{tail}")
+    import torch
+    records = [torch.load(run / f"rank{r}.pt", weights_only=False)
+               for r in range(max(nproc, 1))]
+    if [r["rank"] for r in records] != list(range(max(nproc, 1))):
+        raise AssertionError(f"{name}: ranks {[r['rank'] for r in records]}")
+    return records
+
+
+def rel_norm_err(torch, got, want) -> float:
+    """‖got − want‖ / ‖want‖ over a list of tensors."""
+    num = sum(float((a.double() - b.double()).square().sum())
+              for a, b in zip(got, want))
+    den = sum(float(b.double().square().sum()) for b in want)
+    return math.sqrt(num / max(den, 1e-30))
+
+
+def check_ranks_agree(torch, name, records):
+    for r in records[1:]:
+        for i, (a, b) in enumerate(zip(records[0]["params"], r["params"])):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{name}: leaf {i} differs between "
+                                     f"rank 0 and rank {r['rank']}")
+
+
+def check_rows(name, got, want, rtol=2e-4, atol=2e-5):
+    """Every logged metric but the rate: |a − b| ≤ atol + rtol·|b|."""
+    if [r["episode"] for r in got] != [r["episode"] for r in want]:
+        raise AssertionError(f"{name}: logged episodes differ")
+    worst = 0.0
+    for g, w in zip(got, want):
+        for k, v in w.items():
+            if k in ("fps", "episode") or k.startswith("eval_"):
+                continue
+            err = abs(g[k] - v)
+            if err > atol + rtol * abs(v):
+                raise AssertionError(f"{name} episode {w['episode']} {k}: "
+                                     f"{g[k]} against {v}")
+            worst = max(worst, err / (atol + rtol * abs(v)))
+    return worst
+
+
+def checkpoint(run):
+    """The one checkpoint directory a run wrote (rank 0), its last file."""
+    import torch
+    dirs = list((run / "results").rglob("models"))
+    if len(dirs) != 1:
+        raise AssertionError(f"{run.name}: {len(dirs)} checkpoint folders")
+    last = (dirs[0] / "latest.txt").read_text().strip()
+    return torch.load(dirs[0] / last, weights_only=True)
+
+
+def data_parallel_phase(torch, card, device="cuda"):
+    """Phase 6. (a) train_mpe's flagship (128 threads, 64 a rank, hidden
+    64, T=25, L=10) for 2 episodes on 2 ranks sharing the card through
+    gloo, against one process without torchrun: parameters (returned
+    and checkpointed) within 2e-4 of their norm, the logged metrics at
+    rtol 2e-4 / atol 2e-5, the ranks' parameters bit for bit alike, the
+    checkpoint's carry the global one; each rank launches the kernels 20
+    times an episode at T=10 B=480 H=64. (b) the same on 1 rank of NCCL
+    under torchrun: bitwise equal to the run without torchrun. (c)
+    train_smac's 3s5z over the engine stand-ins at T=40, 2 ranks × 4
+    envs against 1 process × 8, the same limits as (a), each rank at
+    T=10 B=128. → the launches of the 2-rank runs, by rank. (`device`
+    "cpu" rehearses the phase without the card, the kernels' launches
+    then 0.)"""
+    from onpolicy_torch.scripts import train_mpe, train_smac
+    from onpolicy_torch.utils.tree import tree_leaves as flat_tensors
+    episodes = 2
+    flag = lambda argv, name: int(argv[len(argv) - 1 - argv[::-1].index(name)
+                                       + 1])
+    mpe = train_mpe.CONFIGS["flagship"]
+    mpe = mpe + [
+        "--num_env_steps", str(episodes * flag(mpe, "--n_rollout_threads")
+                               * flag(mpe, "--episode_length")),
+        "--log_interval", "1", "--experiment_name", "chip_smoke_dp",
+        "--device", device]
+    smac = train_smac.CONFIGS["smac_3s5z"] + ["--episode_length", "40"]
+    smac = smac + [
+        "--use_eval", "false", "--num_env_steps",
+        str(episodes * flag(smac, "--episode_length") * 8), "--log_interval",
+        "1", "--device", device]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        # the runs that only a comparison needs go side by side; the
+        # 2-rank flagship alone, for its rate
+        first = [("one", "train_mpe", mpe, 0),
+                 ("nccl1", "train_mpe", mpe + ["--mesh_shape", "1"], 1),
+                 ("smac1", "train_smac", smac + ["--n_rollout_threads", "8"],
+                  0)]
+        procs = {}
+        try:
+            for n, s, a, k in first:
+                procs[n] = start_ranks(n, tmp, s, a, k)
+            rec = {n: finish_ranks(n, *procs[n], k) for n, _, _, k in first}
+            for name, script, argv, nproc in (
+                    ("gloo2", "train_mpe", mpe + ["--mesh_shape", "2",
+                                                  "--dist_backend", "gloo"],
+                     2),
+                    ("smac2", "train_smac", smac + [
+                        "--n_rollout_threads", "4", "--mesh_shape", "2",
+                        "--dist_backend", "gloo"], 2)):
+                procs[name] = start_ranks(name, tmp, script, argv, nproc)
+                rec[name] = finish_ranks(name, *procs[name], nproc)
+        finally:
+            for proc, _ in procs.values():
+                stop(proc)
+        wall = time.perf_counter() - t0
+        runs = {n: Path(tmp) / n for n in rec}
+        ck = {n: checkpoint(runs[n]) for n in ("one", "nccl1", "gloo2")}
+
+        # (b) NCCL at world size 1, its collectives called: bit for bit
+        (n1,), (one,) = rec["nccl1"], rec["one"]
+        nccl = "nccl" if device == "cuda" else "gloo"
+        if (n1["backend"], n1["world"], one["backend"]) != (nccl, 1, None):
+            raise AssertionError(f"(b): backend {n1['backend']} world "
+                                 f"{n1['world']}, plain {one['backend']}")
+        pairs = list(zip(flat_tensors(ck["nccl1"]), flat_tensors(ck["one"])))
+        pairs += list(zip(n1["params"], one["params"]))
+        if not all(torch.equal(a, b) if isinstance(b, torch.Tensor)
+                   else a == b for a, b in pairs):
+            raise AssertionError("(b): the NCCL world-size-1 run differs "
+                                 "from the run without torchrun")
+        drop = lambda rows: [{k: v for k, v in r.items() if k != "fps"}
+                             for r in rows]
+        if drop(n1["rows"]) != drop(one["rows"]) or \
+                (n1["fwd"], n1["bwd"]) != (one["fwd"], one["bwd"]):
+            raise AssertionError("(b): logged rows or launches differ")
+        log(f"  (b) train_mpe flagship, torchrun 1 rank {nccl}: checkpoint "
+            f"({len(pairs)} tensors), rows and launches bitwise equal to "
+            f"the run without torchrun  ok")
+
+        # (a) 2 ranks on gloo sharing the card
+        g2 = rec["gloo2"]
+        check_ranks_agree(torch, "(a)", g2)
+        if [r["backend"] for r in g2] != ["gloo", "gloo"]:
+            raise AssertionError(f"(a): backends {[r['backend'] for r in g2]}")
+        err = rel_norm_err(torch, g2[0]["params"], one["params"])
+        st = lambda c: flat_tensors(c["state"])
+        ck_err = rel_norm_err(torch, st(ck["gloo2"]), st(ck["one"]))
+        if max(err, ck_err) > 2e-4:
+            raise AssertionError(f"(a): parameters {err:.3e} / checkpoint "
+                                 f"{ck_err:.3e} of their norm")
+        carry = lambda c: flat_tensors(c["carry"])
+        if [x.shape for x in carry(ck["gloo2"])] != \
+                [x.shape for x in carry(ck["one"])]:
+            raise AssertionError("(a): the checkpoint's carry is not global")
+        carry_err = rel_norm_err(torch, [x.float() for x in carry(ck["gloo2"])],
+                                 [x.float() for x in carry(ck["one"])])
+        if carry_err > 2e-4:
+            raise AssertionError(f"(a): carry {carry_err:.3e} of its norm")
+        worst = check_rows("(a)", g2[0]["rows"], one["rows"])
+        want = (20 * episodes, 20 * episodes) if device == "cuda" else (0, 0)
+        for r in g2:
+            if (r["fwd"], r["bwd"]) != want:
+                raise AssertionError(f"(a) rank {r['rank']}: launches "
+                                     f"{r['fwd']}/{r['bwd']}, want {want}")
+        rate = g2[0]["rows"][-1]["fps"]
+        log(f"  (a) train_mpe flagship, torchrun 2 ranks gloo on one card "
+            f"(64 threads a rank): parameters {err:.2e} (checkpoint "
+            f"{ck_err:.2e}, global carry {carry_err:.2e}) of their norm "
+            f"from 1 process, metrics within {worst:.2f} of the limit, "
+            f"ranks bitwise alike; GRU launches a rank an episode at T=10 "
+            f"B=480 H=64: fwd {g2[0]['fwd'] // episodes} bwd "
+            f"{g2[0]['bwd'] // episodes}; env-steps/s of the 2 ranks sharing "
+            f"the card {rate:.1f} over the run (1 process: "
+            f"{one['rows'][-1]['fps']:.1f}, run beside others) [{card}]  ok")
+
+        # (c) the host shared runner over the stand-ins
+        s2, (s1,) = rec["smac2"], rec["smac1"]
+        check_ranks_agree(torch, "(c)", s2)
+        serr = rel_norm_err(torch, s2[0]["params"], s1["params"])
+        if serr > 2e-4:
+            raise AssertionError(f"(c): parameters {serr:.3e} of their norm")
+        sworst = check_rows("(c)", s2[0]["rows"], s1["rows"])
+        want = (10 * episodes, 10 * episodes) if device == "cuda" else (0, 0)
+        for r in s2:
+            if (r["fwd"], r["bwd"]) != want:
+                raise AssertionError(f"(c) rank {r['rank']}: launches "
+                                     f"{r['fwd']}/{r['bwd']}, want {want}")
+        log(f"  (c) train_smac 3s5z stand-in, T=40, torchrun 2 ranks x 4 "
+            f"envs gloo against 1 process x 8: parameters {serr:.2e} of "
+            f"their norm, metrics within {sworst:.2f} of the limit, ranks "
+            f"bitwise alike; GRU launches a rank an episode at T=10 B=128 "
+            f"H=64: fwd {s2[0]['fwd'] // episodes} bwd "
+            f"{s2[0]['bwd'] // episodes}  ok")
+        log(f"  phase 6 wall {wall:.1f} s")
+    return ({f"dp flagship rank {r['rank']}": {"fwd": r["fwd"],
+                                                "bwd": r["bwd"]}
+             for r in g2},
+            {f"dp smac_3s5z rank {r['rank']}": {"fwd": r["fwd"],
+                                                 "bwd": r["bwd"]}
+             for r in s2})
+
+
 def kernel_rows(times, launches, errs, shape, streams):
     """The `kernels` line's rows of both kernels for one stream type;
     `launches` maps each run of that stream type to its counts, and a
@@ -1882,7 +2202,8 @@ def kernel_rows(times, launches, errs, shape, streams):
             "launches": sum(n[d] for n in launches.values()),
             "launches_by_run": {
                 k: {"launches": n[d],
-                    "gru_shapes": RUN_GRU_SHAPES.get(k, "no GRU kernel")}
+                    "gru_shapes": {**RUN_GRU_SHAPES, **DP_GRU_SHAPES}.get(
+                        k, "no GRU kernel")}
                 for k, n in launches.items()},
             "max_abs_err": errs[d],
             "ms": times[f"{d}_ms"], "device_ms": times[f"{d}_device_ms"],
@@ -1903,6 +2224,9 @@ def main() -> int:
               "script; run it from the root of the repository",
               file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--dp-rank"]:
+        # one rank of phase 6: OUT SCRIPT -- ARGV
+        return dp_rank_main(sys.argv[2], sys.argv[3], sys.argv[5:])
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device", file=sys.stderr)
@@ -1948,6 +2272,12 @@ def main() -> int:
         "shapes (f32 streams)")
     for case, T, B, H, opts in HOST_SHAPES:
         errs[case, "f32"] = check_layer(torch, cg, case, T, B, H, **opts)
+    log("== 3. kernels against their plain versions at a data-parallel "
+        "rank's shapes (f32 streams)")
+    for case, shape in (("dp flagship rank", DP_FLAGSHIP),
+                        ("dp smac_3s5z rank", DP_SMAC)):
+        errs[case, "f32"] = check_layer(torch, cg, case, *shape.values(),
+                                        repeat=True)
 
     log("== 4. times (CUDA events)")
     t_flag = time_shape(torch, cg, FLAGSHIP, card)
@@ -1960,6 +2290,8 @@ def main() -> int:
     compare_forwards(torch, cg, HANABI, card)
     compare_backwards(torch, cg, HANABI, card)
     t_smac = time_shape(torch, cg, SMAC, card)
+    t_dp = time_shape(torch, cg, DP_FLAGSHIP, card)
+    t_dp_smac = time_shape(torch, cg, DP_SMAC, card)
 
     log("== 5. main path: train_mpe, train_hanabi, train_smac and "
         "train_football configurations")
@@ -2041,6 +2373,10 @@ def main() -> int:
             f"launches an episode {prof['kernel_launches']} (host-to-device "
             f"copies {prof['h2d_copies']}, GRU {prof['gru_kernel_launches']})")
 
+    log("== 6. data parallel on the card: torchrun, 2 ranks sharing it on "
+        "gloo, 1 rank on NCCL")
+    dp_launches, dp_smac_launches = data_parallel_phase(torch, card)
+
     row_errs = lambda case, streams: dict(zip(("fwd", "bwd"),
                                               errs[case, streams]))
     kernels = kernel_rows(t_flag, launches["f32"],
@@ -2053,6 +2389,12 @@ def main() -> int:
                            "f32")
     kernels += kernel_rows(t_smac, launches["smac"],
                            row_errs("SMAC 3s5z T=10 B=2560", "f32"), SMAC,
+                           "f32")
+    kernels += kernel_rows(t_dp, dp_launches,
+                           row_errs("dp flagship rank", "f32"), DP_FLAGSHIP,
+                           "f32")
+    kernels += kernel_rows(t_dp_smac, dp_smac_launches,
+                           row_errs("dp smac_3s5z rank", "f32"), DP_SMAC,
                            "f32")
     print(json.dumps({"kernels": kernels}))
     print(card)

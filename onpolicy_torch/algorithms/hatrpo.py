@@ -30,6 +30,13 @@ The actor's parameters are flattened into one vector (`_flatten`) for the
 CG and the line search, and unflattened for each evaluation. The
 sequence GRU of this actor runs as the plain scan (`models/gru.py`): the
 product differentiates it twice.
+
+Over a data mesh (`mesh`) each rank holds a share of the minibatch's
+rows, and every batch quantity is summed over the ranks: the critic's
+gradient with its loss, the surrogate's gradient g with the surrogate,
+each Fisher-vector product (one all-reduce a CG step; the KL's double
+backward stays local), and each line-search trial's surrogate and KL.
+So CG, the step and the acceptance are the same on every rank.
 """
 from __future__ import annotations
 
@@ -41,6 +48,7 @@ from onpolicy_torch import buffer as buf_lib
 from onpolicy_torch.algorithms.happo import HAPPO
 from onpolicy_torch.ops import losses
 from onpolicy_torch.ops import valuenorm as vn
+from onpolicy_torch.parallel import distributed
 from onpolicy_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
 CG_ITERS = 10
@@ -118,13 +126,20 @@ class HATRPO(HAPPO):
         return losses.masked_mean(
             surr, am if self.cfg.use_policy_active_masks else None)
 
+    def _total(self, parts):
+        """Each rank's parts summed over the ranks (one all-reduce)."""
+        return distributed.all_reduce_sum(parts, self.mesh)
+
     def _critic_step(self, state, mb):
-        """One Adam step of the critic → (critic_params, opt state, vnorm,
-        value loss, gradient norm)."""
+        """One Adam step of the critic on the whole minibatch `mb` (its
+        returns fold into the normalizer; this rank's share makes the
+        loss) → (critic_params, opt state, vnorm, value loss, gradient
+        norm)."""
         cfg = self.cfg
         vnorm = state.vnorm
         if cfg.use_popart or cfg.use_valuenorm:
             vnorm = vn.update(vnorm, mb["returns"].reshape(-1, 1))
+        mb = self._share(mb)
         cp = tree_map(lambda x: x.detach().requires_grad_(True),
                       state.critic_params)
         leaves = tree_leaves(cp)
@@ -145,10 +160,12 @@ class HATRPO(HAPPO):
             grads = torch.autograd.grad(v_loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for g, p in zip(grads, leaves)]
+        grads, aux = distributed.sum_over_ranks(
+            grads, {"value_loss": v_loss}, self.mesh)
         params, opt = self.critic_tx.update(
             tree_unflatten(state.critic_params, grads),
             state.critic_opt_state, state.critic_params)
-        return params, opt, vnorm, v_loss.detach(), \
+        return params, opt, vnorm, aux["value_loss"], \
             losses.global_grad_norm(grads)
 
     def fisher_vector_product(self, state, mb, old_out=None):
@@ -161,13 +178,14 @@ class HATRPO(HAPPO):
         theta = theta0.detach().requires_grad_(True)
         with torch.enable_grad():
             new_out = self._policy_outputs(unflatten(theta), mb)
-            kl = self._kl(new_out, old_out).mean()
+            kl = losses.batch_mean(self._kl(new_out, old_out))
             grad_kl, = torch.autograd.grad(kl, theta, create_graph=True)
 
         def fvp(v):
             with torch.enable_grad():
                 hv, = torch.autograd.grad(grad_kl @ v, theta,
                                           retain_graph=True)
+            hv, = self._total([hv])
             return hv + DAMPING * v
         return fvp
 
@@ -187,6 +205,7 @@ class HATRPO(HAPPO):
             loss0 = self._surrogate(
                 self._policy_outputs(unflatten(theta), mb), mb)
             g, = torch.autograd.grad(loss0, theta)
+        g, loss0 = self._total([g, loss0.detach()])
         fvp = self.fisher_vector_product(state, mb, old_out)
 
         x = torch.zeros_like(g)
@@ -221,8 +240,10 @@ class HATRPO(HAPPO):
             fraction = 0.5 ** i
             cand = step.theta0 + fraction * step.full_step
             out = self._policy_outputs(step.unflatten(cand), mb)
-            improve = self._surrogate(out, mb) - step.loss0
-            kl = self._kl(out, old_out).mean()
+            surr, kl = self._total([
+                self._surrogate(out, mb),
+                losses.batch_mean(self._kl(out, old_out))])
+            improve = surr - step.loss0
             expected = expected0 * fraction
             ok = ((kl < cfg.kl_threshold)
                   & (improve / torch.clamp_min(expected, 1e-12)
@@ -233,8 +254,13 @@ class HATRPO(HAPPO):
         return step.theta0, 0.0, zero, zero, zero
 
     def _trpo_update(self, state, mb):
+        with distributed.global_batch(self.mesh):
+            return self._trpo_update_in(state, mb)
+
+    def _trpo_update_in(self, state, mb):
         critic_params, c_opt, vnorm, v_loss, c_norm = self._critic_step(
             state, mb)
+        mb = self._share(mb)
         old_out = self._old_outputs(state, mb)
         step = self.natural_step(state, mb, old_out)
         theta, fraction, kl, improve, expected = self.line_search(
@@ -242,12 +268,13 @@ class HATRPO(HAPPO):
         actor_params = step.unflatten(theta)
         new_out = self._policy_outputs(actor_params, mb)
         old_logp = self._rows(mb)[2]
+        entropy, ratio = self._total([
+            new_out[1].detach(), losses.batch_mean(torch.exp(
+                (new_out[0] - old_logp).sum(-1, keepdim=True)))])
         metrics = {
             "value_loss": v_loss, "critic_grad_norm": c_norm,
             "kl": kl, "loss_improve": improve, "expected_improve": expected,
-            "dist_entropy": new_out[1],
-            "ratio": torch.exp((new_out[0] - old_logp).sum(
-                -1, keepdim=True)).mean(),
+            "dist_entropy": entropy, "ratio": ratio,
             "accepted": torch.tensor(float(fraction > 0),
                                      device=theta.device)}
         actor_params = tree_map(lambda x: x.detach().clone(), actor_params)

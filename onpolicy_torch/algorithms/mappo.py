@@ -28,6 +28,16 @@ the critic's `v_out` so that its denormalized outputs stay put
 (`popart_rescales_head`); Adam's moments of `v_out` are not rescaled, in
 either package. HAPPO and HATRPO keep the stats-only normalizer under
 `use_popart` (the reference's popart_hatrpo.py is a ValueNorm clone).
+
+Data parallelism (`mesh`, a `parallel.mesh.DataMesh`; JAX's psums over
+'data'): every rank holds the whole episode's buffer, normalizes its
+advantages and cuts each minibatch from it as one process does, and
+folds the minibatch's returns into the normalizer. It then takes its
+share of the minibatch's rows or chunks (`_share`) and runs the networks
+on that; the loss divides by the whole minibatch's mask sums
+(`distributed.global_batch`), and the gradients and the loss terms are
+summed over the ranks in one flat all-reduce before the clip and Adam,
+so the parameters and the metrics are the same on every rank.
 """
 from __future__ import annotations
 
@@ -40,6 +50,7 @@ import torch
 from onpolicy_torch import buffer as buf_lib
 from onpolicy_torch.models import actor_critic, popart
 from onpolicy_torch.ops import losses, schedules, valuenorm as vn
+from onpolicy_torch.parallel import distributed
 from onpolicy_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
 
@@ -62,8 +73,9 @@ class MAPPO:
     popart_rescales_head = True
 
     def __init__(self, cfg, obs_space, share_obs_space, act_space,
-                 total_updates: int = 1):
+                 total_updates: int = 1, mesh=None):
         self.cfg = cfg
+        self.mesh = mesh
         self.act_space = act_space
         self.actor = actor_critic.Actor(cfg, obs_space, act_space)
         self.critic = actor_critic.Critic(cfg, share_obs_space)
@@ -126,6 +138,12 @@ class MAPPO:
         return buf_lib.feed_forward_minibatches(buf, adv, generator,
                                                 cfg.num_mini_batch, **kw)
 
+    def _share(self, mb: dict) -> dict:
+        """This rank's share of a minibatch: a contiguous 1/R of its rows
+        (of its chunks or sequences: axis 1 of the [L, B, ...] fields, 0
+        of the rnn states)."""
+        return distributed.share_rows(mb, self.mesh, self.cfg.is_recurrent)
+
     def _critic_flat(self, cp, mb):
         """Values of flat rows [B, 1]. With `use_critic_dedup` the rows are
         [T·N, M] in order (the one-minibatch sampler keeps them so) and go
@@ -186,14 +204,14 @@ class MAPPO:
         ap = tree_map(leaf, state.actor_params)
         cp = tree_map(leaf, critic_params)
         a_leaves, c_leaves = tree_leaves(ap), tree_leaves(cp)
-        with torch.enable_grad():
-            total, aux = self._loss(ap, cp, vnorm, mb)
+        with torch.enable_grad(), distributed.global_batch(self.mesh):
+            total, aux = self._loss(ap, cp, vnorm, self._share(mb))
             grads = torch.autograd.grad(total, a_leaves + c_leaves,
                                         allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for g, p in zip(grads, a_leaves + c_leaves)]
+        grads, aux = distributed.sum_over_ranks(grads, aux, self.mesh)
         a_grads, c_grads = grads[:len(a_leaves)], grads[len(a_leaves):]
-        aux = {k: v.detach() for k, v in aux.items()}
         aux["actor_grad_norm"] = losses.global_grad_norm(a_grads)
         aux["critic_grad_norm"] = losses.global_grad_norm(c_grads)
 
@@ -245,6 +263,18 @@ class MAPPO:
         the whole [T, N·M] episode, the sequence GRU run from the t = 0
         hidden state (on the card: the forward kernel, at T = episode
         length, B = N·M). Returns [T, N, M, heads]."""
+        if self.mesh is not None:
+            # this rank's block of the envs, the blocks gathered after
+            rows = self.mesh.rows(buf.n_rollout_threads)
+            mine = buf.replace(**{
+                f: getattr(buf, f)[:, rows]
+                for f in buf.__dataclass_fields__
+                if getattr(buf, f) is not None})
+            return distributed.gather_rows(
+                self._full_logp(state, mine), 1, self.mesh)
+        return self._full_logp(state, buf)
+
+    def _full_logp(self, state, buf):
         T, N, M = buf.T, buf.n_rollout_threads, buf.num_agents
         fold = lambda x: x.reshape(T, N * M, *x.shape[3:])
         avail = (fold(buf.available_actions[:-1])
@@ -254,3 +284,4 @@ class MAPPO:
             state.actor_params, fold(buf.obs[:-1]), h0, fold(buf.actions),
             fold(buf.masks[:-1]), avail, fold(buf.active_masks[:-1]))
         return logp.reshape(T, N, M, -1)
+

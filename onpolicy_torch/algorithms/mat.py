@@ -13,7 +13,9 @@ it reads obs, or the centralized state under `encode_state`
 (`critic_reads`). MAT has no PopArt branch: it normalizes its targets
 only under `use_valuenorm` (JAX `mat.py:75, 121`), whatever `use_popart`
 says. Box action spaces decode with the transformer's gaussian head; their
-log-probs and entropies are per action dimension.
+log-probs and entropies are per action dimension. Over a data mesh
+(`mesh`) each rank trains on its share of every minibatch's env steps
+and the gradients are summed, as in `algorithms/mappo.py`.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ import torch
 from onpolicy_torch import buffer as buf_lib
 from onpolicy_torch.models import transformer as tfm
 from onpolicy_torch.ops import losses, schedules, valuenorm as vn
+from onpolicy_torch.parallel import distributed
 from onpolicy_torch.utils import spaces as sp
 from onpolicy_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -46,8 +49,10 @@ class MAT:
         return "share_obs" if self.cfg.encode_state else "obs"
 
     def __init__(self, cfg, obs_space, share_obs_space, act_space,
-                 total_updates: int = 1, num_agents: int = None):
+                 total_updates: int = 1, num_agents: int = None,
+                 mesh=None):
         self.cfg = cfg
+        self.mesh = mesh
         self.num_agents = num_agents if num_agents is not None \
             else cfg.num_agents
         self.obs_dim = sp.obs_shape(obs_space)[0]
@@ -156,12 +161,14 @@ class MAT:
         params = tree_map(lambda x: x.detach().requires_grad_(True),
                           state.params)
         leaves = tree_leaves(params)
-        with torch.enable_grad():
-            total, aux = self._loss(params, vnorm, mb)
+        with torch.enable_grad(), distributed.global_batch(self.mesh):
+            total, aux = self._loss(params, vnorm,
+                                    distributed.share_rows(mb, self.mesh,
+                                                           False))
             grads = torch.autograd.grad(total, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for g, p in zip(grads, leaves)]
-        aux = {k: v.detach() for k, v in aux.items()}
+        grads, aux = distributed.sum_over_ranks(grads, aux, self.mesh)
         aux["grad_norm"] = losses.global_grad_norm(grads)
         new_params, opt_state = self.tx.update(
             tree_unflatten(state.params, grads), state.opt_state,

@@ -4,7 +4,10 @@ The port's own copy of `onpolicy_tpu/config.py` (the port imports nothing
 from the JAX package): the same frozen dataclass with the reference's
 defaults, the same algorithm-name canonicalization and the same strict
 argparse bridge (unknown flags raise). Added: `device`, which defaults to
-the card. `validate()` raises when CUDA is asked for and there is none;
+the card, and `dist_backend`, the process group's backend of a
+data-parallel run (`parallel/distributed.py`: None takes nccl on the card
+and gloo on the CPU). `validate()` raises when CUDA is asked for and
+there is none;
 options whose port is still to come are refused by the runner
 (`runner/base_runner.refuse_unported`, with their ROADMAP.md items).
 """
@@ -141,6 +144,7 @@ class Config:
     profile_dir: Optional[str] = None
     episodes_per_call: int = 1
     device: str = "cuda"                 # "cuda", "cuda:<i>" or "cpu"
+    dist_backend: Optional[str] = None   # "nccl" | "gloo" (None: by device)
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)

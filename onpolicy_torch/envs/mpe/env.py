@@ -16,6 +16,9 @@ Semantics kept:
 Actions arrive in storage format: integer indices [N, M, n_heads].
 A world with action or comm noise (`world.has_noise`) takes standard
 normal draws each step: from the vec env's generator, or given (`noise`).
+A data-parallel rank's vec env (`rows`) holds its block of the global
+batch: it draws every reset and the noise at the global batch and keeps
+its rows, so R ranks' envs step what one process's do.
 """
 from __future__ import annotations
 
@@ -147,9 +150,14 @@ class MPEVecEnv:
     on one device, drawing resets from its own generator."""
 
     def __init__(self, env: MPEEnv, n_envs: int, device,
-                 generator: torch.Generator, dtype=torch.float32):
+                 generator: torch.Generator, dtype=torch.float32,
+                 rows: Optional[slice] = None, n_global: Optional[int] = None):
+        """`rows` of `n_global` worlds: this rank's block of the global
+        batch (then n_envs is the block's size)."""
         self.env = env
         self.n_envs = n_envs
+        self.rows = rows
+        self.n_draw = n_envs if rows is None else n_global
         self.num_agents = env.num_agents
         self.observation_space = env.observation_space
         self.share_observation_space = env.share_observation_space
@@ -158,9 +166,17 @@ class MPEVecEnv:
         self.generator = generator
         self.dtype = dtype
 
+    def _mine(self, x):
+        return x if self.rows is None else x[self.rows]
+
     def reset(self):
-        return self.env.reset(self.n_envs, self.generator, self.device,
-                              self.dtype)
+        state = self.env.scenario.reset(self.env.spec, self.n_draw,
+                                        self.generator, self.device,
+                                        self.dtype)
+        if self.rows is not None:
+            state = WorldState.from_tensors(
+                {k: self._mine(v) for k, v in state.tensors().items()})
+        return state, self.env.observation(state)
 
     def step(self, states: WorldState, actions: torch.Tensor,
              reset_states: Optional[WorldState] = None, noise=None):
@@ -171,8 +187,10 @@ class MPEVecEnv:
         rewards/dones. A world with noise takes `noise` when given, else
         draws it from the env's generator."""
         if noise is None:
-            noise = self.env.draw_noise(self.n_envs, self.generator,
+            noise = self.env.draw_noise(self.n_draw, self.generator,
                                         states.agent_pos)
+            if noise is not None:
+                noise = {k: self._mine(v) for k, v in noise.items()}
         states2, obs, rew, done = self.env.step(states, actions, noise)
         if reset_states is None:
             reset_states, reset_obs = self.reset()
@@ -186,9 +204,15 @@ class MPEVecEnv:
 
 
 def make_vec_env(cfg, device, generator, n_envs: int = None,
-                 dtype=torch.float32) -> MPEVecEnv:
+                 dtype=torch.float32, mesh=None) -> MPEVecEnv:
+    """`n_envs` (default cfg.n_rollout_threads) worlds; over a data `mesh`
+    this rank's block of them."""
     env = MPEEnv(cfg.scenario_name, cfg.num_agents, cfg.num_landmarks,
                  cfg.episode_length, getattr(cfg, "num_good_agents", 1),
                  getattr(cfg, "num_adversaries", 3))
-    return MPEVecEnv(env, n_envs or cfg.n_rollout_threads, device,
-                     generator, dtype)
+    n = n_envs or cfg.n_rollout_threads
+    if mesh is None:
+        return MPEVecEnv(env, n, device, generator, dtype)
+    rows = mesh.rows(n)
+    return MPEVecEnv(env, rows.stop - rows.start, device, generator, dtype,
+                     rows=rows, n_global=n)

@@ -27,6 +27,7 @@ import torch
 
 from onpolicy_torch.models import common as cm
 from onpolicy_torch.ops import distributions as D
+from onpolicy_torch.ops import losses
 from onpolicy_torch.utils import spaces as sp
 
 
@@ -156,8 +157,7 @@ def get_probs(cfg, params, space, x, available_actions=None):
 
 
 def _reduce_entropy(ent, active_masks: Optional[torch.Tensor]):
-    """ent: [B]; active_masks: [B, 1] or None → scalar."""
-    if active_masks is None:
-        return ent.mean()
-    m = active_masks[..., 0]
-    return (ent * m).sum() / torch.clamp_min(m.sum(), 1e-8)
+    """ent: [B]; active_masks: [B, 1] or None → scalar (over ranks: the
+    rank's part, `losses.masked_mean`)."""
+    return losses.masked_mean(
+        ent, None if active_masks is None else active_masks[..., 0])

@@ -16,7 +16,9 @@ Categorical sampling is the Gumbel-max rule of `jax.random.categorical`,
 with the uniform draws taken from a `torch.Generator`: elementwise on the
 card, no synchronisation. DiagGaussian and Bernoulli take their standard
 normal or uniform draws from a generator, or given (`noise`, `uniform`),
-so a test can feed them the JAX package's draws.
+so a test can feed them the JAX package's draws. A generator may also be
+a `parallel.distributed.RowDraws` (anything with `rand` / `randn` of
+torch's signature): a data-parallel rank's rows of the global draw.
 """
 from __future__ import annotations
 
@@ -27,6 +29,14 @@ from typing import Optional
 import torch
 
 MASK_NEG = -1e10
+
+
+def _draw(generator, kind: str, shape, dtype, device) -> torch.Tensor:
+    """A uniform ("rand") or standard normal ("randn") draw of `shape`."""
+    if generator is None or isinstance(generator, torch.Generator):
+        return getattr(torch, kind)(shape, generator=generator, dtype=dtype,
+                                    device=device)
+    return getattr(generator, kind)(shape, dtype=dtype, device=device)
 
 
 def mask_logits(logits: torch.Tensor,
@@ -56,8 +66,8 @@ class Categorical:
         return torch.softmax(self.logits, -1)
 
     def sample(self, generator: torch.Generator) -> torch.Tensor:
-        u = torch.rand(self.logits.shape, generator=generator,
-                       dtype=self.logits.dtype, device=self.logits.device)
+        u = _draw(generator, "rand", self.logits.shape, self.logits.dtype,
+                  self.logits.device)
         tiny = torch.finfo(self.logits.dtype).tiny
         gumbel = -torch.log(-torch.log(u.clamp_min(tiny)))
         return (self.logits + gumbel).argmax(-1, keepdim=True)
@@ -91,9 +101,8 @@ class DiagGaussian:
         """mean + std·ε, ε standard normal drawn from `generator` or
         given as `noise`."""
         if noise is None:
-            noise = torch.randn(self.mean.shape, generator=generator,
-                                dtype=self.mean.dtype,
-                                device=self.mean.device)
+            noise = _draw(generator, "randn", self.mean.shape,
+                          self.mean.dtype, self.mean.device)
         return self.mean + self.std * noise
 
     def mode(self) -> torch.Tensor:
@@ -133,9 +142,8 @@ class Bernoulli:
         """1 where u < p, u uniform on [0, 1) drawn from `generator` or
         given as `uniform`; float."""
         if uniform is None:
-            uniform = torch.rand(self.logits.shape, generator=generator,
-                                 dtype=self.logits.dtype,
-                                 device=self.logits.device)
+            uniform = _draw(generator, "rand", self.logits.shape,
+                            self.logits.dtype, self.logits.device)
         return (uniform < self.probs).float()
 
     def mode(self) -> torch.Tensor:

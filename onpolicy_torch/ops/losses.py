@@ -3,6 +3,12 @@
 Port of `onpolicy_tpu/ops/losses.py` (the reference's `r_mappo.py:52-141`
 and `utils/util.py:5-13`). The normalizer state is passed in explicitly;
 the trainer updates it before calling `value_loss`.
+
+Under data parallelism (`parallel/distributed.global_batch`) each rank
+holds a share of the minibatch's rows: `masked_mean` sums its rows and
+divides by the whole minibatch's mask sum, and a plain mean is the
+rank's part of the whole mean (`batch_mean`), so the ranks' losses and
+gradients add up to the one-process ones.
 """
 from __future__ import annotations
 
@@ -11,6 +17,7 @@ from typing import Optional, Tuple
 import torch
 
 from onpolicy_torch.ops import valuenorm as vn
+from onpolicy_torch.parallel.distributed import batch_mean, batch_total
 
 
 def huber_loss(e: torch.Tensor, delta: float) -> torch.Tensor:
@@ -25,10 +32,11 @@ def mse_loss(e: torch.Tensor) -> torch.Tensor:
 
 
 def masked_mean(x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
-    """sum(x*mask)/sum(mask); plain mean when mask is None."""
+    """sum(x*mask)/sum(mask); plain mean when mask is None. Over ranks:
+    this rank's sum over the whole minibatch's mask sum."""
     if mask is None:
-        return x.mean()
-    return (x * mask).sum() / torch.clamp_min(mask.sum(), 1e-8)
+        return batch_mean(x)
+    return (x * mask).sum() / torch.clamp_min(batch_total(mask.sum()), 1e-8)
 
 
 def value_loss(values, value_preds_old, returns, active_masks,
@@ -74,7 +82,7 @@ def ppo_policy_loss(log_prob_new, log_prob_old, advantages, active_masks, *,
     if factor is not None:
         surr = factor * surr
     mask = active_masks if use_policy_active_masks else None
-    return -masked_mean(surr, mask), ratio.mean()
+    return -masked_mean(surr, mask), batch_mean(ratio)
 
 
 def normalize_advantages(advantages: torch.Tensor,

@@ -15,25 +15,55 @@ All randomness on the path (action draws, env resets, minibatch
 permutations) comes from one `torch.Generator` on the run's device,
 seeded with cfg.seed; parameters are drawn from a CPU generator with the
 same seed. The eval env draws from its own generator.
+
+Data parallelism (`--mesh_shape R` under torchrun; `parallel/mesh.py`):
+`n_rollout_threads` is the global env count, as in the JAX package's
+device runners, and each rank steps its block `mesh.rows(N)` of the
+envs. Every draw is made at the global shape from the run's generator
+and cut to the rank's rows (`distributed.RowDraws`; the env's resets and
+noise likewise), so R ranks draw what one draws. The episode is
+gathered in rank order into the whole buffer (`_gather_episode`) before
+the returns and the update. Rank 0 logs, traces and writes the
+checkpoints, whose carry is gathered into the global one; every rank
+restores it and takes its rows, so a checkpoint does not depend on R.
 """
 from __future__ import annotations
 
 import time
 
-import numpy as np
 import torch
 
 from onpolicy_torch.envs.mpe import make_vec_env
 from onpolicy_torch.envs.mpe.world import WorldState
+from onpolicy_torch.parallel import distributed
+from onpolicy_torch.parallel import mesh as mesh_lib
 from onpolicy_torch.utils import checkpoint as ckpt_lib
 from onpolicy_torch.utils import profiling
+from onpolicy_torch.utils.tree import tree_leaves, tree_unflatten
 
 
 def refuse_unported(cfg):
-    """Raise NotImplementedError for options whose port is still to come."""
-    if int(np.prod(cfg.mesh_shape)) > 1:
-        raise NotImplementedError("not ported yet: multi-device mesh_shape "
-                                  "(ROADMAP.md, Slice G)")
+    """Raise NotImplementedError for options whose port is still to come:
+    the 2-D (data, model) mesh (Slice G2)."""
+    mesh_lib.check_shape(cfg.mesh_shape)
+
+
+def gather_carry(carry, mesh):
+    """A carry tree whose leaves lead with this rank's envs → the global
+    carry (every rank's rows in rank order; one all-reduce a dtype)."""
+    if mesh is None:
+        return carry
+    leaves = tree_leaves(carry)
+    out = distributed.gather_rows(dict(enumerate(leaves)), 0, mesh)
+    return tree_unflatten(carry, [out[i] for i in range(len(leaves))])
+
+
+def local_carry(carry, mesh):
+    """A global carry tree → this rank's rows of it."""
+    if mesh is None:
+        return carry
+    return tree_unflatten(carry, [x[mesh.rows(x.shape[0])]
+                                  for x in tree_leaves(carry)])
 
 
 # envs whose simulators run on the host: they train through
@@ -52,15 +82,21 @@ class BaseRunner:
                 "through scripts/train_smac.py or scripts/train_football.py")
         self.cfg = cfg
         self.device = torch.device(cfg.device)
+        self.mesh = mesh_lib.make_mesh(cfg.mesh_shape, self.device)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(cfg.seed)
+        # the action draws: this rank's rows of the global draw
+        self.draws = self.generator if self.mesh is None else \
+            distributed.RowDraws(self.generator, self.mesh)
         self.init_generator = torch.Generator().manual_seed(cfg.seed)
         self.envs = vec_env if vec_env is not None else make_vec_env(
-            cfg, self.device, self.generator)
+            cfg, self.device, self.generator, mesh=self.mesh)
         self.eval_envs = eval_env
         self.num_agents = self.envs.num_agents
-        self.N = self.envs.n_envs
-        self.episodes = int(cfg.num_env_steps) // cfg.episode_length // self.N
+        self.N = self.envs.n_envs                  # this rank's envs
+        self.N_global = self.N * (self.mesh.size if self.mesh else 1)
+        self.episodes = (int(cfg.num_env_steps) // cfg.episode_length
+                         // self.N_global)
         self.start_episode = 0
 
     def _generators(self) -> dict:
@@ -76,25 +112,49 @@ class BaseRunner:
             self.cfg.model_dir, state, self.device, self._generators())
         self.start_episode = step
         if saved is not None:
+            saved = local_carry(saved, self.mesh)
             carry = {**saved,
                      "env_states": WorldState.from_tensors(saved["env_states"])}
         return state, carry
 
     def _save(self, save_dir, state, carry, step):
+        """The checkpoint, with the global carry; written where `save_dir`
+        is given (rank 0), gathered on every rank."""
         flat_carry = {**carry, "env_states": carry["env_states"].tensors()}
-        ckpt_lib.save(save_dir, state, step, self._generators(), flat_carry)
+        flat_carry = gather_carry(flat_carry, self.mesh)
+        if save_dir:
+            ckpt_lib.save(save_dir, state, step, self._generators(),
+                          flat_carry)
+
+    def _gather_episode(self, traj: dict, last: dict):
+        """This rank's staged steps [T, N, ...] and last slot [N, ...] →
+        the whole episode's, every rank's envs in rank order (one
+        collective)."""
+        if self.mesh is None:
+            return traj, last
+        both = {**{("t", k): v for k, v in traj.items()},
+                **{("l", k): v[None] for k, v in last.items()}}
+        out = distributed.gather_rows(both, 1, self.mesh)
+        return ({k: out["t", k] for k in traj},
+                {k: out["l", k][0] for k in last})
 
     # ---- host training loop ------------------------------------------
     def run(self, log_fn=print, save_dir=None):
+        """Train to num_env_steps. Over a mesh, give `log_fn` and
+        `save_dir` to rank 0 only: the others log nothing and take part in
+        the checkpoints' gathers."""
         cfg = self.cfg
         state, carry = self.init()
         start_episode = self.start_episode
         start = time.perf_counter()
         history = []
         E = max(cfg.episodes_per_call, 1)
-        steps = cfg.episode_length * self.N
+        steps = cfg.episode_length * self.N_global
+        saves = distributed.any_rank(save_dir is not None, self.mesh)
+        writer = self.mesh is None or self.mesh.rank == 0
         for episode in range(start_episode, self.episodes, E):
-            trace_now = cfg.profile_dir is not None and 2 <= episode < 2 + E
+            trace_now = (cfg.profile_dir is not None and writer
+                         and 2 <= episode < 2 + E)
             with profiling.trace(cfg.profile_dir, trace_now, self.device):
                 chained = []
                 for _ in range(E):
@@ -130,7 +190,7 @@ class BaseRunner:
                 history.append(row)
                 if log_fn not in (print, None):
                     log_fn(row)
-            if save_dir and (episode % max(cfg.save_interval, 1) < E
-                             or episode + E >= self.episodes):
+            if saves and (episode % max(cfg.save_interval, 1) < E
+                          or episode + E >= self.episodes):
                 self._save(save_dir, state, carry, end)
         return state, history

@@ -65,6 +65,12 @@ class HanabiRunner:
         evaluation (numpy protocol), None for none."""
         cfg = cfg.validate()
         refuse_unported(cfg)
+        if int(np.prod(cfg.mesh_shape)) > 1:
+            # JAX's runner/hanabi_runner.py never reads mesh_shape: it has
+            # no data-parallel path for the port to carry
+            raise ValueError(
+                "the Hanabi runner trains on one device: the JAX package's "
+                "Hanabi runner has no mesh path (ROADMAP.md, Queue 3)")
         if cfg.episodes_per_call != 1 or cfg.profile_dir:
             # the JAX package's Hanabi runner takes neither; refused here
             # rather than ignored

@@ -1,0 +1,37 @@
+"""Data parallelism for the host-ingestion runners.
+
+Port of `onpolicy_tpu/runner/host_mesh.py:36-113`. There the staged
+episode goes to the devices once an episode with its env axis sharded
+along 'data', each process contributing its local rows, and XLA inserts
+the psums of the update. Here each rank of the process group
+(`parallel/distributed.py`) owns a local pool of `n_rollout_threads`
+envs: the global env batch is n_rollout_threads × ranks (JAX's
+multi-process rule, `host_mesh.py:43` there), and env i of rank r is
+global env r·n + i (`env_offset`), which is how the scripts seed it. A
+rank acts for its envs with its rows of each global draw
+(`distributed.RowDraws`); the staged blocks, the policy's outputs and the
+last slot are gathered rank-major into the whole episode before the
+returns and the update, which every rank runs on its share of each
+minibatch (`algorithms/mappo.py`). The envs' infos are gathered for the
+env metrics (`gather_infos`).
+
+The mesh is `parallel.mesh.make_mesh`'s, and the episode's gather is
+`distributed.gather_rows` on the env axis. JAX's `act_state` (a
+process-local copy of the parameters for acting) needs no counterpart:
+the parameters are replicated on every rank. Neither do `shard_state` and
+`put_batched`: nothing is placed, the gathers take their place.
+"""
+from __future__ import annotations
+
+from onpolicy_torch.parallel import distributed
+
+
+def env_offset(n_envs: int) -> int:
+    """The global index of this rank's first env."""
+    return distributed.rank() * n_envs
+
+
+def gather_infos(mesh, infos: list) -> list:
+    """This rank's per-env infos → every rank's, rank-major."""
+    return [i for part in distributed.gather_objects(list(infos), mesh)
+            for i in part]

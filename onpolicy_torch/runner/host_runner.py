@@ -37,6 +37,12 @@ Resume (`runner/host_resume.py`): the checkpoint holds the train state,
 the generators, the episode counter and the staging carry; the env pool
 itself cannot be saved (SC2 and GRF are live processes) and is reset.
 
+Data parallelism (`--mesh_shape R` under torchrun; `runner/host_mesh.py`):
+each rank owns a pool of `n_rollout_threads` envs, the global batch is
+R times that, the episode is gathered rank-major before the returns and
+the update, and rank 0 logs and writes the checkpoints (with the global
+carry, which every rank restores and cuts to its envs).
+
 `HostSharedRunner` trains rMAPPO / MAPPO / IPPO (`algorithms/mappo.py`)
 and MAT / MAT-dec (`algorithms/mat.py`, its bootstrap reading what
 `critic_reads` names); `runner/host_separated_runner.py` trains per-agent
@@ -53,7 +59,9 @@ import torch
 from onpolicy_torch import buffer as buf_lib
 from onpolicy_torch.algorithms.mappo import MAPPO
 from onpolicy_torch.algorithms.mat import MAT
-from onpolicy_torch.runner import host_resume
+from onpolicy_torch.parallel import distributed
+from onpolicy_torch.parallel import mesh as mesh_lib
+from onpolicy_torch.runner import host_mesh, host_resume
 from onpolicy_torch.runner.base_runner import refuse_unported
 from onpolicy_torch.utils import spaces as sp
 
@@ -140,9 +148,14 @@ class HostRunner:
         self.envs = vec_env
         self.eval_envs = eval_env
         self.num_agents = vec_env.num_agents
-        self.N = vec_env.n_envs
+        self.N = vec_env.n_envs                    # this rank's envs
+        self.mesh = mesh_lib.make_mesh(cfg.mesh_shape, self.device)
+        self.draws = self.generator if self.mesh is None else \
+            distributed.RowDraws(self.generator, self.mesh)
+        self.N_global = self.N * (self.mesh.size if self.mesh else 1)
         self.env_metrics = env_metrics
-        self.episodes = int(cfg.num_env_steps) // cfg.episode_length // self.N
+        self.episodes = (int(cfg.num_env_steps) // cfg.episode_length
+                         // self.N_global)
         self.start_episode = 0
         obs_space = first_space(vec_env.observation_space)
         share_space = (first_space(vec_env.share_observation_space)
@@ -150,6 +163,7 @@ class HostRunner:
         self.act_space = first_space(vec_env.action_space)
         self._make_algos(obs_space, share_space)
         self._staging = None
+        self._episode = None       # the last rollout's fields, gathered
 
     def _generators(self) -> dict:
         return {"device": self.generator, "init": self.init_generator}
@@ -198,7 +212,7 @@ class HostRunner:
                  "rnn_a": zeros(), "rnn_c": zeros(), "masks": ones(),
                  "active": ones(), "bad": ones()}
         state, start, self.start_episode = host_resume.restore_run_state(
-            cfg, state, start, self.device, self._generators())
+            cfg, state, start, self.device, self._generators(), self.mesh)
         widths = {"share_obs": share_obs.shape[-1], "obs": obs.shape[-1],
                   "available_actions": 0 if avail is None else avail.shape[-1],
                   "masks": 1, "active_masks": 1, "bad_masks": 1,
@@ -286,14 +300,17 @@ class HostRunner:
                                                np.float32).reshape(N, M, 1)
             self._write(t + 1, obs, share_obs, avail, masks, active, bad)
 
-        traj = st.upload_all()
+        # the staged blocks and the policy's outputs of every rank's envs
+        traj = distributed.gather_rows({**st.upload_all(), **out}, 1,
+                                       self.mesh)
+        self._episode = traj
         buf = buf_lib.RolloutBuffer(
             share_obs=traj["share_obs"], obs=traj["obs"],
-            rnn_states=out["rnn_states"],
-            rnn_states_critic=out["rnn_states_critic"],
-            actions=out["actions"],
-            action_log_probs=out["action_log_probs"],
-            value_preds=out["value_preds"], rewards=traj["rewards"][:T],
+            rnn_states=traj["rnn_states"],
+            rnn_states_critic=traj["rnn_states_critic"],
+            actions=traj["actions"],
+            action_log_probs=traj["action_log_probs"],
+            value_preds=traj["value_preds"], rewards=traj["rewards"][:T],
             masks=traj["masks"], bad_masks=traj["bad_masks"],
             active_masks=traj["active_masks"],
             available_actions=traj.get("available_actions"))
@@ -307,13 +324,22 @@ class HostRunner:
                  "active": active, "bad": bad}
         return carry, buf, infos
 
+    def _episode_host(self, name: str) -> np.ndarray:
+        """A staged field [T, N, M, w] of the last rollout on the host:
+        the staging block's, or over a mesh every rank's."""
+        T = self.cfg.episode_length
+        if self.mesh is None:
+            return self._staging.host[name][:T]
+        return self._episode[name][:T].cpu().numpy()
+
     def _episode_metrics(self, metrics, infos) -> dict:
         """The update's metrics as floats, the mean step reward of the
-        staged rollout and the env's own (`env_metrics`)."""
-        T = self.cfg.episode_length
+        staged rollout and the env's own (`env_metrics`); over a mesh,
+        of every rank's envs."""
         out = {k: float(v) for k, v in metrics.items()}
         out["average_step_rewards"] = float(
-            np.mean(self._staging.host["rewards"][:T]))
+            np.mean(self._episode_host("rewards")))
+        infos = host_mesh.gather_infos(self.mesh, infos)
         if self.env_metrics is not None:
             out.update(self.env_metrics(infos))
         return out
@@ -373,7 +399,8 @@ class HostRunner:
         every log_interval. → (state, rows logged)."""
         cfg = self.cfg
         state, start = self.init()
-        steps = cfg.episode_length * self.N
+        steps = cfg.episode_length * self.N_global
+        saves = distributed.any_rank(save_dir is not None, self.mesh)
         t0 = time.perf_counter()
         history = []
         for ep in range(self.start_episode, self.episodes):
@@ -381,10 +408,11 @@ class HostRunner:
             if cfg.use_eval and self.eval_envs is not None \
                     and ep % cfg.eval_interval == 0:
                 metrics.update(self.evaluate(state))
-            if save_dir and (ep % max(cfg.save_interval, 1) == 0
-                             or ep == self.episodes - 1):
+            if saves and (ep % max(cfg.save_interval, 1) == 0
+                          or ep == self.episodes - 1):
                 host_resume.save_run_state(save_dir, state, ep + 1,
-                                           self._generators(), start)
+                                           self._generators(), start,
+                                           self.mesh)
             if ep % cfg.log_interval == 0 or ep == self.episodes - 1:
                 row = {"episode": ep, "steps": (ep + 1) * steps,
                        "fps": (ep + 1 - self.start_episode) * steps
@@ -410,10 +438,10 @@ class HostSharedRunner(HostRunner):
         if self.is_mat:
             self.algo = MAT(cfg, obs_space, share_space, self.act_space,
                             total_updates=self.episodes,
-                            num_agents=self.num_agents)
+                            num_agents=self.num_agents, mesh=self.mesh)
         else:
             self.algo = MAPPO(cfg, obs_space, share_space, self.act_space,
-                              total_updates=self.episodes)
+                              total_updates=self.episodes, mesh=self.mesh)
 
     def _init_state(self):
         return self.algo.init_state(self.init_generator, self.device)
@@ -423,12 +451,12 @@ class HostSharedRunner(HostRunner):
         if self.is_mat:
             values, actions, logp, ra, rc = self.algo.get_actions(
                 state, f(x["share_obs"]), f(x["obs"]), f(rnn_a), f(rnn_c),
-                f(x["masks"]), self.generator,
+                f(x["masks"]), self.draws,
                 f(x.get("available_actions")), actions=f(given))
         else:
             actions, logp, ra = self.algo.actor.forward(
                 state.actor_params, f(x["obs"]), f(rnn_a), f(x["masks"]),
-                self.generator, f(x.get("available_actions")),
+                self.draws, f(x.get("available_actions")),
                 actions=f(given))
             values, rc = self.algo.critic.forward(
                 state.critic_params, f(x["share_obs"]), f(rnn_c),
@@ -438,22 +466,22 @@ class HostSharedRunner(HostRunner):
                 unflat(rc))
 
     def _bootstrap(self, state, buf):
-        f = self._flat
+        N, M = buf.n_rollout_threads, self.num_agents
+        f = lambda x: x.reshape(N * M, *x.shape[2:])
         reads = self.algo.critic_reads if self.is_mat else "share_obs"
         critic_in = getattr(buf, reads)[-1]
         v = self.algo.get_values(state, f(critic_in),
                                  f(buf.rnn_states_critic[-1]),
                                  f(buf.masks[-1]))
-        return v.reshape(self.N, self.num_agents, 1), state.vnorm
+        return v.reshape(N, M, 1), state.vnorm
 
     def update(self, state, buf):
         return self.algo.train(state, buf, self.generator)
 
     def _episode_metrics(self, metrics, infos) -> dict:
         out = super()._episode_metrics(metrics, infos)
-        T = self.cfg.episode_length
         out["dead_ratio"] = 1.0 - float(
-            np.mean(self._staging.host["active_masks"][:T]))
+            np.mean(self._episode_host("active_masks")))
         return out
 
     def _eval_act(self, state, obs, rnn, masks, avail):

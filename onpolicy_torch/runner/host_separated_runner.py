@@ -41,7 +41,8 @@ class HostSeparatedRunner(HostRunner):
                                                       MAPPO)
         self.algos: List[MAPPO] = [
             Algo(cfg, obs_space, share_space, self.act_space,
-                 total_updates=self.episodes) for _ in range(self.num_agents)]
+                 total_updates=self.episodes, mesh=self.mesh)
+            for _ in range(self.num_agents)]
         self.is_happo = cfg.algorithm_name in ("happo", "hatrpo")
         self.order_rng = np.random.default_rng(cfg.seed)
 
@@ -73,7 +74,7 @@ class HostSeparatedRunner(HostRunner):
         for i, algo in enumerate(self.algos):
             actions, logp, ra = algo.actor.forward(
                 states[i].actor_params, x["obs"][:, i], rnn_a[:, i],
-                x["masks"][:, i], self.generator,
+                x["masks"][:, i], self.draws,
                 None if avail is None else avail[:, i],
                 actions=None if given is None else given[:, i])
             values, rc = algo.critic.forward(

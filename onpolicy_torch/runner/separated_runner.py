@@ -20,7 +20,10 @@ surrogate is weighted by it.
 `rollout` takes per-step injected actions and reset states, `update` and
 `episode` an explicit order, and `eval_episode` initial worlds, so a test
 can hold them to the JAX package. The host loop and checkpoints (the
-tuple of per-agent states) are `base_runner.BaseRunner`'s.
+tuple of per-agent states) are `base_runner.BaseRunner`'s. Over a data
+mesh each rank steps its block of the envs and every agent's episode is
+gathered into its whole buffer before the returns and the update, as in
+`runner/shared_runner.py`.
 """
 from __future__ import annotations
 
@@ -50,7 +53,8 @@ class SeparatedRunner(BaseRunner):
         self.algos: List[MAPPO] = [
             Algo(cfg, obs_spaces[i],
                  share_space if cfg.use_centralized_V else obs_spaces[i],
-                 self.envs.action_space[i], total_updates=self.episodes)
+                 self.envs.action_space[i], total_updates=self.episodes,
+                 mesh=self.mesh)
             for i in range(self.num_agents)]
         self.max_heads = max(sp.action_storage_dim(s)
                              for s in self.envs.action_space)
@@ -107,7 +111,7 @@ class SeparatedRunner(BaseRunner):
                 st, so = states[i], self._share_obs(c["obs"], i)
                 actions, logp, ra = algo.actor.forward(
                     st.actor_params, c["obs"][i], c["rnn_actor"][i],
-                    c["masks"], self.generator,
+                    c["masks"], self.draws,
                     actions=None if given is None else given[i])
                 values, rc = algo.critic.forward(
                     st.critic_params, so, c["rnn_critic"][i], c["masks"])
@@ -130,20 +134,27 @@ class SeparatedRunner(BaseRunner):
                  "rnn_actor": tuple(rnn_a), "rnn_critic": tuple(rnn_c),
                  "masks": 1.0 - dones[:, :1].float()}
 
+        # every agent's steps [T, N, 1, ...] and last slot [N, 1, ...], the
+        # agents' in one gather over a mesh
+        traj, last = {}, {}
+        for i in range(M):
+            last.update({(i, k): v.unsqueeze(1) for k, v in {
+                "share_obs": self._share_obs(c["obs"], i),
+                "obs": c["obs"][i], "rnn_states": c["rnn_actor"][i],
+                "rnn_states_critic": c["rnn_critic"][i],
+                "masks": c["masks"],
+                "active_masks": torch.ones_like(c["masks"])}.items()})
+            traj.update({(i, k): torch.stack([s[k] for s in staged[i]])
+                         .unsqueeze(2) for k in staged[i][0]})
+        traj, last = self._gather_episode(traj, last)
         bufs = []
         for i, algo in enumerate(self.algos):
-            last = {"share_obs": self._share_obs(c["obs"], i),
-                    "obs": c["obs"][i], "rnn_states": c["rnn_actor"][i],
-                    "rnn_states_critic": c["rnn_critic"][i],
-                    "masks": c["masks"],
-                    "active_masks": torch.ones_like(c["masks"])}
-            traj = {k: torch.stack([s[k] for s in staged[i]]).unsqueeze(2)
-                    for k in staged[i][0]}
-            buf = buf_lib.from_rollout(
-                traj, {k: v.unsqueeze(1) for k, v in last.items()})
-            next_value = algo.get_values(states[i], last["share_obs"],
-                                         last["rnn_states_critic"],
-                                         last["masks"])
+            mine = lambda d: {k: v for (j, k), v in d.items() if j == i}
+            buf = buf_lib.from_rollout(mine(traj), mine(last))
+            last_i = {k: v[:, 0] for k, v in mine(last).items()}
+            next_value = algo.get_values(states[i], last_i["share_obs"],
+                                         last_i["rnn_states_critic"],
+                                         last_i["masks"])
             bufs.append(buf.compute_returns(
                 next_value[:, None], states[i].vnorm, gamma=cfg.gamma,
                 gae_lambda=cfg.gae_lambda, use_gae=cfg.use_gae,

@@ -26,6 +26,11 @@ one row per env in the rollout step and in the bootstrap, since
 share_obs is the same for every agent of an env, and the value is
 broadcast to the agents. Eval (`eval_episode`) takes each head's mode for
 one episode of the eval env.
+
+Over a data mesh each rank steps and acts for its block of the envs
+(`base_runner`); the staged steps and the last slot are gathered into
+the whole episode, whose bootstrap values, returns and update every rank
+computes (the update on its share of each minibatch, `algorithms/mappo.py`).
 """
 from __future__ import annotations
 
@@ -62,10 +67,11 @@ class SharedRunner(BaseRunner):
         if self.is_mat:
             self.algo = MAT(cfg, obs_space, share_obs_space, self.act_space,
                             total_updates=self.episodes,
-                            num_agents=self.num_agents)
+                            num_agents=self.num_agents, mesh=self.mesh)
         else:
             self.algo = MAPPO(cfg, obs_space, share_obs_space,
-                              self.act_space, total_updates=self.episodes)
+                              self.act_space, total_updates=self.episodes,
+                              mesh=self.mesh)
 
     # ------------------------------------------------------------------
     def init(self):
@@ -96,7 +102,7 @@ class SharedRunner(BaseRunner):
         With `use_critic_dedup` they come from `Critic.forward_dedup` (one
         critic row per env) and the rnn states pass through. MAT's value
         head reads `obs` or `share_obs`, as its `critic_reads` says."""
-        N, M = self.N, self.num_agents
+        N, M = share_obs.shape[0], self.num_agents
         if self.is_mat:
             critic_in = share_obs if self.algo.critic_reads == "share_obs" \
                 else obs
@@ -123,12 +129,12 @@ class SharedRunner(BaseRunner):
             values, actions, logp, rnn_a, _ = self.algo.get_actions(
                 train_state, flat(share_obs), flat(c["obs"]),
                 flat(c["rnn_actor"]), flat(c["rnn_critic"]), flat(c["masks"]),
-                self.generator, actions=flat(given))
+                self.draws, actions=flat(given))
             return actions, logp, rnn_a, values.reshape(N, M, 1), \
                 c["rnn_critic"]
         actions, logp, rnn_a = self.algo.actor.forward(
             train_state.actor_params, flat(c["obs"]), flat(c["rnn_actor"]),
-            flat(c["masks"]), self.generator, actions=flat(given))
+            flat(c["masks"]), self.draws, actions=flat(given))
         values, rnn_c = self._values(train_state, share_obs, c["rnn_critic"],
                                      c["masks"])
         return actions, logp, rnn_a, values, rnn_c
@@ -170,9 +176,11 @@ class SharedRunner(BaseRunner):
         last = {"share_obs": self._share_obs(c["obs"]), "obs": c["obs"],
                 "rnn_states": c["rnn_actor"], "rnn_states_critic": c["rnn_critic"],
                 "masks": c["masks"], "active_masks": torch.ones_like(c["masks"])}
+        traj, last = self._gather_episode(traj, last)
         buf = buf_lib.from_rollout(traj, last)
         next_values, _ = self._values(train_state, last["share_obs"],
-                                      c["rnn_critic"], c["masks"], c["obs"])
+                                      last["rnn_states_critic"],
+                                      last["masks"], last["obs"])
         buf = buf.compute_returns(
             next_values, train_state.vnorm, gamma=cfg.gamma,
             gae_lambda=cfg.gae_lambda, use_gae=cfg.use_gae,

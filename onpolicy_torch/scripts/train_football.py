@@ -21,7 +21,9 @@ evaluates nothing, and saves no checkpoint.
         --eval_episodes 100
 
 `CONFIGS["football_3v1"]` holds those flags without the step count, for
-`chip_smoke.py` and `profile_episode.py`.
+`chip_smoke.py` and `profile_episode.py`. Data parallel: under `torchrun
+--standalone --nproc_per_node R ... --mesh_shape R` each rank owns a pool
+of `n_rollout_threads` envs, as `train_smac.py` says; rank 0 logs.
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ import sys
 from onpolicy_torch.config import (Config, _parse_bool, apply_wandb_sweep,
                                    canonicalize_algorithm, get_config)
 from onpolicy_torch.envs.host_vec import DummyVecEnv, HostVecEnv
+from onpolicy_torch.parallel import distributed
 from onpolicy_torch.utils.run_dir import MetricsLogger, make_run_dir
 
 CONFIGS = {
@@ -92,10 +95,13 @@ def main(argv=None):
     from onpolicy_torch.envs.football.football_env import football_metrics
     from onpolicy_torch.runner.host_runner import HostSharedRunner
     ns, cfg = config_from_args(argv if argv is not None else sys.argv[1:])
+    cfg = distributed.setup(cfg)
     Pool = DummyVecEnv if cfg.n_rollout_threads == 1 else HostVecEnv
     envs = Pool(make_env_fns(ns, cfg), protocol="basic")
     try:
         runner = HostSharedRunner(cfg, envs, env_metrics=football_metrics())
+        if distributed.rank() != 0:
+            return runner.run(log_fn=None)
         run_dir = make_run_dir(cfg)
         logger = MetricsLogger(run_dir, cfg)
         try:
@@ -109,3 +115,4 @@ def main(argv=None):
 
 if __name__ == "__main__":
     main(sys.argv[1:])
+    distributed.shutdown()

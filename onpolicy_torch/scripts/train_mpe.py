@@ -83,12 +83,22 @@ through `runner/shared_runner.py`; `--use_eval` adds an eval env of
 `n_eval_rollout_threads` worlds. `CONFIGS` holds these ten as flag lists
 (without a step count), for `chip_smoke.py`, `learning_check.py` and
 `profile_episode.py`.
+
+Data parallel over R processes, one card each (`parallel/distributed.py`;
+`n_rollout_threads` stays the global count, each rank steps its 1/R):
+
+    torchrun --standalone --nproc_per_node R \
+        -m onpolicy_torch.scripts.train_mpe ... --mesh_shape R
+
+Ranks that share a card run `--dist_backend gloo` (NCCL refuses two
+ranks on one GPU). Rank 0 logs, evaluates and writes the checkpoints.
 """
 from __future__ import annotations
 
 import sys
 
 from onpolicy_torch.config import config_from_args
+from onpolicy_torch.parallel import distributed
 from onpolicy_torch.utils.run_dir import MetricsLogger, make_run_dir
 
 _SPREAD = ["--env_name", "MPE", "--scenario_name", "simple_spread",
@@ -149,7 +159,7 @@ CONFIGS["world_comm"] = CONFIGS["flagship"] + [
 def make_runner(cfg):
     """The shared or the separated runner for `cfg`, with an eval env of
     `n_eval_rollout_threads` worlds (drawing from its own generator,
-    seeded with cfg.seed + 1) under `use_eval`."""
+    seeded with cfg.seed + 1) under `use_eval`, on rank 0 only."""
     import torch
 
     from onpolicy_torch.envs.mpe import make_vec_env
@@ -159,7 +169,7 @@ def make_runner(cfg):
         from onpolicy_torch.runner.separated_runner import \
             SeparatedRunner as Runner
     eval_env = None
-    if cfg.use_eval:
+    if cfg.use_eval and distributed.rank() == 0:
         device = torch.device(cfg.device)
         generator = torch.Generator(device=device).manual_seed(cfg.seed + 1)
         eval_env = make_vec_env(cfg, device, generator,
@@ -168,11 +178,16 @@ def make_runner(cfg):
 
 
 def main(argv=None):
-    cfg = config_from_args(argv)
+    """Train; → (final state, logged rows). Under torchrun it joins the
+    process group first (`distributed.setup`); rank 0 alone makes the run
+    directory, logs and saves."""
+    cfg = distributed.setup(config_from_args(argv))
     if cfg.env_name != "MPE":
         raise NotImplementedError(
             f"env {cfg.env_name!r}: the port's MPE entry point takes MPE")
     runner = make_runner(cfg)
+    if distributed.rank() != 0:
+        return runner.run(log_fn=None)
     run_dir = make_run_dir(cfg)
     logger = MetricsLogger(run_dir, cfg)
     try:
@@ -184,3 +199,4 @@ def main(argv=None):
 
 if __name__ == "__main__":
     main(sys.argv[1:])
+    distributed.shutdown()

@@ -23,6 +23,12 @@ or `smacv2` (StarCraft2v2) package and a StarCraft II installation.
 `scripts/train_other_algo/train_happo.sh` (HAPPO on SMACv2 protoss 5v5),
 without a step count, for `chip_smoke.py` and `profile_episode.py`. As
 JAX's, `main` saves no checkpoint.
+
+Data parallel: `torchrun --standalone --nproc_per_node R -m
+onpolicy_torch.scripts.train_smac ... --mesh_shape R`. Each rank owns a
+pool of `n_rollout_threads` envs (the global batch is R times that, as in
+the JAX package's multi-process host path), env i of rank r seeded as
+global env r·n + i; rank 0 logs and evaluates.
 """
 from __future__ import annotations
 
@@ -33,6 +39,8 @@ from onpolicy_torch.config import (Config, _parse_bool, apply_wandb_sweep,
                                    canonicalize_algorithm, get_config)
 from onpolicy_torch.envs.host_vec import DummyVecEnv, HostVecEnv
 from onpolicy_torch.envs.starcraft2.smac_maps import get_map_params
+from onpolicy_torch.parallel import distributed
+from onpolicy_torch.runner import host_mesh
 from onpolicy_torch.utils.run_dir import MetricsLogger, make_run_dir
 
 _SMACV2 = ["--env_name", "StarCraft2v2", "--map_name", "10gen_protoss",
@@ -83,9 +91,9 @@ def parse_args(argv):
     return p.parse_args(argv)
 
 
-def make_env_fns(ns, cfg, n, base_seed, seed_stride=1000):
-    """The `n` env constructors of a pool, env i seeded with base_seed +
-    i * seed_stride."""
+def make_env_fns(ns, cfg, n, base_seed, seed_stride=1000, first=0):
+    """The `n` env constructors of a pool, env i the global env first + i,
+    seeded with base_seed + (first + i) * seed_stride."""
     if ns.env_name in ("StarCraft2v2", "SMACv2"):
         from onpolicy_torch.envs.starcraft2.distributions import \
             parse_smacv2_distribution
@@ -132,7 +140,7 @@ def make_env_fns(ns, cfg, n, base_seed, seed_stride=1000):
         def fn(rank):
             thunk = inner(rank)
             return lambda: StackedFrames(thunk(), cfg.stacked_frames)
-    return [fn(i) for i in range(n)]
+    return [fn(first + i) for i in range(n)]
 
 
 def config_from_args(argv):
@@ -154,12 +162,15 @@ def config_from_args(argv):
 
 def main(argv=None):
     ns, cfg = config_from_args(argv if argv is not None else sys.argv[1:])
-    env_fns = make_env_fns(ns, cfg, cfg.n_rollout_threads, cfg.seed)
+    cfg = distributed.setup(cfg)
+    writer = distributed.rank() == 0
+    env_fns = make_env_fns(ns, cfg, cfg.n_rollout_threads, cfg.seed,
+                           first=host_mesh.env_offset(cfg.n_rollout_threads))
     Pool = DummyVecEnv if cfg.n_rollout_threads == 1 else HostVecEnv
     envs = Pool(env_fns, protocol="share")
     eval_envs = None
     try:
-        if cfg.use_eval:
+        if cfg.use_eval and writer:
             # eval seeding: seed*50000 + rank*10000 (train_smac.py:80-99)
             eval_fns = make_env_fns(ns, cfg, cfg.n_eval_rollout_threads,
                                     cfg.seed * 50000, seed_stride=10000)
@@ -176,6 +187,8 @@ def main(argv=None):
                 HostSharedRunner as Runner
         runner = Runner(cfg, envs, eval_env=eval_envs,
                         env_metrics=smac_win_rate_metrics())
+        if not writer:
+            return runner.run(log_fn=None)
         run_dir = make_run_dir(cfg)
         logger = MetricsLogger(run_dir, cfg)
         try:
@@ -191,3 +204,4 @@ def main(argv=None):
 
 if __name__ == "__main__":
     main(sys.argv[1:])
+    distributed.shutdown()

@@ -191,13 +191,15 @@ def test_config_refuses_what_it_cannot_run():
 
 
 @pytest.mark.parametrize("override", [
-    dict(mesh_shape=(2,)), dict(env_name="StarCraft2"),
+    dict(mesh_shape=(1, 2)), dict(env_name="StarCraft2"),
     dict(scenario_name="simple_tag", num_agents=4, num_landmarks=2,
          share_policy=False),
     dict(algorithm_name="mat", use_popart=True, use_valuenorm=False),
     dict(use_popart=True, use_valuenorm=False)])
 def test_runner_refuses_unported_options(override):
-    """The mesh still raises, naming its ROADMAP.md item (G); the
+    """The 2-D (data, model) mesh still raises, naming its ROADMAP.md
+    item (G2; the data mesh runs under torchrun,
+    tests/test_torch_parallel.py); the
     StarCraft2 env is sent to the host runners (F); simple_tag (B3,
     through the separated runner: its roles see different widths) and
     PopArt for MAT and MAPPO (B4) build their runner now."""
