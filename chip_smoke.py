@@ -169,9 +169,13 @@ FLAGSHIP = dict(T=10, B=960, H=64)       # 25*128*3/10 chunks of L=10
 BENCH = dict(T=10, B=122880, H=64)       # 16384 rollout threads
 HANABI = dict(T=10, B=20000, H=512)      # 100*1000*2/10 chunks of L=10
 SMAC = dict(T=10, B=2560, H=64)          # 8 threads*400 steps*8 agents/10
-# phase 6's ranks: the flagship's 960 chunks over 2 ranks, and the 3s5z
-# stand-in's 8 threads*40 steps*8 agents/10 = 256 chunks over 2
+# phase 6's ranks: the flagship's 960 chunks over 2 ranks (the meshes (2,)
+# and (1, 2)) and over 4 (the mesh (2, 2)), the flagship at hidden 512
+# over 2 (the mesh (1, 2), the wide kernels), and the 3s5z stand-in's 8
+# threads*40 steps*8 agents/10 = 256 chunks over 2
 DP_FLAGSHIP = dict(T=10, B=480, H=64)
+DP22_FLAGSHIP = dict(T=10, B=240, H=64)
+DP_WIDE = dict(T=10, B=480, H=512)
 DP_SMAC = dict(T=10, B=128, H=64)
 # (name, script, config of its CONFIGS, extra flags, episodes, forward and
 # backward launches an episode). One PPO update of a recurrent policy
@@ -250,11 +254,15 @@ RUN_GRU_SHAPES = {
     "smacv2_happo": "T=10 B=80 per agent (fwd 50, bwd 50 an episode); "
                     "T=400 B=2 (fwd 10 an episode)",
     "football_3v1": "T=10 B=1500"}
-# the same for phase 6's runs, by rank
-DP_GRU_SHAPES = {
-    "dp flagship rank 0": "T=10 B=480", "dp flagship rank 1": "T=10 B=480",
-    "dp smac_3s5z rank 0": "T=10 B=128",
-    "dp smac_3s5z rank 1": "T=10 B=128"}
+# the same for phase 6's runs, by rank: (run, ranks, GRU shape)
+DP_RUNS = (("dp flagship", 2, "T=10 B=480"),
+           ("dp smac_3s5z", 2, "T=10 B=128"),
+           ("dp 1,2 flagship", 2, "T=10 B=480"),
+           ("dp 2,2 flagship", 4, "T=10 B=240"),
+           ("dp 1,2 flagship H=512", 2, "T=10 B=480 H=512"),
+           ("dp 1,2 smac_3s5z", 2, "T=10 B=128"))
+DP_GRU_SHAPES = {f"{run} rank {r}": shape for run, ranks, shape in DP_RUNS
+                 for r in range(ranks)}
 # phase 5's scenario checks: (case, scenario, num_agents, num_landmarks,
 # num_good_agents, num_adversaries, walls and noise), the arguments of the
 # JAX package's golden test of each scenario (simple_attack: 2 + 2 agents
@@ -1900,27 +1908,79 @@ def dp_rank_main(out_dir, script, argv) -> int:
     """One rank of phase 6 (`chip_smoke.py --dp-rank OUT SCRIPT -- ARGV`,
     under torchrun or alone): `scripts/<script>.main(ARGV)` with the GRU
     launch counts from 0; writes OUT/rank<r>.pt with the rank, the world
-    size, the backend, its launches, its logged rows and its trained
-    parameters, which must lie on the device ARGV names."""
+    size, the backend, its launches (the wide forward's steps and the
+    wide backward's pieces too), its logged rows and its trained
+    parameters, which must lie on the device ARGV names. On a model axis
+    the parameters are the kept blocks gathered after the run (on every
+    rank), and the record adds the kept parameter and moment leaves, the
+    same gathered, the leaf rule's dims, the model rank, and the calls
+    and host ms of the run's model-group gathers (a device sync on each
+    side of each)."""
     import importlib
 
     import torch
     sys.path.insert(0, str(ROOT))
     from onpolicy_torch.ops import cuda_gru as cg
     from onpolicy_torch.parallel import distributed
+    from onpolicy_torch.parallel import mesh as mesh_lib
     from onpolicy_torch.utils.tree import tree_leaves
     if script == "train_smac":
         install_engine_standins()
     module = importlib.import_module(f"onpolicy_torch.scripts.{script}")
+    device = argv[argv.index("--device") + 1].split(":")[0]
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    # the trainers' `StateShards`, in the order the runner makes them (to
+    # gather the kept state after the run), and every model-group gather
+    # of the run, timed
+    trainers, gathers = [], {"calls": 0, "ms": 0.0}
+    make_shards, gather = mesh_lib.StateShards.__init__, \
+        distributed.gather_model
+
+    def record_shards(self, *args, **kwargs):
+        make_shards(self, *args, **kwargs)
+        trainers.append(self)
+
+    def timed_gather(*args, **kwargs):
+        sync()
+        t = time.perf_counter()
+        out = gather(*args, **kwargs)
+        sync()
+        gathers["ms"] += 1e3 * (time.perf_counter() - t)
+        gathers["calls"] += 1
+        return out
+    mesh_lib.StateShards.__init__ = record_shards
+    distributed.gather_model = timed_gather
     cg.FWD_LAUNCHES = 0
     cg.BWD_LAUNCHES = 0
+    cg.FWD_STEP_LAUNCHES = 0
+    cg.WIDE_LAUNCHES = dict.fromkeys(cg.WIDE_LAUNCHES, 0)
     t0 = time.perf_counter()
     state, history = module.main(argv)
-    device = argv[argv.index("--device") + 1].split(":")[0]
-    if device == "cuda":
-        torch.cuda.synchronize()
+    sync()
     wall = time.perf_counter() - t0
+    launches = {"fwd": cg.FWD_LAUNCHES, "bwd": cg.BWD_LAUNCHES,
+                "fwd_steps": cg.FWD_STEP_LAUNCHES,
+                "wide": dict(cg.WIDE_LAUNCHES), "gathers": dict(gathers)}
     states = state if isinstance(state, tuple) else (state,)
+    trainers = trainers[-len(states):]
+    kept = {}
+    if trainers[0].on:
+        full = [t.full(s) for t, s in zip(trainers, states)]
+
+        def leaves(sts):
+            return [x.detach().cpu() for s, t in zip(sts, trainers)
+                    for p, o in t.fields for x in tree_leaves(
+                        (getattr(s, p), getattr(s, o)["mu"],
+                         getattr(s, o)["nu"]))]
+        kept = {"kept": leaves(states), "full": leaves(full),
+                "dims": [d for t in trainers for p, _ in t.fields
+                         for d in t.layouts[p].dims * 3],
+                "model_rank": trainers[0].mesh.model_rank,
+                "model_size": trainers[0].mesh.model_size}
+        if any(x.device.type != device for s in states
+               for x in tree_leaves((s.actor_params, s.critic_params))):
+            raise AssertionError(f"{script}: kept blocks off the {device}")
+        states = full
     params = [x.detach() for s in states
               for x in tree_leaves((s.actor_params, s.critic_params))]
     if any(x.device.type != device for x in params):
@@ -1929,9 +1989,8 @@ def dp_rank_main(out_dir, script, argv) -> int:
     backend = (torch.distributed.get_backend()
                if torch.distributed.is_initialized() else None)
     torch.save({"rank": rank, "world": distributed.world_size(),
-                "backend": backend, "fwd": cg.FWD_LAUNCHES,
-                "bwd": cg.BWD_LAUNCHES, "rows": history, "wall": wall,
-                "params": [x.cpu() for x in params]},
+                "backend": backend, **launches, "rows": history,
+                "wall": wall, "params": [x.cpu() for x in params], **kept},
                Path(out_dir) / f"rank{rank}.pt")
     distributed.shutdown()
     return 0
@@ -2040,6 +2099,83 @@ def checkpoint(run):
     return torch.load(dirs[0] / last, weights_only=True)
 
 
+def check_against_one(torch, label, ranks, ck, one, ck_one):
+    """A run of `ranks` against the one-process run `one`: the ranks'
+    parameters bit for bit alike, the parameters and the checkpoint's
+    state within 2e-4 of their norm, the checkpoint's carry the global
+    one within 2e-4 of its norm, every logged metric at rtol 2e-4 / atol
+    2e-5. → (parameters, checkpoint, carry errors, worst metric's share
+    of its limit)."""
+    from onpolicy_torch.utils.tree import tree_leaves as flat_tensors
+    check_ranks_agree(torch, label, ranks)
+    err = rel_norm_err(torch, ranks[0]["params"], one["params"])
+    st = lambda c: flat_tensors(c["state"])
+    if [x.shape for x in st(ck)] != [x.shape for x in st(ck_one)]:
+        raise AssertionError(f"{label}: the checkpoint's state is not one "
+                             "process's")
+    ck_err = rel_norm_err(torch, st(ck), st(ck_one))
+    if max(err, ck_err) > 2e-4:
+        raise AssertionError(f"{label}: parameters {err:.3e} / checkpoint "
+                             f"{ck_err:.3e} of their norm")
+    carry = lambda c: flat_tensors(c["carry"])
+    if [x.shape for x in carry(ck)] != [x.shape for x in carry(ck_one)]:
+        raise AssertionError(f"{label}: the checkpoint's carry is not global")
+    carry_err = rel_norm_err(torch, [x.float() for x in carry(ck)],
+                             [x.float() for x in carry(ck_one)])
+    if carry_err > 2e-4:
+        raise AssertionError(f"{label}: carry {carry_err:.3e} of its norm")
+    return err, ck_err, carry_err, check_rows(label, ranks[0]["rows"],
+                                              one["rows"])
+
+
+def check_model_axis(torch, label, ranks, M):
+    """Each rank keeps only its blocks: the model rank is rank mod M; a
+    parameter or moment leaf the leaf rule shards is kept as its block at
+    that model rank, 1/M of it, bit for bit that block of the leaf the
+    model group gathers; every rank gathers the same leaves, bit for bit;
+    ranks of one model rank keep equal blocks. → (leaves sharded, leaves
+    in all, floats kept over floats whole)."""
+    first, by_model_rank = ranks[0], {}
+    for r in ranks:
+        if (r["model_rank"], r["model_size"]) != (r["rank"] % M, M):
+            raise AssertionError(f"{label} rank {r['rank']}: model rank "
+                                 f"{r['model_rank']} of {r['model_size']}")
+        if r["dims"] != first["dims"]:
+            raise AssertionError(f"{label}: layouts differ by rank")
+        for i, (kept, full, d) in enumerate(zip(r["kept"], r["full"],
+                                                r["dims"])):
+            if not torch.equal(full, first["full"][i]):
+                raise AssertionError(f"{label} rank {r['rank']}: gathered "
+                                     f"leaf {i} differs from rank 0's")
+            block = full if d is None else full.chunk(M, d)[r["rank"] % M]
+            if kept.shape != block.shape or not torch.equal(kept, block):
+                raise AssertionError(f"{label} rank {r['rank']}: kept leaf "
+                                     f"{i} {tuple(kept.shape)} is not its "
+                                     f"block of {tuple(full.shape)}")
+        prev = by_model_rank.setdefault(r["rank"] % M, r["kept"])
+        if not all(torch.equal(a, b) for a, b in zip(prev, r["kept"])):
+            raise AssertionError(f"{label} rank {r['rank']}: its blocks "
+                                 "differ from its model rank's")
+    sharded = [i for i, d in enumerate(first["dims"]) if d is not None]
+    if not sharded:
+        raise AssertionError(f"{label}: no leaf sharded")
+    share = (sum(first["kept"][i].numel() for i in sharded)
+             / sum(first["full"][i].numel() for i in sharded))
+    if abs(share * M - 1.0) > 1e-12:
+        raise AssertionError(f"{label}: kept {share} of the sharded leaves")
+    return len(sharded), len(first["dims"]), share
+
+
+def check_launches(label, ranks, want):
+    """Every rank's launch counts (`fwd`, `bwd`, `fwd_steps`, `wide`) as
+    `want` gives them."""
+    for r in ranks:
+        got = {k: r[k] for k in want}
+        if got != want:
+            raise AssertionError(f"{label} rank {r['rank']}: launches {got}, "
+                                 f"want {want}")
+
+
 def data_parallel_phase(torch, card, device="cuda"):
     """Phase 6. (a) train_mpe's flagship (128 threads, 64 a rank, hidden
     64, T=25, L=10) for 2 episodes on 2 ranks sharing the card through
@@ -2051,9 +2187,18 @@ def data_parallel_phase(torch, card, device="cuda"):
     under torchrun: bitwise equal to the run without torchrun. (c)
     train_smac's 3s5z over the engine stand-ins at T=40, 2 ranks × 4
     envs against 1 process × 8, the same limits as (a), each rank at
-    T=10 B=128. → the launches of the 2-rank runs, by rank. (`device`
-    "cpu" rehearses the phase without the card, the kernels' launches
-    then 0.)"""
+    T=10 B=128. The (data, model) mesh, its ranks on gloo sharing the
+    card, each run held to (a)'s limits, its ranks' kept blocks to
+    `check_model_axis`: (d) the flagship at `--mesh_shape 1,2` (2 ranks,
+    20 / 20 launches a rank an episode at B=480) and `2,2` (4 ranks, at
+    B=240), 2 episodes; (e) the flagship at `--hidden_size 512` and
+    `1,2`, 1 episode, against one process at that width: the wide kernels
+    at T=10 B=480 H=512, 20 / 20 launches, 200 forward steps, 20 of each
+    backward piece; (f) (c) at `1,2`. → the launches of the runs over
+    ranks, by rank, grouped by the GRU shape of their kernel rows
+    ("flagship" B=480, "flagship22" B=240, "wide" B=480 H=512, "smac"
+    B=128). (`device` "cpu" rehearses the phase without the card, the
+    kernels' launches then 0.)"""
     from onpolicy_torch.scripts import train_mpe, train_smac
     from onpolicy_torch.utils.tree import tree_leaves as flat_tensors
     episodes = 2
@@ -2065,31 +2210,44 @@ def data_parallel_phase(torch, card, device="cuda"):
                                * flag(mpe, "--episode_length")),
         "--log_interval", "1", "--experiment_name", "chip_smoke_dp",
         "--device", device]
+    # (e): one episode at hidden 512 (the later flags take the place of the
+    # earlier ones)
+    wide = mpe + ["--hidden_size", "512", "--num_env_steps",
+                  str(flag(mpe, "--n_rollout_threads")
+                      * flag(mpe, "--episode_length"))]
     smac = train_smac.CONFIGS["smac_3s5z"] + ["--episode_length", "40"]
     smac = smac + [
         "--use_eval", "false", "--num_env_steps",
         str(episodes * flag(smac, "--episode_length") * 8), "--log_interval",
         "1", "--device", device]
+    gloo = ["--dist_backend", "gloo"]
+    on_card = device == "cuda"
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         # the runs that only a comparison needs go side by side; the
-        # 2-rank flagship alone, for its rate
+        # runs over ranks one at a time, for their rates and gathers
         first = [("one", "train_mpe", mpe, 0),
                  ("nccl1", "train_mpe", mpe + ["--mesh_shape", "1"], 1),
                  ("smac1", "train_smac", smac + ["--n_rollout_threads", "8"],
-                  0)]
+                  0),
+                 ("one512", "train_mpe", wide, 0)]
+        then = [("gloo2", "train_mpe", mpe + ["--mesh_shape", "2"] + gloo, 2),
+                ("smac2", "train_smac", smac + [
+                    "--n_rollout_threads", "4", "--mesh_shape", "2"] + gloo,
+                 2),
+                ("d12", "train_mpe", mpe + ["--mesh_shape", "1,2"] + gloo, 2),
+                ("d22", "train_mpe", mpe + ["--mesh_shape", "2,2"] + gloo, 4),
+                ("e12", "train_mpe", wide + ["--mesh_shape", "1,2"] + gloo,
+                 2),
+                ("f12", "train_smac", smac + [
+                    "--n_rollout_threads", "4", "--mesh_shape", "1,2"] + gloo,
+                 2)]
         procs = {}
         try:
             for n, s, a, k in first:
                 procs[n] = start_ranks(n, tmp, s, a, k)
             rec = {n: finish_ranks(n, *procs[n], k) for n, _, _, k in first}
-            for name, script, argv, nproc in (
-                    ("gloo2", "train_mpe", mpe + ["--mesh_shape", "2",
-                                                  "--dist_backend", "gloo"],
-                     2),
-                    ("smac2", "train_smac", smac + [
-                        "--n_rollout_threads", "4", "--mesh_shape", "2",
-                        "--dist_backend", "gloo"], 2)):
+            for name, script, argv, nproc in then:
                 procs[name] = start_ranks(name, tmp, script, argv, nproc)
                 rec[name] = finish_ranks(name, *procs[name], nproc)
         finally:
@@ -2097,11 +2255,13 @@ def data_parallel_phase(torch, card, device="cuda"):
                 stop(proc)
         wall = time.perf_counter() - t0
         runs = {n: Path(tmp) / n for n in rec}
-        ck = {n: checkpoint(runs[n]) for n in ("one", "nccl1", "gloo2")}
+        ck = {n: checkpoint(runs[n]) for n in ("one", "nccl1", "gloo2",
+                                               "one512", "d12", "d22",
+                                               "e12")}
 
         # (b) NCCL at world size 1, its collectives called: bit for bit
         (n1,), (one,) = rec["nccl1"], rec["one"]
-        nccl = "nccl" if device == "cuda" else "gloo"
+        nccl = "nccl" if on_card else "gloo"
         if (n1["backend"], n1["world"], one["backend"]) != (nccl, 1, None):
             raise AssertionError(f"(b): backend {n1['backend']} world "
                                  f"{n1['world']}, plain {one['backend']}")
@@ -2122,29 +2282,14 @@ def data_parallel_phase(torch, card, device="cuda"):
 
         # (a) 2 ranks on gloo sharing the card
         g2 = rec["gloo2"]
-        check_ranks_agree(torch, "(a)", g2)
         if [r["backend"] for r in g2] != ["gloo", "gloo"]:
             raise AssertionError(f"(a): backends {[r['backend'] for r in g2]}")
-        err = rel_norm_err(torch, g2[0]["params"], one["params"])
-        st = lambda c: flat_tensors(c["state"])
-        ck_err = rel_norm_err(torch, st(ck["gloo2"]), st(ck["one"]))
-        if max(err, ck_err) > 2e-4:
-            raise AssertionError(f"(a): parameters {err:.3e} / checkpoint "
-                                 f"{ck_err:.3e} of their norm")
-        carry = lambda c: flat_tensors(c["carry"])
-        if [x.shape for x in carry(ck["gloo2"])] != \
-                [x.shape for x in carry(ck["one"])]:
-            raise AssertionError("(a): the checkpoint's carry is not global")
-        carry_err = rel_norm_err(torch, [x.float() for x in carry(ck["gloo2"])],
-                                 [x.float() for x in carry(ck["one"])])
-        if carry_err > 2e-4:
-            raise AssertionError(f"(a): carry {carry_err:.3e} of its norm")
-        worst = check_rows("(a)", g2[0]["rows"], one["rows"])
-        want = (20 * episodes, 20 * episodes) if device == "cuda" else (0, 0)
-        for r in g2:
-            if (r["fwd"], r["bwd"]) != want:
-                raise AssertionError(f"(a) rank {r['rank']}: launches "
-                                     f"{r['fwd']}/{r['bwd']}, want {want}")
+        err, ck_err, carry_err, worst = check_against_one(
+            torch, "(a)", g2, ck["gloo2"], one, ck["one"])
+        per = lambda n: n * episodes if on_card else 0
+        flat_launches = {"fwd": per(20), "bwd": per(20), "fwd_steps": 0,
+                         "wide": dict.fromkeys(("gates", "carry", "dw"), 0)}
+        check_launches("(a)", g2, flat_launches)
         rate = g2[0]["rows"][-1]["fps"]
         log(f"  (a) train_mpe flagship, torchrun 2 ranks gloo on one card "
             f"(64 threads a rank): parameters {err:.2e} (checkpoint "
@@ -2163,24 +2308,90 @@ def data_parallel_phase(torch, card, device="cuda"):
         if serr > 2e-4:
             raise AssertionError(f"(c): parameters {serr:.3e} of their norm")
         sworst = check_rows("(c)", s2[0]["rows"], s1["rows"])
-        want = (10 * episodes, 10 * episodes) if device == "cuda" else (0, 0)
-        for r in s2:
-            if (r["fwd"], r["bwd"]) != want:
-                raise AssertionError(f"(c) rank {r['rank']}: launches "
-                                     f"{r['fwd']}/{r['bwd']}, want {want}")
+        smac_launches = {"fwd": per(10), "bwd": per(10)}
+        check_launches("(c)", s2, smac_launches)
         log(f"  (c) train_smac 3s5z stand-in, T=40, torchrun 2 ranks x 4 "
             f"envs gloo against 1 process x 8: parameters {serr:.2e} of "
             f"their norm, metrics within {sworst:.2f} of the limit, ranks "
             f"bitwise alike; GRU launches a rank an episode at T=10 B=128 "
             f"H=64: fwd {s2[0]['fwd'] // episodes} bwd "
             f"{s2[0]['bwd'] // episodes}  ok")
+
+        # (d), (e) the (data, model) mesh on train_mpe
+        for name, label, ref, mesh, n_ep, want, shape in (
+                ("d12", "(d) 1,2", "one", (1, 2), episodes, flat_launches,
+                 "T=10 B=480 H=64"),
+                ("d22", "(d) 2,2", "one", (2, 2), episodes, flat_launches,
+                 "T=10 B=240 H=64"),
+                ("e12", "(e) 1,2 hidden 512", "one512", (1, 2), 1,
+                 {"fwd": 20 * on_card, "bwd": 20 * on_card,
+                  "fwd_steps": 200 * on_card,
+                  "wide": dict.fromkeys(("gates", "carry", "dw"),
+                                        20 * on_card)},
+                 "T=10 B=480 H=512 (wide kernels)")):
+            ranks = rec[name]
+            (base,) = rec[ref]
+            if [r["world"] for r in ranks] != [mesh[0] * mesh[1]] * len(ranks):
+                raise AssertionError(f"{label}: worlds "
+                                     f"{[r['world'] for r in ranks]}")
+            err, ck_err, carry_err, worst = check_against_one(
+                torch, label, ranks, ck[name], base, ck[ref])
+            n_sharded, n_leaves, share = check_model_axis(torch, label, ranks,
+                                                          mesh[1])
+            check_launches(label, ranks, want)
+            if name == "d12":
+                # the same rows and sums as (a); only the layout differs
+                same = all(torch.equal(a, b) for a, b in zip(
+                    ranks[0]["params"], g2[0]["params"]))
+                log(f"  (d) 1,2: parameters bit for bit (a)'s: {same}")
+            g = ranks[0]["gathers"]
+            log(f"  {label}: torchrun {len(ranks)} ranks gloo on one card, "
+                f"{n_ep} episode(s): parameters {err:.2e} (checkpoint "
+                f"{ck_err:.2e}, global carry {carry_err:.2e}) of their norm "
+                f"from 1 process, metrics within {worst:.2f} of the limit, "
+                f"gathered parameters bitwise alike on every rank; each rank "
+                f"keeps its block of {n_sharded} of {n_leaves} parameter and "
+                f"moment leaves ({share:.4f} of their floats), bitwise the "
+                f"model group's gather; GRU launches a rank an episode at "
+                f"{shape}: fwd {ranks[0]['fwd'] // n_ep} bwd "
+                f"{ranks[0]['bwd'] // n_ep} (wide forward steps "
+                f"{ranks[0]['fwd_steps'] // n_ep}, wide pieces "
+                f"{ {k: v // n_ep for k, v in ranks[0]['wide'].items()} }); "
+                f"model-group gathers of rank 0 an episode: "
+                f"{g['calls'] / n_ep:.1f} calls, {g['ms'] / n_ep:.3f} ms "
+                f"(host clock, device synced) [{card}]; env-steps/s of the "
+                f"ranks sharing the card {ranks[0]['rows'][-1]['fps']:.1f} "
+                f"over the run  ok")
+
+        # (f) the host shared runner at 1,2
+        f2 = rec["f12"]
+        check_ranks_agree(torch, "(f)", f2)
+        ferr = rel_norm_err(torch, f2[0]["params"], s1["params"])
+        if ferr > 2e-4:
+            raise AssertionError(f"(f): parameters {ferr:.3e} of their norm")
+        fworst = check_rows("(f)", f2[0]["rows"], s1["rows"])
+        f_sharded, f_leaves, f_share = check_model_axis(torch, "(f)", f2, 2)
+        check_launches("(f)", f2, smac_launches)
+        g = f2[0]["gathers"]
+        log(f"  (f) train_smac 3s5z stand-in, T=40, torchrun 2 ranks x 4 "
+            f"envs gloo at --mesh_shape 1,2 against 1 process x 8: "
+            f"parameters {ferr:.2e} of their norm, metrics within "
+            f"{fworst:.2f} of the limit, gathered parameters bitwise alike; "
+            f"each rank keeps its block of {f_sharded} of {f_leaves} leaves "
+            f"({f_share:.4f} of their floats); GRU launches a rank an "
+            f"episode at T=10 B=128 H=64: fwd {f2[0]['fwd'] // episodes} "
+            f"bwd {f2[0]['bwd'] // episodes}; model-group gathers of rank 0 "
+            f"an episode: {g['calls'] / episodes:.1f} calls, "
+            f"{g['ms'] / episodes:.3f} ms [{card}]  ok")
         log(f"  phase 6 wall {wall:.1f} s")
-    return ({f"dp flagship rank {r['rank']}": {"fwd": r["fwd"],
-                                                "bwd": r["bwd"]}
-             for r in g2},
-            {f"dp smac_3s5z rank {r['rank']}": {"fwd": r["fwd"],
-                                                 "bwd": r["bwd"]}
-             for r in s2})
+    by_rank = lambda run, name: {f"{run} rank {r['rank']}": {
+        "fwd": r["fwd"], "bwd": r["bwd"]} for r in rec[name]}
+    return {"flagship": {**by_rank("dp flagship", "gloo2"),
+                         **by_rank("dp 1,2 flagship", "d12")},
+            "flagship22": by_rank("dp 2,2 flagship", "d22"),
+            "wide": by_rank("dp 1,2 flagship H=512", "e12"),
+            "smac": {**by_rank("dp smac_3s5z", "smac2"),
+                     **by_rank("dp 1,2 smac_3s5z", "f12")}}
 
 
 def kernel_rows(times, launches, errs, shape, streams):
@@ -2275,7 +2486,9 @@ def main() -> int:
     log("== 3. kernels against their plain versions at a data-parallel "
         "rank's shapes (f32 streams)")
     for case, shape in (("dp flagship rank", DP_FLAGSHIP),
-                        ("dp smac_3s5z rank", DP_SMAC)):
+                        ("dp smac_3s5z rank", DP_SMAC),
+                        ("dp 2,2 flagship rank", DP22_FLAGSHIP),
+                        ("dp 1,2 flagship H=512 rank", DP_WIDE)):
         errs[case, "f32"] = check_layer(torch, cg, case, *shape.values(),
                                         repeat=True)
 
@@ -2292,6 +2505,8 @@ def main() -> int:
     t_smac = time_shape(torch, cg, SMAC, card)
     t_dp = time_shape(torch, cg, DP_FLAGSHIP, card)
     t_dp_smac = time_shape(torch, cg, DP_SMAC, card)
+    t_dp22 = time_shape(torch, cg, DP22_FLAGSHIP, card)
+    t_dp_wide = time_shape(torch, cg, DP_WIDE, card)
 
     log("== 5. main path: train_mpe, train_hanabi, train_smac and "
         "train_football configurations")
@@ -2374,8 +2589,8 @@ def main() -> int:
             f"copies {prof['h2d_copies']}, GRU {prof['gru_kernel_launches']})")
 
     log("== 6. data parallel on the card: torchrun, 2 ranks sharing it on "
-        "gloo, 1 rank on NCCL")
-    dp_launches, dp_smac_launches = data_parallel_phase(torch, card)
+        "gloo, 1 rank on NCCL; the (data, model) mesh at 1,2 and 2,2")
+    dp = data_parallel_phase(torch, card)
 
     row_errs = lambda case, streams: dict(zip(("fwd", "bwd"),
                                               errs[case, streams]))
@@ -2390,12 +2605,13 @@ def main() -> int:
     kernels += kernel_rows(t_smac, launches["smac"],
                            row_errs("SMAC 3s5z T=10 B=2560", "f32"), SMAC,
                            "f32")
-    kernels += kernel_rows(t_dp, dp_launches,
-                           row_errs("dp flagship rank", "f32"), DP_FLAGSHIP,
-                           "f32")
-    kernels += kernel_rows(t_dp_smac, dp_smac_launches,
-                           row_errs("dp smac_3s5z rank", "f32"), DP_SMAC,
-                           "f32")
+    for times, group, case, shape in (
+            (t_dp, "flagship", "dp flagship rank", DP_FLAGSHIP),
+            (t_dp_smac, "smac", "dp smac_3s5z rank", DP_SMAC),
+            (t_dp22, "flagship22", "dp 2,2 flagship rank", DP22_FLAGSHIP),
+            (t_dp_wide, "wide", "dp 1,2 flagship H=512 rank", DP_WIDE)):
+        kernels += kernel_rows(times, dp[group], row_errs(case, "f32"),
+                               shape, "f32")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -36,7 +36,13 @@ rows, and every batch quantity is summed over the ranks: the critic's
 gradient with its loss, the surrogate's gradient g with the surrogate,
 each Fisher-vector product (one all-reduce a CG step; the KL's double
 backward stays local), and each line-search trial's surrogate and KL.
-So CG, the step and the acceptance are the same on every rank.
+So CG, the step and the acceptance are the same on every rank. On a
+`(data, model)` mesh (`shards`, as in `algorithms/mappo.py`) each update
+gathers the full actor and critic once; CG and the line search run on
+the full flat vectors on every rank, and only this rank's block of the
+accepted parameters is kept. The critic's step is Adam on the blocks,
+the clip from the full gradient. `fisher_vector_product`,
+`natural_step` and `_old_outputs` take a state with the full actor.
 """
 from __future__ import annotations
 
@@ -130,10 +136,11 @@ class HATRPO(HAPPO):
         """Each rank's parts summed over the ranks (one all-reduce)."""
         return distributed.all_reduce_sum(parts, self.mesh)
 
-    def _critic_step(self, state, mb):
+    def _critic_step(self, state, mb, critic_params):
         """One Adam step of the critic on the whole minibatch `mb` (its
         returns fold into the normalizer; this rank's share makes the
-        loss) → (critic_params, opt state, vnorm, value loss, gradient
+        loss), computed with the full `critic_params` → (the state's
+        critic parameters stepped, opt state, vnorm, value loss, gradient
         norm)."""
         cfg = self.cfg
         vnorm = state.vnorm
@@ -141,7 +148,7 @@ class HATRPO(HAPPO):
             vnorm = vn.update(vnorm, mb["returns"].reshape(-1, 1))
         mb = self._share(mb)
         cp = tree_map(lambda x: x.detach().requires_grad_(True),
-                      state.critic_params)
+                      critic_params)
         leaves = tree_leaves(cp)
         with torch.enable_grad():
             args = (cp, mb["share_obs"], mb["rnn_states_critic"], mb["masks"])
@@ -163,8 +170,8 @@ class HATRPO(HAPPO):
         grads, aux = distributed.sum_over_ranks(
             grads, {"value_loss": v_loss}, self.mesh)
         params, opt = self.critic_tx.update(
-            tree_unflatten(state.critic_params, grads),
-            state.critic_opt_state, state.critic_params)
+            tree_unflatten(cp, grads), state.critic_opt_state,
+            state.critic_params, self.shards.cut_grads("critic_params"))
         return params, opt, vnorm, aux["value_loss"], \
             losses.global_grad_norm(grads)
 
@@ -258,11 +265,12 @@ class HATRPO(HAPPO):
             return self._trpo_update_in(state, mb)
 
     def _trpo_update_in(self, state, mb):
+        full = self.shards.gathered(state)
         critic_params, c_opt, vnorm, v_loss, c_norm = self._critic_step(
-            state, mb)
+            state, mb, full.critic_params)
         mb = self._share(mb)
-        old_out = self._old_outputs(state, mb)
-        step = self.natural_step(state, mb, old_out)
+        old_out = self._old_outputs(full, mb)
+        step = self.natural_step(full, mb, old_out)
         theta, fraction, kl, improve, expected = self.line_search(
             step, mb, old_out)
         actor_params = step.unflatten(theta)
@@ -277,7 +285,8 @@ class HATRPO(HAPPO):
             "dist_entropy": entropy, "ratio": ratio,
             "accepted": torch.tensor(float(fraction > 0),
                                      device=theta.device)}
-        actor_params = tree_map(lambda x: x.detach().clone(), actor_params)
+        actor_params = self.shards.cut_tree("actor_params", tree_map(
+            lambda x: x.detach().clone(), actor_params))
         return state.replace(actor_params=actor_params,
                              critic_params=critic_params,
                              critic_opt_state=c_opt, vnorm=vnorm), metrics

@@ -37,7 +37,15 @@ share of the minibatch's rows or chunks (`_share`) and runs the networks
 on that; the loss divides by the whole minibatch's mask sums
 (`distributed.global_batch`), and the gradients and the loss terms are
 summed over the ranks in one flat all-reduce before the clip and Adam,
-so the parameters and the metrics are the same on every rank.
+so the parameters and the metrics are the same on every rank. On a
+`(data, model)` mesh the state holds this rank's blocks of the
+parameters and moments (`shards`, `parallel/mesh.StateShards`; every
+state `init_state` gives is cut): each update gathers the full
+parameters over the model group, takes the full gradient, clips it by
+its global norm and applies Adam to the blocks. PopArt rescales the
+gathered head, which is then cut. `train` and `evaluate_full_logp` take
+the state as it is kept; the rollout-time API (`get_values`, `act`, the
+networks' `forward`) the gathered one (`shards.gathered`).
 """
 from __future__ import annotations
 
@@ -51,6 +59,7 @@ from onpolicy_torch import buffer as buf_lib
 from onpolicy_torch.models import actor_critic, popart
 from onpolicy_torch.ops import losses, schedules, valuenorm as vn
 from onpolicy_torch.parallel import distributed
+from onpolicy_torch.parallel import mesh as mesh_lib
 from onpolicy_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
 
@@ -79,6 +88,9 @@ class MAPPO:
         self.act_space = act_space
         self.actor = actor_critic.Actor(cfg, obs_space, act_space)
         self.critic = actor_critic.Critic(cfg, share_obs_space)
+        self.shards = mesh_lib.StateShards(
+            mesh, (("actor_params", "actor_opt_state"),
+                   ("critic_params", "critic_opt_state")))
 
         def lr_for(base_lr):
             if cfg.use_linear_lr_decay:
@@ -97,16 +109,16 @@ class MAPPO:
     # ------------------------------------------------------------------
     def init_state(self, generator: torch.Generator, device) -> TrainState:
         """Parameters drawn from `generator` (a CPU generator), then moved
-        to `device`."""
+        to `device`; on a model axis, this rank's blocks."""
         actor_params = self.actor.init(generator, device)
         critic_params = self.critic.init(generator, device)
         vnorm = vn.create(1, device=device) \
             if (self.cfg.use_valuenorm or self.cfg.use_popart) else None
-        return TrainState(
+        return self.shards.cut(TrainState(
             actor_params=actor_params, critic_params=critic_params,
             actor_opt_state=self.actor_tx.init(actor_params),
             critic_opt_state=self.critic_tx.init(critic_params),
-            vnorm=vnorm)
+            vnorm=vnorm))
 
     # ---- rollout-time API (flat [B, ...] batches) --------------------
     def get_values(self, state: TrainState, share_obs, rnn_critic, masks):
@@ -191,18 +203,21 @@ class MAPPO:
         """One PPO minibatch update (`r_mappo.ppo_update`)."""
         cfg = self.cfg
         vnorm = state.vnorm
+        full = self.shards.params(state)
         critic_params = state.critic_params
         returns = mb["returns"].reshape(-1, 1)
         if cfg.use_popart and self.popart_rescales_head:
-            v_out, vnorm = popart.update(critic_params["v_out"], vnorm,
-                                         returns)
-            critic_params = {**critic_params, "v_out": v_out}
+            v_out, vnorm = popart.update(full["critic_params"]["v_out"],
+                                         vnorm, returns)
+            full["critic_params"] = {**full["critic_params"], "v_out": v_out}
+            critic_params = self.shards.cut_tree("critic_params",
+                                                 full["critic_params"])
         elif cfg.use_popart or cfg.use_valuenorm:
             vnorm = vn.update(vnorm, returns)
 
         leaf = lambda x: x.detach().requires_grad_(True)
-        ap = tree_map(leaf, state.actor_params)
-        cp = tree_map(leaf, critic_params)
+        ap = tree_map(leaf, full["actor_params"])
+        cp = tree_map(leaf, full["critic_params"])
         a_leaves, c_leaves = tree_leaves(ap), tree_leaves(cp)
         with torch.enable_grad(), distributed.global_batch(self.mesh):
             total, aux = self._loss(ap, cp, vnorm, self._share(mb))
@@ -216,11 +231,11 @@ class MAPPO:
         aux["critic_grad_norm"] = losses.global_grad_norm(c_grads)
 
         actor_params, a_opt = self.actor_tx.update(
-            tree_unflatten(state.actor_params, a_grads),
-            state.actor_opt_state, state.actor_params)
+            tree_unflatten(ap, a_grads), state.actor_opt_state,
+            state.actor_params, self.shards.cut_grads("actor_params"))
         critic_params, c_opt = self.critic_tx.update(
-            tree_unflatten(critic_params, c_grads),
-            state.critic_opt_state, critic_params)
+            tree_unflatten(cp, c_grads), state.critic_opt_state,
+            critic_params, self.shards.cut_grads("critic_params"))
         return state.replace(actor_params=actor_params,
                              critic_params=critic_params,
                              actor_opt_state=a_opt, critic_opt_state=c_opt,
@@ -263,6 +278,7 @@ class MAPPO:
         the whole [T, N·M] episode, the sequence GRU run from the t = 0
         hidden state (on the card: the forward kernel, at T = episode
         length, B = N·M). Returns [T, N, M, heads]."""
+        state = self.shards.gathered(state)
         if self.mesh is not None:
             # this rank's block of the envs, the blocks gathered after
             rows = self.mesh.rows(buf.n_rollout_threads)

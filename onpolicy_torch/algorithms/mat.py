@@ -29,6 +29,7 @@ from onpolicy_torch import buffer as buf_lib
 from onpolicy_torch.models import transformer as tfm
 from onpolicy_torch.ops import losses, schedules, valuenorm as vn
 from onpolicy_torch.parallel import distributed
+from onpolicy_torch.parallel import mesh as mesh_lib
 from onpolicy_torch.utils import spaces as sp
 from onpolicy_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -53,6 +54,7 @@ class MAT:
                  mesh=None):
         self.cfg = cfg
         self.mesh = mesh
+        self.shards = mesh_lib.StateShards(mesh, (("params", "opt_state"),))
         self.num_agents = num_agents if num_agents is not None \
             else cfg.num_agents
         self.obs_dim = sp.obs_shape(obs_space)[0]
@@ -79,15 +81,15 @@ class MAT:
 
     def init_state(self, generator: torch.Generator, device) -> MATTrainState:
         """Parameters drawn from `generator` (a CPU generator), then moved
-        to `device`."""
+        to `device`; on a model axis, this rank's blocks."""
         enc_dim = self.share_obs_dim if self.cfg.encode_state \
             else self.obs_dim
         params = tfm.mat_init(self.mcfg, self.obs_dim, generator, device,
                               encoder_dim=enc_dim)
         vnorm = vn.create(1, device=device) if self.cfg.use_valuenorm \
             else None
-        return MATTrainState(params=params, opt_state=self.tx.init(params),
-                             vnorm=vnorm)
+        return self.shards.cut(MATTrainState(
+            params=params, opt_state=self.tx.init(params), vnorm=vnorm))
 
     # ---- rollout API (flat [B·M, ...] like the reference policy) -----
     def _fold(self, x):
@@ -159,7 +161,7 @@ class MAT:
         if self.cfg.use_valuenorm:
             vnorm = vn.update(vnorm, mb["returns"].reshape(-1, 1))
         params = tree_map(lambda x: x.detach().requires_grad_(True),
-                          state.params)
+                          self.shards.params(state)["params"])
         leaves = tree_leaves(params)
         with torch.enable_grad(), distributed.global_batch(self.mesh):
             total, aux = self._loss(params, vnorm,
@@ -171,8 +173,8 @@ class MAT:
         grads, aux = distributed.sum_over_ranks(grads, aux, self.mesh)
         aux["grad_norm"] = losses.global_grad_norm(grads)
         new_params, opt_state = self.tx.update(
-            tree_unflatten(state.params, grads), state.opt_state,
-            state.params)
+            tree_unflatten(params, grads), state.opt_state, state.params,
+            self.shards.cut_grads("params"))
         return state.replace(params=new_params, opt_state=opt_state,
                              vnorm=vnorm), aux
 

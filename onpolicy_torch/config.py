@@ -7,9 +7,7 @@ argparse bridge (unknown flags raise). Added: `device`, which defaults to
 the card, and `dist_backend`, the process group's backend of a
 data-parallel run (`parallel/distributed.py`: None takes nccl on the card
 and gloo on the CPU). `validate()` raises when CUDA is asked for and
-there is none;
-options whose port is still to come are refused by the runner
-(`runner/base_runner.refuse_unported`, with their ROADMAP.md items).
+there is none.
 """
 from __future__ import annotations
 

@@ -9,7 +9,9 @@ Port of `onpolicy_tpu/models/popart.py`, on the port's `ops/valuenorm.py`:
 
 Functional form: the head's parameters and its `ValueNormState` go in,
 new ones come out. In the trainers the head is the critic's `v_out` and
-the stats are the train state's `vnorm`.
+the stats are the train state's `vnorm`; on a `(data, model)` mesh
+`algorithms/mappo.py` rescales the gathered head and cuts it to the
+rank's block.
 """
 from __future__ import annotations
 

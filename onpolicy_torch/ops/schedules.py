@@ -17,6 +17,12 @@ written out here, on parameter trees:
 
 The state is {"count": int32, "mu": tree, "nu": tree}, optax's
 `ScaleByAdamState`; `utils/params.py` carries it across.
+
+On a `(data, model)` mesh a rank's parameters and moments are its blocks
+of the full ones (`parallel/mesh.py`). `update` then takes the full
+gradient (summed over the ranks), clips it by its global norm, and cuts
+it to the rank's blocks (`cut`) before Adam: Adam is elementwise, so the
+update of a block is that block of the full update.
 """
 from __future__ import annotations
 
@@ -46,13 +52,17 @@ class Optimizer:
                 "mu": tree_map(torch.zeros_like, params),
                 "nu": tree_map(torch.zeros_like, params)}
 
-    def update(self, grads, state: dict, params):
-        """→ (new params, new state). `grads` has `params`' structure."""
+    def update(self, grads, state: dict, params, cut=None):
+        """→ (new params, new state). `grads` has `params`' structure; with
+        `cut` it is the full gradient, whose leaves `cut` maps to the
+        blocks that `params` and `state` hold, after the clip."""
         g = tree_leaves(grads)
         if self.max_grad_norm is not None:
             norm = torch.sqrt(torch.stack([x.square().sum() for x in g]).sum())
             keep = norm < self.max_grad_norm
             g = [torch.where(keep, x, x / norm * self.max_grad_norm) for x in g]
+        if cut is not None:
+            g = cut(g)
         count = state["count"] + 1
         kf = count.float()
         c1 = 1.0 - torch.pow(B1, kf)

@@ -2,20 +2,25 @@
 
 Port of `onpolicy_tpu/parallel/distributed.py`. There every host runs
 the same program, `jax.distributed` joins them and one mesh spans every
-chip. Here a mesh of R devices on the `data` axis is R processes, one
-device each, in one process group:
+chip. Here a mesh of D·M devices on the `(data, model)` axes is D·M
+processes, one device each, in one process group:
 
     torchrun --standalone --nproc_per_node R \
-        -m onpolicy_torch.scripts.train_mpe ... --mesh_shape R
+        -m onpolicy_torch.scripts.train_mpe ... --mesh_shape R      # (R,)
+    torchrun --standalone --nproc_per_node D·M \
+        -m onpolicy_torch.scripts.train_mpe ... --mesh_shape D,M    # (D, M)
 
 Every rank builds the same parameters from cfg.seed and holds the same
-run generator. A rank steps its block of the envs (`local_batch_slice`:
-contiguous, rank-major), gathers the episode into the whole buffer
-(`gather_rows`), cuts each minibatch from it as one process would, and
-runs the networks on its share of the minibatch's rows. The gradients
-and the loss terms are summed over the ranks in one flat buffer
-(`all_reduce_sum`), so the clip and Adam see the same gradients on every
-rank and the parameters stay replicated.
+run generator. The rows split over all D·M ranks: a rank steps its block
+of the envs (`local_batch_slice`: contiguous, rank-major), gathers the
+episode into the whole buffer (`gather_rows`), cuts each minibatch from
+it as one process would, and runs the networks on its share of the
+minibatch's rows. The gradients and the loss terms are summed over the
+ranks in one flat buffer (`all_reduce_sum`), so the clip and Adam see
+the same gradients on every rank. On a model axis of 1 the parameters
+stay replicated; over M > 1 each rank keeps its block of them
+(`parallel/mesh.py`) and gathers the full trees over its model group
+(`gather_model`) before it computes.
 
   * `initialize`: the process group, from torchrun's RANK / WORLD_SIZE /
     LOCAL_RANK / LOCAL_WORLD_SIZE or from explicit arguments (the tests
@@ -24,16 +29,16 @@ rank and the parameters stay replicated.
     GPU, so ranks that share a card run gloo over CUDA tensors.
   * `setup(cfg)`: what the training scripts call first.
   * `RowDraws`: each random draw of the rollout made at the global shape
-    and cut to the rank's rows, so that R ranks draw what one draws.
+    and cut to the rank's rows, so that D·M ranks draw what one draws.
   * `global_batch(mesh)`: within it, `batch_total` and `batch_mean`
     reduce over the ranks; `ops/losses.masked_mean` divides by the whole
     minibatch's mask sum through them.
 
 gloo takes CUDA tensors in `broadcast`, `all_reduce` and `barrier` only,
-so both collectives here are all-reduces: `gather_rows` adds the ranks'
-zero-filled global buffers, which is exact. A failed collective raises;
-nothing falls back to the CPU or skips a collective, at world size 1
-too.
+so the collectives here are all-reduces: `gather_rows` and
+`gather_model` add the ranks' zero-filled global buffers, which is
+exact. A failed collective raises; nothing falls back to the CPU or
+skips a collective, at world size 1 too.
 """
 from __future__ import annotations
 
@@ -121,6 +126,7 @@ def setup(cfg):
 
 def shutdown() -> None:
     """Leave the process group, if this process joined one."""
+    _MODEL_GROUPS.clear()
     if dist.is_initialized():
         dist.destroy_process_group()
 
@@ -144,6 +150,25 @@ def global_mesh_shape(cfg=None) -> Tuple[int, ...]:
     return (n // tp, tp) if tp > 1 else (n,)
 
 
+# model axis → this rank's model group, made once a process group
+_MODEL_GROUPS = {}
+
+
+def model_group(m: int):
+    """This rank's group of the model axis `m`: ranks d·m .. d·m + m − 1.
+    Every rank makes every group, in the same order (`dist.new_group` is
+    collective over the world), once a process group."""
+    if m not in _MODEL_GROUPS:
+        n, mine = world_size(), None
+        for d in range(n // m):
+            ranks = list(range(d * m, (d + 1) * m))
+            group = dist.new_group(ranks)
+            if rank() in ranks:
+                mine = group
+        _MODEL_GROUPS[m] = mine
+    return _MODEL_GROUPS[m]
+
+
 def local_batch_slice(global_batch: int, size: Optional[int] = None,
                       index: Optional[int] = None) -> slice:
     """The [start, stop) block of the global batch that rank `index` of
@@ -153,7 +178,8 @@ def local_batch_slice(global_batch: int, size: Optional[int] = None,
     index = rank() if index is None else index
     if global_batch % size != 0:
         raise ValueError(f"global batch {global_batch} does not split over "
-                         f"{size} ranks")
+                         f"{size} ranks (D·M of the mesh: every rank of "
+                         "the (data, model) mesh steps its own rows)")
     per = global_batch // size
     return slice(index * per, (index + 1) * per)
 
@@ -237,6 +263,38 @@ def gather_rows(x, axis: int, mesh):
         dist.all_reduce(flat, group=mesh.group)
         out.update(zip(keys, views))
     return out[""] if isinstance(x, torch.Tensor) else out
+
+
+def gather_model(leaves: list, dims: list, mesh) -> list:
+    """This rank's blocks of parameter leaves → the full leaves, gathered
+    over its model group: leaf i is cut along `dims[i]` into M blocks in
+    model-rank order (None: replicated, given as it is). Each rank writes
+    its blocks into a zero-filled buffer of the full leaves and the
+    buffers are summed: one all-reduce a dtype, exact."""
+    M, m = mesh.model_size, mesh.model_rank
+    out = list(leaves)
+    sharded = [i for i, d in enumerate(dims) if d is not None]
+    by_dtype = {}
+    for i in sharded:
+        by_dtype.setdefault(leaves[i].dtype, []).append(i)
+    for dtype, idx in by_dtype.items():
+        shapes = []
+        for i in idx:
+            shape = list(leaves[i].shape)
+            shape[dims[i]] *= M
+            shapes.append(shape)
+        flat = torch.zeros(sum(math.prod(s) for s in shapes), dtype=dtype,
+                           device=leaves[idx[0]].device)
+        at = 0
+        for i, shape in zip(idx, shapes):
+            n = math.prod(shape)
+            view = flat[at:at + n].view(shape)
+            at += n
+            block = leaves[i].shape[dims[i]]
+            view.narrow(dims[i], m * block, block).copy_(leaves[i])
+            out[i] = view
+        dist.all_reduce(flat, group=mesh.model_group)
+    return out
 
 
 def gather_objects(obj, mesh) -> list:

@@ -1,8 +1,8 @@
 """What the shared and the separated runner have in common.
 
-The set-up (config, device, generators, the env and the eval env), the
-refusal of what is not ported yet, checkpoints, and the host training
-loop `run` of the JAX package's `runner/shared_runner.py:262-333`:
+The set-up (config, device, generators, the env and the eval env, the
+mesh), checkpoints, and the host training loop `run` of the JAX
+package's `runner/shared_runner.py:262-333`:
 `episodes_per_call` = E episodes per call with their metrics averaged;
 logging, eval and saving on its `% E` schedule; a `torch.profiler` trace
 of the call that covers episodes 2 <= episode < 2 + E when `profile_dir`
@@ -26,6 +26,15 @@ gathered in rank order into the whole buffer (`_gather_episode`) before
 the returns and the update. Rank 0 logs, traces and writes the
 checkpoints, whose carry is gathered into the global one; every rank
 restores it and takes its rows, so a checkpoint does not depend on R.
+
+On a `(data, model)` mesh (`--mesh_shape D,M` under torchrun with D·M
+ranks) the rows split over all D·M ranks as above, and each rank keeps
+its blocks of the trainers' parameters and moments (`parallel/mesh.py`).
+The rollout and the eval act with the full parameters, gathered over the
+model group once before them on every rank (the eval env is rank 0's,
+the gather every rank's); the checkpoint holds the whole state,
+gathered on every rank and written by rank 0, and a restore cuts each
+rank's blocks: a checkpoint depends on neither D nor M (`_state`).
 """
 from __future__ import annotations
 
@@ -40,12 +49,6 @@ from onpolicy_torch.parallel import mesh as mesh_lib
 from onpolicy_torch.utils import checkpoint as ckpt_lib
 from onpolicy_torch.utils import profiling
 from onpolicy_torch.utils.tree import tree_leaves, tree_unflatten
-
-
-def refuse_unported(cfg):
-    """Raise NotImplementedError for options whose port is still to come:
-    the 2-D (data, model) mesh (Slice G2)."""
-    mesh_lib.check_shape(cfg.mesh_shape)
 
 
 def gather_carry(carry, mesh):
@@ -74,7 +77,6 @@ HOST_ENVS = ("StarCraft2", "SMAC", "StarCraft2v2", "SMACv2", "Football")
 class BaseRunner:
     def __init__(self, cfg, vec_env=None, eval_env=None):
         cfg = cfg.validate()
-        refuse_unported(cfg)
         if cfg.env_name in HOST_ENVS:
             raise ValueError(
                 f"{cfg.env_name} runs on the host runners "
@@ -102,6 +104,12 @@ class BaseRunner:
     def _generators(self) -> dict:
         return {"device": self.generator, "init": self.init_generator}
 
+    def _state(self, state, method):
+        """`state` through each trainer's `StateShards.<method>`: "cut",
+        "gathered" or "full" (`parallel/mesh.py`)."""
+        algos = getattr(self, "algos", None) or [self.algo]
+        return mesh_lib.each_state([a.shards for a in algos], state, method)
+
     def _restore(self, state, carry):
         """With cfg.model_dir: the state, carry, generators and episode
         counter from its checkpoint."""
@@ -109,7 +117,8 @@ class BaseRunner:
         if not self.cfg.model_dir:
             return state, carry
         state, step, saved = ckpt_lib.restore(
-            self.cfg.model_dir, state, self.device, self._generators())
+            self.cfg.model_dir, state, self.device, self._generators(),
+            lambda s: self._state(s, "cut"))
         self.start_episode = step
         if saved is not None:
             saved = local_carry(saved, self.mesh)
@@ -118,8 +127,10 @@ class BaseRunner:
         return state, carry
 
     def _save(self, save_dir, state, carry, step):
-        """The checkpoint, with the global carry; written where `save_dir`
-        is given (rank 0), gathered on every rank."""
+        """The checkpoint, with the whole state and the global carry;
+        written where `save_dir` is given (rank 0), gathered on every
+        rank."""
+        state = self._state(state, "full")
         flat_carry = {**carry, "env_states": carry["env_states"].tensors()}
         flat_carry = gather_carry(flat_carry, self.mesh)
         if save_dir:
@@ -151,6 +162,8 @@ class BaseRunner:
         E = max(cfg.episodes_per_call, 1)
         steps = cfg.episode_length * self.N_global
         saves = distributed.any_rank(save_dir is not None, self.mesh)
+        evals = cfg.use_eval and distributed.any_rank(
+            self.eval_envs is not None, self.mesh)
         writer = self.mesh is None or self.mesh.rank == 0
         for episode in range(start_episode, self.episodes, E):
             trace_now = (cfg.profile_dir is not None and writer
@@ -165,9 +178,10 @@ class BaseRunner:
                 for k in chained[0]}
             end = min(episode + E, self.episodes)
             eval_row = None
-            if self.eval_envs is not None and cfg.use_eval \
-                    and episode % cfg.eval_interval < E:
-                eval_row = float(self.eval_episode(state))
+            if evals and episode % cfg.eval_interval < E:
+                acting = self._state(state, "gathered")
+                if self.eval_envs is not None:
+                    eval_row = float(self.eval_episode(acting))
             if episode % cfg.log_interval < E or episode + E >= self.episodes:
                 fps = (end - start_episode) * steps / (time.perf_counter() - start)
                 row = {"episode": episode, "steps": end * steps, "fps": fps,

@@ -45,7 +45,7 @@ from onpolicy_torch.envs.hanabi import torch_engine as te
 from onpolicy_torch.envs.hanabi.hanabi_env import HanabiVecEnv
 from onpolicy_torch.envs.hanabi.torch_fleet import (CppHanabiFleet,
                                                     TorchHanabiFleet, upload)
-from onpolicy_torch.runner.base_runner import refuse_unported
+from onpolicy_torch.parallel import mesh as mesh_lib
 from onpolicy_torch.utils import checkpoint as ckpt_lib
 from onpolicy_torch.utils.profiling import PhaseTimer
 
@@ -64,8 +64,7 @@ class HanabiRunner:
         `--use_jax_env`); `eval_env`: the fleet of `--use_eval`'s
         evaluation (numpy protocol), None for none."""
         cfg = cfg.validate()
-        refuse_unported(cfg)
-        if int(np.prod(cfg.mesh_shape)) > 1:
+        if int(np.prod(mesh_lib.check_shape(cfg.mesh_shape))) > 1:
             # JAX's runner/hanabi_runner.py never reads mesh_shape: it has
             # no data-parallel path for the port to carry
             raise ValueError(

@@ -16,10 +16,18 @@ minibatch (`algorithms/mappo.py`). The envs' infos are gathered for the
 env metrics (`gather_infos`).
 
 The mesh is `parallel.mesh.make_mesh`'s, and the episode's gather is
-`distributed.gather_rows` on the env axis. JAX's `act_state` (a
-process-local copy of the parameters for acting) needs no counterpart:
-the parameters are replicated on every rank. Neither do `shard_state` and
-`put_batched`: nothing is placed, the gathers take their place.
+`distributed.gather_rows` on the env axis. JAX's `shard_state` (the
+state replicated, or model-sharded on a 2-D mesh) is the trainers' own
+cut (`parallel/mesh.StateShards`, applied by `init_state` and by the
+restore), and its `act_state` (a process-local copy of the parameters
+for acting) is the copy `runner/host_runner.py` gathers over the model
+group once an update. JAX refuses to act across processes with
+model-sharded parameters, because its global arrays need every host to
+pass the same values; the port's ranks each act on their own envs with
+their gathered copy, which is what JAX's single-process (2, 2) host run
+computes, so the refusal is not carried (ROADMAP.md, Queue 3).
+`put_batched` needs no counterpart: nothing is placed, the gathers take
+its place.
 """
 from __future__ import annotations
 

@@ -11,7 +11,9 @@ cannot be saved (SC2 and GRF are live processes): the pool is reset, and
 the restored carry keeps every input of the policy and the trainer as it
 was. Over a data mesh the checkpoint holds the global carry (gathered on
 every rank, written by the rank given a `save_dir`); each rank restores
-it and keeps its envs' rows.
+it and keeps its envs' rows. On a `(data, model)` mesh the caller hands
+`save_run_state` the whole gathered state and `restore_run_state` the
+`cut` to this rank's blocks, so the file is one process's.
 """
 from __future__ import annotations
 
@@ -26,14 +28,15 @@ _HOST = ("obs", "share_obs", "avail", "masks", "active", "bad")
 
 
 def restore_run_state(cfg, state, start: dict, device, generators: dict,
-                      mesh=None):
-    """→ (state, start, first episode). With cfg.model_dir: the state,
-    the carry (this rank's rows of it over a `mesh`) and the generators
-    from its checkpoint; else as given, from episode 0."""
+                      mesh=None, cut=None):
+    """→ (state, start, first episode). With cfg.model_dir: the state
+    (through `cut`, as `utils/checkpoint.restore`), the carry (this
+    rank's rows of it over a `mesh`) and the generators from its
+    checkpoint; else as given, from episode 0."""
     if not cfg.model_dir:
         return state, start, 0
     state, step, carry = ckpt_lib.restore(cfg.model_dir, state, device,
-                                          generators)
+                                          generators, cut)
     if carry is not None:
         if mesh is not None:
             carry = {k: v[mesh.rows(v.shape[0])] for k, v in carry.items()}
@@ -47,7 +50,8 @@ def save_run_state(save_dir, state, step: int, generators: dict,
     """The full checkpoint, `step` the episode to resume at, written into
     `save_dir` when it is given. Called after the episode's eval, so the
     saved generators continue the uninterrupted stream. Over a `mesh`
-    every rank calls it: the carry is gathered."""
+    every rank calls it: the carry is gathered, and `state` is the whole
+    one."""
     carry = {k: torch.from_numpy(np.ascontiguousarray(v))
              if isinstance(v, np.ndarray) else v
              for k, v in start.items() if v is not None}

@@ -41,7 +41,13 @@ Data parallelism (`--mesh_shape R` under torchrun; `runner/host_mesh.py`):
 each rank owns a pool of `n_rollout_threads` envs, the global batch is
 R times that, the episode is gathered rank-major before the returns and
 the update, and rank 0 logs and writes the checkpoints (with the global
-carry, which every rank restores and cuts to its envs).
+carry, which every rank restores and cuts to its envs). On a `(data,
+model)` mesh (`--mesh_shape D,M`, D·M ranks) each rank keeps its blocks
+of the parameters and moments (`parallel/mesh.py`) and acts with its
+gathered copy, refreshed once an update: `run_episode` gathers before
+the rollout, `run` before an eval (on every rank; the eval env is rank
+0's). The checkpoint holds the whole state, written as one process
+writes it, and a restore cuts each rank's blocks.
 
 `HostSharedRunner` trains rMAPPO / MAPPO / IPPO (`algorithms/mappo.py`)
 and MAT / MAT-dec (`algorithms/mat.py`, its bootstrap reading what
@@ -62,7 +68,6 @@ from onpolicy_torch.algorithms.mat import MAT
 from onpolicy_torch.parallel import distributed
 from onpolicy_torch.parallel import mesh as mesh_lib
 from onpolicy_torch.runner import host_mesh, host_resume
-from onpolicy_torch.runner.base_runner import refuse_unported
 from onpolicy_torch.utils import spaces as sp
 
 _INPUTS = ("share_obs", "obs", "available_actions", "masks")
@@ -139,7 +144,6 @@ class HostRunner:
     def __init__(self, cfg, vec_env, eval_env=None,
                  env_metrics: Optional[Callable] = None):
         cfg = cfg.validate()
-        refuse_unported(cfg)
         self.cfg = cfg
         self.device = torch.device(cfg.device)
         self.generator = torch.Generator(device=self.device)
@@ -167,6 +171,11 @@ class HostRunner:
 
     def _generators(self) -> dict:
         return {"device": self.generator, "init": self.init_generator}
+
+    def _state(self, state, method):
+        """`state` through each trainer's `StateShards.<method>`."""
+        algos = getattr(self, "algos", None) or [self.algo]
+        return mesh_lib.each_state([a.shards for a in algos], state, method)
 
     def _flat(self, x):
         return None if x is None else x.reshape(self.N * self.num_agents,
@@ -212,7 +221,8 @@ class HostRunner:
                  "rnn_a": zeros(), "rnn_c": zeros(), "masks": ones(),
                  "active": ones(), "bad": ones()}
         state, start, self.start_episode = host_resume.restore_run_state(
-            cfg, state, start, self.device, self._generators(), self.mesh)
+            cfg, state, start, self.device, self._generators(), self.mesh,
+            lambda s: self._state(s, "cut"))
         widths = {"share_obs": share_obs.shape[-1], "obs": obs.shape[-1],
                   "available_actions": 0 if avail is None else avail.shape[-1],
                   "masks": 1, "active_masks": 1, "bad_masks": 1,
@@ -245,7 +255,8 @@ class HostRunner:
     # ---- one training episode ----------------------------------------
     @torch.no_grad()
     def rollout(self, state, start, inject: Optional[Sequence[dict]] = None):
-        """Collect T steps from `start` and compute the returns;
+        """Collect T steps from `start` and compute the returns, acting
+        with `state`'s full parameters (gathered on a model axis);
         `inject[t]["actions"]` [N, M, heads] replaces step t's draws.
         → (carry after the last step, buffer with returns, the last
         step's infos)."""
@@ -346,14 +357,16 @@ class HostRunner:
 
     def run_episode(self, state, start):
         """Collect T steps and train. → (state, start', metrics)."""
-        start, buf, infos = self.rollout(state, start)
+        start, buf, infos = self.rollout(self._state(state, "gathered"),
+                                         start)
         state, metrics = self.update(state, buf)
         return state, start, self._episode_metrics(metrics, infos)
 
     # ---- deterministic evaluation (smac_runner.eval, :161-223) --------
     @torch.no_grad()
     def evaluate(self, state) -> dict:
-        """Each head's mode on `eval_envs` (else the training envs) until
+        """With `state`'s full parameters (gathered on a model axis), each
+        head's mode on `eval_envs` (else the training envs) until
         `cfg.eval_episodes` episodes end, or 100,000 steps: the mean episode
         reward and, where the infos carry "won", eval_win_rate."""
         cfg = self.cfg
@@ -401,18 +414,21 @@ class HostRunner:
         state, start = self.init()
         steps = cfg.episode_length * self.N_global
         saves = distributed.any_rank(save_dir is not None, self.mesh)
+        evals = cfg.use_eval and distributed.any_rank(
+            self.eval_envs is not None, self.mesh)
         t0 = time.perf_counter()
         history = []
         for ep in range(self.start_episode, self.episodes):
             state, start, metrics = self.run_episode(state, start)
-            if cfg.use_eval and self.eval_envs is not None \
-                    and ep % cfg.eval_interval == 0:
-                metrics.update(self.evaluate(state))
+            if evals and ep % cfg.eval_interval == 0:
+                acting = self._state(state, "gathered")
+                if self.eval_envs is not None:
+                    metrics.update(self.evaluate(acting))
             if saves and (ep % max(cfg.save_interval, 1) == 0
                           or ep == self.episodes - 1):
-                host_resume.save_run_state(save_dir, state, ep + 1,
-                                           self._generators(), start,
-                                           self.mesh)
+                host_resume.save_run_state(
+                    save_dir, self._state(state, "full"), ep + 1,
+                    self._generators(), start, self.mesh)
             if ep % cfg.log_interval == 0 or ep == self.episodes - 1:
                 row = {"episode": ep, "steps": (ep + 1) * steps,
                        "fps": (ep + 1 - self.start_episode) * steps

@@ -23,7 +23,10 @@ can hold them to the JAX package. The host loop and checkpoints (the
 tuple of per-agent states) are `base_runner.BaseRunner`'s. Over a data
 mesh each rank steps its block of the envs and every agent's episode is
 gathered into its whole buffer before the returns and the update, as in
-`runner/shared_runner.py`.
+`runner/shared_runner.py`; on a `(data, model)` mesh `rollout` and
+`eval_episode` take the states with each agent's full parameters
+(`BaseRunner._state`), and each trainer gathers them for each
+minibatch and each whole-episode log-prob.
 """
 from __future__ import annotations
 
@@ -190,7 +193,7 @@ class SeparatedRunner(BaseRunner):
 
     def episode(self, states, carry, order: Optional[Sequence[int]] = None):
         """→ (states, carry, metrics as 0-dim tensors)."""
-        carry2, bufs = self.rollout(states, carry)
+        carry2, bufs = self.rollout(self._state(states, "gathered"), carry)
         states, metrics = self.update(states, bufs, order)
         rewards = torch.stack([b.rewards for b in bufs], 2)
         metrics["average_episode_rewards"] = (

@@ -31,6 +31,10 @@ Over a data mesh each rank steps and acts for its block of the envs
 (`base_runner`); the staged steps and the last slot are gathered into
 the whole episode, whose bootstrap values, returns and update every rank
 computes (the update on its share of each minibatch, `algorithms/mappo.py`).
+On a `(data, model)` mesh `rollout` and `eval_episode` take the state
+with the full parameters, gathered once before them
+(`BaseRunner._state`), and the trainer gathers them for each
+minibatch.
 """
 from __future__ import annotations
 
@@ -189,7 +193,8 @@ class SharedRunner(BaseRunner):
 
     def episode(self, train_state, carry):
         """→ (train_state, carry, metrics as 0-dim tensors)."""
-        carry2, buf = self.rollout(train_state, carry)
+        carry2, buf = self.rollout(self._state(train_state, "gathered"),
+                                   carry)
         train_state, metrics = self.algo.train(train_state, buf, self.generator)
         metrics["average_episode_rewards"] = (
             buf.rewards.mean() * self.cfg.episode_length)

@@ -22,8 +22,10 @@ evaluates nothing, and saves no checkpoint.
 
 `CONFIGS["football_3v1"]` holds those flags without the step count, for
 `chip_smoke.py` and `profile_episode.py`. Data parallel: under `torchrun
---standalone --nproc_per_node R ... --mesh_shape R` each rank owns a pool
-of `n_rollout_threads` envs, as `train_smac.py` says; rank 0 logs.
+--standalone --nproc_per_node R ... --mesh_shape R` (or D·M ranks and
+`--mesh_shape D,M`, the parameters and moments sharded along 'model')
+each rank owns a pool of `n_rollout_threads` envs, as `train_smac.py`
+says; rank 0 logs.
 """
 from __future__ import annotations
 

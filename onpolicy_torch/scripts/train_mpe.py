@@ -90,8 +90,17 @@ Data parallel over R processes, one card each (`parallel/distributed.py`;
     torchrun --standalone --nproc_per_node R \
         -m onpolicy_torch.scripts.train_mpe ... --mesh_shape R
 
+and on the 2-D (data, model) mesh over D·M processes, each keeping its
+blocks of the parameters and Adam moments along 'model' by the JAX
+package's leaf rule (`parallel/mesh.py`); the rows split over all D·M
+ranks, so `n_rollout_threads` (and each minibatch) must split over D·M:
+
+    torchrun --standalone --nproc_per_node 4 \
+        -m onpolicy_torch.scripts.train_mpe ... --mesh_shape 2,2
+
 Ranks that share a card run `--dist_backend gloo` (NCCL refuses two
-ranks on one GPU). Rank 0 logs, evaluates and writes the checkpoints.
+ranks on one GPU). Rank 0 logs, evaluates and writes the checkpoints,
+which hold the whole state whatever the mesh.
 """
 from __future__ import annotations
 

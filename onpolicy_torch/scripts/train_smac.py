@@ -25,10 +25,14 @@ without a step count, for `chip_smoke.py` and `profile_episode.py`. As
 JAX's, `main` saves no checkpoint.
 
 Data parallel: `torchrun --standalone --nproc_per_node R -m
-onpolicy_torch.scripts.train_smac ... --mesh_shape R`. Each rank owns a
-pool of `n_rollout_threads` envs (the global batch is R times that, as in
+onpolicy_torch.scripts.train_smac ... --mesh_shape R`, or on the 2-D
+(data, model) mesh `--nproc_per_node D·M ... --mesh_shape D,M` (each
+rank keeps its blocks of the parameters and moments along 'model' and
+acts with the gathered ones, `parallel/mesh.py`). Each rank owns a pool
+of `n_rollout_threads` envs (the global batch is D·M times that, as in
 the JAX package's multi-process host path), env i of rank r seeded as
-global env r·n + i; rank 0 logs and evaluates.
+global env r·n + i; each minibatch must split over the D·M ranks; rank 0
+logs and evaluates.
 """
 from __future__ import annotations
 

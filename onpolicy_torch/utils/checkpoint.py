@@ -9,6 +9,11 @@ training resumes exactly. Everything is stored as plain containers of
 tensors, loadable with `weights_only=True`.
 
 Layout: <dir>/ckpt_<step>.pt + latest.txt pointer.
+
+A checkpoint does not depend on the mesh: on a `(data, model)` mesh the
+runner gathers the whole state (`parallel/mesh.StateShards.full`) and
+rank 0 writes it as one process would, and `restore` cuts each rank's
+blocks of it (`cut`).
 """
 from __future__ import annotations
 
@@ -73,10 +78,11 @@ def _from_state_dict(s: dict, template, device):
     return template.replace(**s)
 
 
-def restore(ckpt_dir, template, device, generators: dict):
+def restore(ckpt_dir, template, device, generators: dict, cut=None):
     """→ (train_state, step, carry or None). `template` is a `TrainState`
     (or a tuple of them) giving the ValueNorm's static fields; the
-    generators named in `generators` get their saved state back."""
+    generators named in `generators` get their saved state back. `cut`
+    maps the whole saved state to what this rank keeps of it."""
     path = Path(ckpt_dir)
     if path.is_dir():
         path = latest_path(path)
@@ -88,6 +94,8 @@ def restore(ckpt_dir, template, device, generators: dict):
                       for s, t in zip(payload["state"], template))
     else:
         state = _from_state_dict(payload["state"], template, device)
+    if cut is not None:
+        state = cut(state)
     for k, g in generators.items():
         g.set_state(payload["generators"][k])
     carry = payload["carry"]

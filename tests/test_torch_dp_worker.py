@@ -1,24 +1,27 @@
 """Data-parallel cases of the port, and the worker that runs them as one
 rank of a gloo process group on the CPU.
 
-    python tests/test_torch_dp_worker.py RANK WORLD STORE JOB OUT [IN]
+    python tests/test_torch_dp_worker.py RANK WORLD STORE JOB OUT [IN ...]
 
 joins a group of WORLD ranks through a `FileStore` at STORE, runs the
 cases of JOB ("device": the MPE runners and the trainers on a JAX
-episode given in IN; "host": the host runners) and writes what each case
-trained (the parameters, the logged rows) to OUT with `torch.save`. The
-same case functions, called in one process without a group, give the
-one-rank reference (`tests/test_torch_parallel.py`,
-`tests/test_torch_parallel_host.py`). The worker imports no JAX (it
+episode given in IN; "host": the host runners; "model12" / "model22":
+both on the (data, model) mesh (1, 2) / (2, 2), the trainers on JAX's
+(2, 2) episodes in IN) and writes what each case trained (the
+parameters, the logged rows; on a model axis also each rank's kept
+blocks) to OUT with `torch.save`. The same case functions, called in one
+process without a group, give the one-rank reference
+(`tests/test_torch_parallel.py`, `tests/test_torch_parallel_host.py`,
+`tests/test_torch_parallel_2d.py`). The worker imports no JAX (it
 asserts so at its end): the port's data-parallel path needs none. The
 module holds no tests of its own.
 """
 from __future__ import annotations
 
+import math
 import os
 import sys
 from pathlib import Path
-from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -59,6 +62,32 @@ DEVICE_CASES = {
     "hatrpo": dict(algorithm_name="hatrpo", n_rollout_threads=4,
                    episode_length=10, data_chunk_length=5, episodes=1),
 }
+# the (data, model) jobs' mesh shapes, and what they add: MAPPO with
+# PopArt (the trainer rescales the gathered value head and cuts it)
+MODEL_JOBS = {"model12": (1, 2), "model22": (2, 2)}
+POPART_CASE = dict(algorithm_name="mappo", n_rollout_threads=4,
+                   episode_length=10, num_mini_batch=2, ppo_epoch=2,
+                   use_popart=True, use_valuenorm=False, episodes=2)
+# rmappo_chunks's 6 threads do not split over 4 ranks. At 8 threads its
+# T=25 and L=8 give 75 chunks, which make no 2 minibatches (nor does any
+# T that L=8 does not divide); T=17 and L=10 give 40 chunks (8 steps
+# dropped), 2 minibatches of 20, 5 a rank, and a rank's 2·3·17 = 102
+# steps are no multiple of 10: chunks still straddle agents, episodes and
+# ranks
+FOUR_RANKS = {"rmappo_chunks": dict(n_rollout_threads=8, episode_length=17,
+                                    data_chunk_length=10)}
+
+
+def device_case(name, ranks=1, four_ranks=False) -> dict:
+    """The flags of MPE case `name` (the ones `FOUR_RANKS` gives it where
+    its threads do not split over 4 ranks, for a run on 4 or its
+    one-process reference: `four_ranks`)."""
+    case = POPART_CASE if name == "mappo_popart" else DEVICE_CASES[name]
+    if four_ranks or ranks == 4:
+        case = {**case, **FOUR_RANKS.get(name, {})}
+    return case
+
+
 # the host cases: 8 envs in all (8 on one rank, 4 on each of two)
 HOST_ENVS = 8
 HOST_BASE = dict(hidden_size=16, lr=7e-4, critic_lr=7e-4, seed=5,
@@ -131,29 +160,60 @@ class DeadAgentSmacEnv:
         pass
 
 
-def _cfg(base, case, ranks):
+def _shape(mesh):
+    """A rank count R (the mesh (R,)) or a mesh shape → the shape."""
+    return (mesh,) if isinstance(mesh, int) else tuple(mesh)
+
+
+def _cfg(base, case, mesh):
     flags = {k: v for k, v in {**base, **case}.items()
              if k not in ("episodes", "pool")}
-    return canonicalize_algorithm(Config(**flags, mesh_shape=(ranks,)))
+    return canonicalize_algorithm(Config(**flags, mesh_shape=_shape(mesh)))
+
+
+def _kept(states, algos) -> list:
+    """Each trainer's parameter and moment trees (params, μ, ν of each
+    parameter field), leaf by leaf, as its state holds them."""
+    return [x.detach().cpu().clone() for s, a in zip(states, algos)
+            for p, o in a.shards.fields
+            for x in tree_leaves((getattr(s, p), getattr(s, o)["mu"],
+                                  getattr(s, o)["nu"]))]
 
 
 def _trained(state, history, runner) -> dict:
+    """What a run trained: the full parameters (gathered on a model
+    axis, on every rank), the logged rows; on a model axis also the
+    rank's kept blocks of the parameters and moments, the same leaves
+    gathered, and the leaf rule's dims."""
     states = state if isinstance(state, tuple) else (state,)
+    algos = getattr(runner, "algos", None) or [getattr(runner, "algo",
+                                                       None)]
+    out = {}
+    if getattr(runner, "mesh", None) is not None and \
+            runner.mesh.model_size > 1:
+        full = runner._state(state, "full")
+        full = full if isinstance(full, tuple) else (full,)
+        out = {"kept": _kept(states, algos), "full": _kept(full, algos),
+               "dims": [d for a in algos for p, _ in a.shards.fields
+                        for d in a.shards.layouts[p].dims * 3],
+               "model_rank": runner.mesh.model_rank}
+        states = full
     params = [x.detach().cpu().clone() for s in states
               for x in tree_leaves(s.params if hasattr(s, "params") else
                                    (s.actor_params, s.critic_params))]
     rows = [{k: v for k, v in r.items() if k != "fps"} for r in history]
-    return {"params": params, "rows": rows, "N": runner.N,
-            "episodes": runner.episodes}
+    return {"params": params, "rows": rows,
+            "N": getattr(runner, "N", None),
+            "episodes": getattr(runner, "episodes", None), **out}
 
 
 def run_device_case(name, ranks, save_dir=None, model_dir=None,
-                    episodes=None) -> dict:
+                    episodes=None, four_ranks=False) -> dict:
     """One MPE case through `train_mpe.make_runner` on `ranks` ranks (1:
-    one process, no group), its episodes (or `episodes` in all, resumed
-    from the checkpoint in `model_dir`) through `run`."""
+    one process, no group; or a mesh shape), its episodes (or `episodes`
+    in all, resumed from the checkpoint in `model_dir`) through `run`."""
     from onpolicy_torch.scripts.train_mpe import make_runner
-    case = DEVICE_CASES[name]
+    case = device_case(name, math.prod(_shape(ranks)), four_ranks)
     T = case["episode_length"]
     cfg = _cfg(MPE_BASE, case, ranks).replace(
         num_env_steps=(episodes or case["episodes"]) * T
@@ -178,7 +238,7 @@ def run_host_case(name, ranks) -> dict:
         HostSeparatedRunner
     from onpolicy_torch.runner.host_mesh import env_offset
     case = HOST_CASES[name]
-    n = HOST_ENVS // ranks
+    n = HOST_ENVS // math.prod(_shape(ranks))
     cfg = _cfg(HOST_BASE, case, ranks).replace(
         n_rollout_threads=n, num_env_steps=case["episodes"]
         * HOST_BASE["episode_length"] * HOST_ENVS)
@@ -218,24 +278,44 @@ def run_main(script, ranks) -> dict:
         argv = module.CONFIGS["smac_3s5z"] + MAIN_SMAC + [
             "--n_rollout_threads", str(2 // ranks)]
     state, history = module.main(argv + ["--mesh_shape", str(ranks)])
-    return _trained(state, history, SimpleNamespace(N=None, episodes=None))
+    return _trained(state, history, None)
 
 
 def train_jax_episode(path, ranks) -> dict:
-    """The trainer of the shared runner over `ranks` ranks on the episode
-    saved at `path` (a JAX episode's buffer, the state it started from and
-    each epoch's permutation): → the trained state's leaves and metrics."""
+    """The trainer of the shared runner over `ranks` ranks (or a mesh
+    shape) on the episode saved at `path` (a JAX episode's buffer, the
+    state it started from and each epoch's permutation): → the trained
+    state (whole, gathered on a model axis) and the metrics."""
     from onpolicy_torch import buffer as buf_lib
     from onpolicy_torch.scripts.train_mpe import make_runner
     given = torch.load(path, weights_only=False)
     cfg = canonicalize_algorithm(Config(**given["flags"], device="cpu",
-                                        mesh_shape=(ranks,)))
+                                        mesh_shape=_shape(ranks)))
     runner = make_runner(cfg)
     buf = buf_lib.RolloutBuffer(**given["buf"])
-    state, metrics = runner.algo.train(given["state"], buf, None,
-                                       perms=given["perms"])
-    return {"state": state, "metrics": {k: float(v)
-                                        for k, v in metrics.items()}}
+    shards = runner.algo.shards
+    state, metrics = runner.algo.train(shards.cut(given["state"]), buf,
+                                       None, perms=given["perms"])
+    return {"state": shards.full(state),
+            "metrics": {k: float(v) for k, v in metrics.items()}}
+
+
+def train_jax_separated(path, mesh) -> dict:
+    """The separated runner's update over the mesh `mesh` on the
+    separated episode saved at `path` (each agent's JAX buffer, the
+    states it started from, the agent order): → the trained states
+    (whole) and the metrics."""
+    from onpolicy_torch import buffer as buf_lib
+    from onpolicy_torch.scripts.train_mpe import make_runner
+    given = torch.load(path, weights_only=False)
+    cfg = canonicalize_algorithm(Config(**given["flags"], device="cpu",
+                                        mesh_shape=_shape(mesh)))
+    runner = make_runner(cfg)
+    bufs = [buf_lib.RolloutBuffer(**b) for b in given["bufs"]]
+    states, metrics = runner.update(
+        runner._state(tuple(given["states"]), "cut"), bufs, given["order"])
+    return {"states": runner._state(states, "full"),
+            "metrics": {k: float(v) for k, v in metrics.items()}}
 
 
 def main(argv):
@@ -258,6 +338,24 @@ def main(argv):
         torch.distributed.barrier()
         results["rmappo_resumed"] = run_device_case(
             "rmappo_chunks", world, model_dir=models, episodes=3)
+    elif job in MODEL_JOBS:
+        shape = MODEL_JOBS[job]
+        one_models, models = argv[5], str(Path(out).parent / f"{job}_models")
+        cases = [*DEVICE_CASES, "mappo_popart"]
+        if job == "model22":
+            results["jax_episode"] = train_jax_episode(argv[6], shape)
+            results["jax_separated"] = train_jax_separated(argv[7], shape)
+        for name in cases:
+            results[name] = run_device_case(
+                name, shape, models if name == "rmappo_chunks" and rank == 0
+                else None)
+        if job == "model12":
+            # a one-process checkpoint, resumed under (1, 2) for a third
+            # episode
+            results["rmappo_resumed"] = run_device_case(
+                "rmappo_chunks", shape, model_dir=one_models, episodes=3)
+            for name in HOST_CASES:
+                results[name] = run_host_case(name, shape)
     elif job == "host":
         for name in HOST_CASES:
             results[name] = run_host_case(name, world)

@@ -197,9 +197,9 @@ def test_config_refuses_what_it_cannot_run():
     dict(algorithm_name="mat", use_popart=True, use_valuenorm=False),
     dict(use_popart=True, use_valuenorm=False)])
 def test_runner_refuses_unported_options(override):
-    """The 2-D (data, model) mesh still raises, naming its ROADMAP.md
-    item (G2; the data mesh runs under torchrun,
-    tests/test_torch_parallel.py); the
+    """The 2-D (data, model) mesh (G2) is ported and runs under
+    torchrun (tests/test_torch_parallel_2d.py): in one process its D·M = 2
+    ranks are refused as a world of 1 (WORLD_SIZE); the
     StarCraft2 env is sent to the host runners (F); simple_tag (B3,
     through the separated runner: its roles see different widths) and
     PopArt for MAT and MAPPO (B4) build their runner now."""
@@ -209,7 +209,7 @@ def test_runner_refuses_unported_options(override):
         device="cpu", n_rollout_threads=2, episode_length=5,
         n_embd=16, hidden_size=16)).replace(**override)
     if "mesh_shape" in override:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md, Slice G"):
+        with pytest.raises(ValueError, match="D·M = 2 ranks.*WORLD_SIZE"):
             make_runner(cfg)
         return
     if "env_name" in override:

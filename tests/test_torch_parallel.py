@@ -18,9 +18,10 @@ JAX) runs:
   and the metrics within TRAINED (1e-4 / 5e-5) of JAX's.
 
 The one-process references run here while the workers run. Also the
-refusals: the 2-D mesh (Slice G2), a mesh_shape other than the world
-size, an env batch or a minibatch that does not split, NCCL with two
-ranks on one card, and the Hanabi runner (JAX's has no mesh path).
+refusals: a 2-D mesh whose D·M is not the world size, a mesh_shape
+other than the world size, an env batch or a minibatch that does not
+split, NCCL with two ranks on one card, and the Hanabi runner (JAX's
+has no mesh path).
 """
 import os
 import subprocess
@@ -58,17 +59,17 @@ JAX_FLAGS = dict(algorithm_name="rmappo", scenario_name="simple_spread",
                  use_ReLU=False, lr=7e-4, critic_lr=7e-4)
 
 
-def spawn(tmp_path, job, extra=(), env=None):
-    """Start the two ranks of `job`; → (processes, output paths)."""
-    store = str(tmp_path / "store")
-    outs = [tmp_path / f"{job}_rank{r}.pt" for r in range(2)]
+def spawn(tmp_path, job, extra=(), env=None, ranks=2):
+    """Start the `ranks` ranks of `job`; → (processes, output paths)."""
+    store = str(tmp_path / f"{job}_store")
+    outs = [tmp_path / f"{job}_rank{r}.pt" for r in range(ranks)]
     env = {**os.environ, "PYTHONPATH": str(REPO), "GLOO_SOCKET_IFNAME": "lo",
            "OMP_NUM_THREADS": "1", **(env or {})}
     procs = [subprocess.Popen(
         [sys.executable, str(REPO / "tests" / "test_torch_dp_worker.py"),
-         str(r), "2", store, job, str(outs[r]), *extra],
+         str(r), str(ranks), store, job, str(outs[r]), *extra],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-        for r in range(2)]
+        for r in range(ranks)]
     return procs, outs
 
 
@@ -106,28 +107,38 @@ def assert_trains_like(got, want, name, tol=DP):
             np.testing.assert_allclose(g[k], v, err_msg=f"{name} {k}", **tol)
 
 
-def _jax_episode(path):
-    """One episode of JAX's runner on a (2,) mesh, its buffer and key
-    captured at the trainer, saved for the ranks; → (JAX's trained
-    state, its metrics)."""
-    cfg = j_canon(JaxConfig(**JAX_FLAGS, mesh_shape=(2,))).validate()
+def _jax_episode(path, flags=JAX_FLAGS, mesh_shape=(2,)):
+    """One jitted episode of JAX's runner at `flags` on a `mesh_shape`
+    mesh, its buffer and key captured at the trainer (as outputs of the
+    jitted episode), saved for the ranks; → (JAX's trained state, its
+    metrics)."""
+    cfg = j_canon(JaxConfig(**flags, mesh_shape=mesh_shape)).validate()
     jr = JaxRunner(cfg)
     state, carry = jr.init(jax.random.PRNGKey(0))
-    assert len(jr.mesh.devices.flat) == 2
-    captured = {}
+    assert len(jr.mesh.devices.flat) == np.prod(mesh_shape)
     train = jr.algo.train
 
-    def capture(ts, buf, key, factor=None):
-        captured.update(buf=buf, key=key)
-        return train(ts, buf, key, factor)
-    jr.algo.train = capture
-    new_state, _, metrics = jr._episode(state, carry, jax.random.PRNGKey(7))
-    buf, key = jax.device_get(captured["buf"]), captured["key"]
-    n_chunks = 10 * 4 * 3 // 10
+    def episode(state, carry, key):
+        captured = {}
+
+        def capture(ts, buf, key, factor=None):
+            captured.update(buf=buf, key=key)
+            return train(ts, buf, key, factor)
+        jr.algo.train = capture
+        try:
+            new_state, _, metrics = jr._episode(state, carry, key)
+        finally:
+            jr.algo.train = train
+        return new_state, metrics, captured["buf"], captured["key"]
+    new_state, metrics, buf, key = jax.jit(episode)(
+        state, carry, jax.random.PRNGKey(7))
+    buf = jax.device_get(buf)
+    n_chunks = (flags["episode_length"] * flags["n_rollout_threads"]
+                * flags["num_agents"] // flags["data_chunk_length"])
     perms = [torch.tensor(np.asarray(jax.random.permutation(k, n_chunks)))
-             for k in jax.random.split(key, 3)]
+             for k in jax.random.split(key, flags["ppo_epoch"])]
     torch.save({
-        "flags": JAX_FLAGS, "perms": perms,
+        "flags": flags, "perms": perms,
         "state": train_state_from_jax(jax.device_get(state)),
         "buf": {k: None if getattr(buf, k) is None else
                 torch.tensor(np.asarray(getattr(buf, k)))
@@ -216,7 +227,13 @@ def _cfg(**kw):
 
 @pytest.mark.parametrize("shape", [(2, 2), (1, 2)])
 def test_the_2d_mesh_names_slice_g2(shape):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md, Slice G2"):
+    """The (data, model) mesh of Slice G2 is ported: in one process it
+    asks for D·M ranks that the world (WORLD_SIZE 1) does not have, and
+    says how to launch them (tests/test_torch_parallel_2d.py runs it)."""
+    n = shape[0] * shape[1]
+    with pytest.raises(ValueError, match=rf"WORLD_SIZE.*--nproc_per_node "
+                                         rf"{n} .* --mesh_shape "
+                                         rf"{shape[0]},{shape[1]}"):
         mesh_lib.make_mesh(shape)
 
 

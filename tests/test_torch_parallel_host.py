@@ -108,5 +108,5 @@ def test_a_host_mesh_needs_its_ranks():
     envs = DummyVecEnv(w.host_env_fns(2, 0), protocol="share")
     with pytest.raises(ValueError, match="WORLD_SIZE"):
         HostSharedRunner(cfg, envs)
-    with pytest.raises(NotImplementedError, match="Slice G2"):
+    with pytest.raises(ValueError, match="D·M = 2 ranks.*WORLD_SIZE"):
         HostSharedRunner(cfg.replace(mesh_shape=(1, 2)), envs)
