@@ -138,6 +138,16 @@ Phases, each of which fails the run (non-zero exit) if it fails:
               train_smac_3s5z.sh over the stand-ins at T=40, 2 ranks x
               4 envs against one process x 8, as (a), 10 launches a
               rank an episode at T=10 B=128.
+  7. render (`render_phase`): whether matplotlib and imageio import
+              (the card's machine may lack both); `scripts/render_mpe`'s
+              episode loop on the flagship's policy (2 episodes of 25
+              steps) and `scripts/render_football`'s over the GRF
+              stand-in (1 episode), each from one checkpoint restored on
+              the card and on the CPU: the same actions, the rewards
+              within 1e-5 relative, no GRU kernel launched, ms an episode
+              on the card; frames (26 an episode) and gifs, into a
+              temporary directory, only where matplotlib and imageio
+              import.
 The last three lines are one JSON object with a row per kernel and
 stream type (and shape: flagship, bench, Hanabi, SMAC, and a
 data-parallel rank's two), the card's name and power limit, and the
@@ -2394,6 +2404,171 @@ def data_parallel_phase(torch, card, device="cuda"):
                      **by_rank("dp 1,2 smac_3s5z", "f12")}}
 
 
+# ---------------------------------------------------------------------------
+# phase 7: rendering
+# ---------------------------------------------------------------------------
+
+# render_mpe on the flagship's policy (simple_spread, 3 agents, T=25), and
+# render_football on render_football.sh's flags, 1 episode (no
+# --save_videos: the card's machine may have no imageio)
+RENDER_MPE = ["--env_name", "MPE", "--algorithm_name", "rmappo",
+              "--scenario_name", "simple_spread", "--num_agents", "3",
+              "--num_landmarks", "3", "--seed", "1", "--episode_length", "25",
+              "--render_episodes", "2", "--use_ReLU", "false", "--gain",
+              "0.01"]
+RENDER_FOOTBALL = ["--env_name", "Football", "--scenario_name",
+                   "academy_3_vs_1_with_keeper", "--algorithm_name", "rmappo",
+                   "--experiment_name", "render", "--seed", "1",
+                   "--num_agents", "3", "--representation", "simple115v2",
+                   "--use_render", "--render_episodes", "1",
+                   "--n_rollout_threads", "1"]
+
+
+def _off_card(state, device):
+    from onpolicy_torch.utils.tree import tree_leaves
+    return [x for x in tree_leaves((state.actor_params, state.critic_params))
+            if x.device.type != device]
+
+
+def _same_episodes(name, got, want, rtol=1e-5):
+    """Card against CPU: each episode's actions equal, its reward within
+    `rtol` relative."""
+    (rew, acts), (rew_cpu, acts_cpu) = got, want
+    for e, (a, b) in enumerate(zip(acts, acts_cpu)):
+        if a.shape != b.shape or not bool((a.cpu() == b).all()):
+            raise AssertionError(f"{name} episode {e}: the card's actions "
+                                 "differ from the CPU's")
+    for e, (a, b) in enumerate(zip(rew, rew_cpu)):
+        if not math.isfinite(a) or abs(a - b) > rtol * abs(b):
+            raise AssertionError(f"{name} episode {e}: reward {a!r} on the "
+                                 f"card, {b!r} on the CPU")
+
+
+def render_phase(torch, cg, device="cuda"):
+    """Phase 7. (a) Whether matplotlib and imageio import (a subprocess).
+    (b) `scripts/render_mpe`'s loop on the flagship's policy, 2 episodes
+    of 25 steps, from one checkpoint (written by `utils/checkpoint.save`
+    from a seeded state) restored on the card and on the CPU, the same
+    first worlds injected into both: the card's actions equal the CPU's
+    at every step, the episode rewards within 1e-5 relative, every
+    parameter on the card, no GRU kernel launched (the loop acts through
+    the single-step cell); with (a), a frame drawn after the reset and
+    after each step (26 an episode) and the gifs written to a temporary
+    directory. (c) `scripts/render_football`'s loop over the GRF engine
+    stand-in, 1 episode, card against CPU from one checkpoint: the same
+    actions and reward. (`device` "cpu" rehearses the phase without the
+    card.)"""
+    from onpolicy_torch.envs.football.football_env import FootballEnv
+    from onpolicy_torch.envs.mpe.world import WorldState
+    from onpolicy_torch.scripts import render_football, render_mpe
+    from onpolicy_torch.utils import checkpoint as ckpt
+    from onpolicy_torch.utils.render import render_frame
+
+    probe = subprocess.run([sys.executable, "-c", "import matplotlib, imageio"],
+                           capture_output=True, text=True)
+    draws = probe.returncode == 0
+    log("  matplotlib and imageio: " + (
+        "import" if draws else f"missing ({probe.stderr.strip()}): no frame "
+        "is drawn on this machine"))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # (b) render_mpe
+        cfg_of = lambda on, *more: render_mpe.config_from_args(
+            RENDER_MPE + ["--device", on, *more], n_rollout_threads=1,
+            use_render=True)
+        runner, state = render_mpe.load_policy(cfg_of("cpu", "--seed", "7"))
+        ckpt.save(tmp / "mpe", state, 0, {})
+        env = runner.envs.env
+        resets = [env.reset(1, torch.Generator().manual_seed(100 + e),
+                            "cpu")[0] for e in range(2)]
+        runs, frames = {}, []
+
+        def frame(spec, world):
+            frames.append(render_frame(spec, world))
+            return frames[-1]
+        for card in (True, False):
+            on = device if card else "cpu"
+            more = ["--model_dir", str(tmp / "mpe")]
+            if card and draws:
+                more.append("--save_gifs")
+            runner, state = render_mpe.load_policy(cfg_of(on, *more))
+            if _off_card(state, on):
+                raise AssertionError("render_mpe: parameters off the card")
+            starts = []
+
+            def reset(ep, on=on):
+                starts.append(time.perf_counter())
+                return WorldState.from_tensors(
+                    {k: v.to(on) for k, v in resets[ep].tensors().items()})
+            cg.FWD_LAUNCHES = cg.BWD_LAUNCHES = 0
+            runs[card] = render_mpe.render_episodes(
+                runner, state, frame if card and draws else None, reset,
+                tmp / "gifs")
+            if card:
+                starts.append(time.perf_counter())
+                launches = (cg.FWD_LAUNCHES, cg.BWD_LAUNCHES)
+                ms = [1e3 * (b - a) for a, b in zip(starts, starts[1:])]
+        _same_episodes("render_mpe", runs[True], runs[False])
+        if launches != (0, 0):
+            raise AssertionError(f"render_mpe launched GRU kernels {launches}")
+        gifs = sorted(p.name for p in (tmp / "gifs").glob("*.gif"))
+        if draws and (len(frames) != 2 * 26 or len(gifs) != 2):
+            raise AssertionError(f"render_mpe: {len(frames)} frames, gifs "
+                                 f"{gifs}; want 26 an episode, 2 gifs")
+        log(f"  render_mpe (simple_spread, 3 agents, 2 episodes of 25 steps, "
+            f"seeded checkpoint): actions equal to the CPU's at every step, "
+            f"episode rewards {runs[True][0]} on the card, "
+            f"{runs[False][0]} on the CPU; GRU launches {launches}; ms an "
+            f"episode on the card {ms} "
+            + (f"with {len(frames)} frames drawn (26 an episode) and gifs "
+               f"{gifs} written to a temporary directory" if draws else
+               "(no frame drawn on the card: no matplotlib / imageio)")
+            + "  ok")
+
+        # (c) render_football over the engine stand-in
+        install_engine_standins()
+        # parameters from seed 33 play a 78-step episode on the stand-in
+        # (from many seeds the policy shoots or loses the ball at once)
+        _, cfg = render_football.config_from_args(RENDER_FOOTBALL + [
+            "--device", "cpu", "--seed", "33"])
+        _, state = render_football.load_policy(
+            cfg, FootballEnv(num_agents=cfg.num_agents))
+        ckpt.save(tmp / "football", state, 0, {})
+        runs = {}
+        for card in (True, False):
+            on = device if card else "cpu"
+            ns, cfg = render_football.config_from_args(RENDER_FOOTBALL + [
+                "--device", on, "--model_dir", str(tmp / "football")])
+            env = FootballEnv(scenario_name=cfg.scenario_name,
+                              num_agents=cfg.num_agents,
+                              representation=ns.representation,
+                              rewards=ns.rewards, use_render=True,
+                              seed=cfg.seed)
+            algo, state = render_football.load_policy(cfg, env)
+            if _off_card(state, on):
+                raise AssertionError("render_football: parameters off the "
+                                     "card")
+            cg.FWD_LAUNCHES = cg.BWD_LAUNCHES = 0
+            t0 = time.perf_counter()
+            runs[card] = render_football.render_episodes(algo, state, env,
+                                                         cfg)
+            if card:
+                football_ms = 1e3 * (time.perf_counter() - t0)
+                launches = (cg.FWD_LAUNCHES, cg.BWD_LAUNCHES)
+            env.close()
+        _same_episodes("render_football", runs[True], runs[False])
+        if launches != (0, 0):
+            raise AssertionError(f"render_football launched GRU kernels "
+                                 f"{launches}")
+        steps = len(runs[True][1][0])
+        log(f"  render_football (render_football.sh's flags, GRF stand-in, 1 "
+            f"episode of {steps} steps, seeded checkpoint): actions equal to "
+            f"the CPU's, reward {runs[True][0]} on the card, "
+            f"{runs[False][0]} on the CPU; GRU launches {launches}; "
+            f"{football_ms:.2f} ms an episode on the card  ok")
+
+
 def kernel_rows(times, launches, errs, shape, streams):
     """The `kernels` line's rows of both kernels for one stream type;
     `launches` maps each run of that stream type to its counts, and a
@@ -2591,6 +2766,11 @@ def main() -> int:
     log("== 6. data parallel on the card: torchrun, 2 ranks sharing it on "
         "gloo, 1 rank on NCCL; the (data, model) mesh at 1,2 and 2,2")
     dp = data_parallel_phase(torch, card)
+
+    log("== 7. render: render_mpe and render_football, card against CPU")
+    t0 = time.perf_counter()
+    render_phase(torch, cg)
+    log(f"  phase 7 wall {time.perf_counter() - t0:.1f} s")
 
     row_errs = lambda case, streams: dict(zip(("fwd", "bwd"),
                                               errs[case, streams]))

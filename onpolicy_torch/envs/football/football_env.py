@@ -24,21 +24,28 @@ class FootballEnv:
     def __init__(self, scenario_name: str = "academy_3_vs_1_with_keeper",
                  num_agents: int = 3, representation: str = "simple115v2",
                  rewards: str = "scoring,checkpoints",
-                 share_reward: bool = True, smm_width: int = 96,
-                 smm_height: int = 72):
+                 share_reward: bool = True, stacked: bool = False,
+                 smm_width: int = 96, smm_height: int = 72,
+                 use_render: bool = False, seed: int = 0, **kwargs):
         try:
             from gfootball.env import create_environment
         except ImportError as e:  # pragma: no cover
             raise ImportError(
                 "FootballEnv requires the `gfootball` package "
                 "(https://github.com/google-research/football)") from e
-        # no seed reaches the engine, as in JAX's adapter (ROADMAP Queue 3)
+        # no seed reaches the engine, as in JAX's adapter (ROADMAP Queue 3):
+        # `seed` is taken and not passed on. `render` stays off whatever
+        # `use_render` says (JAX's `use_render and False`); frames come
+        # from `render()`
         self.env = create_environment(
             env_name=scenario_name,
+            stacked=stacked,
             representation=representation,
             rewards=rewards,
             number_of_left_players_agent_controls=num_agents,
-            channel_dimensions=(smm_width, smm_height))
+            channel_dimensions=(smm_width, smm_height),
+            render=use_render and False,
+            **kwargs)
         self.num_agents = num_agents
         self.share_reward = share_reward
         self.max_steps = self.env.unwrapped.observation()[0]["steps_left"]
@@ -86,6 +93,19 @@ class FootballEnv:
         info["sticky_actions"] = np.stack(
             [raw[i]["sticky_actions"] for i in range(self.num_agents)])
         return info
+
+    def seed(self, seed=None):
+        # the reference seeds the global python RNG (Football_Env.py:93-97,
+        # seed None → 1); the engine's own seed gets the resolved value
+        # too (None would reseed it from entropy)
+        import random
+        resolved = 1 if seed is None else seed
+        random.seed(resolved)
+        if hasattr(self.env, "seed"):
+            self.env.seed(resolved)
+
+    def render(self, mode="rgb_array"):
+        return self.env.render(mode)
 
     def close(self):
         self.env.close()

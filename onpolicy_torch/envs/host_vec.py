@@ -133,6 +133,8 @@ def _worker(remote, env_fn, protocol, idx, shm_specs):
                 if protocol != "choose" or blocks["reset_choose"].array[idx]:
                     write_obs(env.reset())
                 remote.send(True)
+            elif cmd == "render":
+                remote.send(env.render(data) if data else env.render())
             elif cmd == "close":
                 remote.send(True)
                 break
@@ -242,6 +244,11 @@ class HostVecEnv:
             return (b["obs"].array.copy(), b["share_obs"].array.copy(),
                     b["avail"].array.copy() if "avail" in b else None)
         return b["obs"].array.copy()
+
+    def render(self, mode="rgb_array"):
+        """Env 0's frame (JAX's `HostVecEnv.render`)."""
+        self._remotes[0].send(("render", mode))
+        return self._remotes[0].recv()
 
     def close(self):
         if self._closed:

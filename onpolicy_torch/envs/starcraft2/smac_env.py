@@ -173,6 +173,28 @@ class SMACEnv:
         infos = [dict(base) for _ in range(M)]
         return obs, share, rewards, dones, infos, avail
 
+    def seed(self, seed):
+        """Re-seed after construction (the reference's eval pools call
+        seed(seed*50000 + rank*10000)). smac takes the seed at (re)launch,
+        so it is kept for the next restart and pushed into the live
+        engine's RNG where the engine has one."""
+        self._seed = seed
+        hooked = False
+        if hasattr(self.env, "_seed"):
+            self.env._seed = seed
+            hooked = True
+        rng = getattr(self.env, "np_random", None) or getattr(
+            getattr(self.env, "_env", None), "np_random", None)
+        if rng is not None and hasattr(rng, "seed"):
+            rng.seed(seed)
+            hooked = True
+        if not hooked:
+            import warnings
+            warnings.warn(
+                "smac engine exposes neither _seed nor np_random; the new "
+                "seed only takes effect at the next engine restart "
+                "(construction seed stays live until then)", RuntimeWarning)
+
     def close(self):
         self.env.close()
 

@@ -124,5 +124,8 @@ class SMACv2Env:
         }
         return obs, share, rewards, dones, [dict(base)] * M, avail
 
+    def seed(self, seed):
+        pass  # seeded at construction
+
     def close(self):
         self.env.close()
