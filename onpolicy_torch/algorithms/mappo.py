@@ -13,6 +13,10 @@ input (`use_centralized_V=False`, set by the config's canonicalization).
 
 Three samplers (`_sample_minibatches`): chunked BPTT (rMAPPO), whole
 episodes (`use_naive_recurrent_policy`) and flat rows (feed-forward).
+`utils.profiling` spans mark the update's layers: `update.minibatch`,
+then per minibatch `update.forward`, `update.backward`,
+`update.allreduce` and `update.optimizer` (the three device spans timed
+on the card by CUDA events).
 The recurrent policies' update runs `evaluate_seq` / `forward_seq`
 through the sequence GRU, which on the card is the CUDA kernels; the
 feed-forward update evaluates flat rows, with `use_critic_dedup` running
@@ -60,6 +64,7 @@ from onpolicy_torch.models import actor_critic, popart
 from onpolicy_torch.ops import losses, schedules, valuenorm as vn
 from onpolicy_torch.parallel import distributed
 from onpolicy_torch.parallel import mesh as mesh_lib
+from onpolicy_torch.utils import profiling
 from onpolicy_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
 
@@ -206,36 +211,41 @@ class MAPPO:
         full = self.shards.params(state)
         critic_params = state.critic_params
         returns = mb["returns"].reshape(-1, 1)
-        if cfg.use_popart and self.popart_rescales_head:
-            v_out, vnorm = popart.update(full["critic_params"]["v_out"],
-                                         vnorm, returns)
-            full["critic_params"] = {**full["critic_params"], "v_out": v_out}
-            critic_params = self.shards.cut_tree("critic_params",
-                                                 full["critic_params"])
-        elif cfg.use_popart or cfg.use_valuenorm:
-            vnorm = vn.update(vnorm, returns)
+        with profiling.span("update.forward", device=True):
+            if cfg.use_popart and self.popart_rescales_head:
+                v_out, vnorm = popart.update(full["critic_params"]["v_out"],
+                                             vnorm, returns)
+                full["critic_params"] = {**full["critic_params"],
+                                         "v_out": v_out}
+                critic_params = self.shards.cut_tree("critic_params",
+                                                     full["critic_params"])
+            elif cfg.use_popart or cfg.use_valuenorm:
+                vnorm = vn.update(vnorm, returns)
 
-        leaf = lambda x: x.detach().requires_grad_(True)
-        ap = tree_map(leaf, full["actor_params"])
-        cp = tree_map(leaf, full["critic_params"])
-        a_leaves, c_leaves = tree_leaves(ap), tree_leaves(cp)
-        with torch.enable_grad(), distributed.global_batch(self.mesh):
-            total, aux = self._loss(ap, cp, vnorm, self._share(mb))
+            leaf = lambda x: x.detach().requires_grad_(True)
+            ap = tree_map(leaf, full["actor_params"])
+            cp = tree_map(leaf, full["critic_params"])
+            a_leaves, c_leaves = tree_leaves(ap), tree_leaves(cp)
+            with torch.enable_grad(), distributed.global_batch(self.mesh):
+                total, aux = self._loss(ap, cp, vnorm, self._share(mb))
+        with profiling.span("update.backward", device=True), \
+                torch.enable_grad():
             grads = torch.autograd.grad(total, a_leaves + c_leaves,
                                         allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for g, p in zip(grads, a_leaves + c_leaves)]
+            grads = [torch.zeros_like(p) if g is None else g
+                     for g, p in zip(grads, a_leaves + c_leaves)]
         grads, aux = distributed.sum_over_ranks(grads, aux, self.mesh)
-        a_grads, c_grads = grads[:len(a_leaves)], grads[len(a_leaves):]
-        aux["actor_grad_norm"] = losses.global_grad_norm(a_grads)
-        aux["critic_grad_norm"] = losses.global_grad_norm(c_grads)
+        with profiling.span("update.optimizer", device=True):
+            a_grads, c_grads = grads[:len(a_leaves)], grads[len(a_leaves):]
+            aux["actor_grad_norm"] = losses.global_grad_norm(a_grads)
+            aux["critic_grad_norm"] = losses.global_grad_norm(c_grads)
 
-        actor_params, a_opt = self.actor_tx.update(
-            tree_unflatten(ap, a_grads), state.actor_opt_state,
-            state.actor_params, self.shards.cut_grads("actor_params"))
-        critic_params, c_opt = self.critic_tx.update(
-            tree_unflatten(cp, c_grads), state.critic_opt_state,
-            critic_params, self.shards.cut_grads("critic_params"))
+            actor_params, a_opt = self.actor_tx.update(
+                tree_unflatten(ap, a_grads), state.actor_opt_state,
+                state.actor_params, self.shards.cut_grads("actor_params"))
+            critic_params, c_opt = self.critic_tx.update(
+                tree_unflatten(cp, c_grads), state.critic_opt_state,
+                critic_params, self.shards.cut_grads("critic_params"))
         return state.replace(actor_params=actor_params,
                              critic_params=critic_params,
                              actor_opt_state=a_opt, critic_opt_state=c_opt,
@@ -253,12 +263,17 @@ class MAPPO:
         `generator`, or takes `perms[epoch]` (e.g. from a test). Metrics
         are 0-dim tensors, means over all updates."""
         cfg = self.cfg
-        adv = losses.normalize_advantages(
-            buf.advantages,
-            buf.active_masks[:-1] if cfg.use_policy_active_masks else None)
-        sample = lambda epoch: self._sample_minibatches(
-            buf, adv, generator, None if perms is None else perms[epoch],
-            factor)
+
+        def sample(epoch):
+            with profiling.span("update.minibatch"):
+                return self._sample_minibatches(
+                    buf, adv, generator,
+                    None if perms is None else perms[epoch], factor)
+
+        with profiling.span("update.minibatch"):
+            adv = losses.normalize_advantages(
+                buf.advantages, buf.active_masks[:-1]
+                if cfg.use_policy_active_masks else None)
         # one minibatch is permutation-free: build it once for all epochs
         mbs = sample(0) if cfg.num_mini_batch == 1 else None
         history = []

@@ -50,6 +50,8 @@ from typing import Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from onpolicy_torch.utils import profiling
+
 BACKENDS = ("nccl", "gloo")
 
 
@@ -221,13 +223,14 @@ def share_rows(mb: dict, mesh, sequences: bool) -> dict:
 def sum_over_ranks(grads: list, aux: dict, mesh):
     """The gradients and the loss terms (each rank's part) summed over the
     ranks in one all-reduce; → (grads, aux detached)."""
-    aux = {k: v.detach() for k, v in aux.items()}
-    if mesh is None:
-        return grads, aux
-    keys = sorted(aux)
-    out = all_reduce_sum(
-        list(grads) + [aux[k] for k in keys], mesh)
-    return out[:len(grads)], dict(zip(keys, out[len(grads):]))
+    with profiling.span("update.allreduce"):
+        aux = {k: v.detach() for k, v in aux.items()}
+        if mesh is None:
+            return grads, aux
+        keys = sorted(aux)
+        out = all_reduce_sum(
+            list(grads) + [aux[k] for k in keys], mesh)
+        return out[:len(grads)], dict(zip(keys, out[len(grads):]))
 
 
 def gather_rows(x, axis: int, mesh):

@@ -29,10 +29,14 @@ Both stage through the same code and give the same numbers. `run` reads
 the episode's scalars once an episode. `det_collect` makes collection
 take each policy's mode (the tests' lockstep with the JAX package), and
 on the tensor engine the round and the episode take the decks of the
-games they reset, for the same reason.
+games they reset, for the same reason. `utils.profiling` spans mark the
+rounds' layers (`rollout.act`, `rollout.env`, `rollout.store`, and on
+the host seat loop `rollout.copy`, each copy counted in `host_copies`)
+and the deferred update's returns (`update.returns`).
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Optional, Sequence
 
@@ -47,7 +51,18 @@ from onpolicy_torch.envs.hanabi.torch_fleet import (CppHanabiFleet,
                                                     TorchHanabiFleet, upload)
 from onpolicy_torch.parallel import mesh as mesh_lib
 from onpolicy_torch.utils import checkpoint as ckpt_lib
-from onpolicy_torch.utils.profiling import PhaseTimer
+from onpolicy_torch.utils import profiling
+
+
+def _no_phase(name):
+    return contextlib.nullcontext()
+
+
+def _upload(device, *arrays):
+    """`torch_fleet.upload` as one of the rollout's host copies."""
+    with profiling.span("rollout.copy"):
+        profiling.count("host_copies")
+        return upload(device, *arrays)
 
 
 def _put_seat(x, seat, new, when):
@@ -266,34 +281,40 @@ class HanabiRunner:
 
         for seat in range(M):
             choose = (c["use_avail"] == 1).any(1)                   # [N]
-            actions, logp, rnn = self._act(train_state, c, seat)
+            with profiling.span("rollout.act"):
+                actions, logp, rnn = self._act(train_state, c, seat)
             chose_l.append(choose)
             zero_l.append(done_this_round)
-            self._stage_choice(c, seat, choose, actions, logp, rnn)
-            env_actions = torch.where(choose, actions[:, 0].long(), -1)
+            with profiling.span("rollout.store"):
+                self._stage_choice(c, seat, choose, actions, logp, rnn)
 
-            (c["env_states"], obs, share, rewards, done, avail,
-             score) = self.envs.pure_step(c["env_states"], env_actions)
+            with profiling.span("rollout.env"):
+                env_actions = torch.where(choose, actions[:, 0].long(), -1)
+                (c["env_states"], obs, share, rewards, done, avail,
+                 score) = self.envs.pure_step(c["env_states"], env_actions)
             if not cfg.use_centralized_V:
                 share = obs
             true_delta = true_delta + choose.sum(dtype=torch.int32)
             c["use_obs"], c["use_share"], c["use_avail"] = obs, share, avail
 
-            nd = self._stage_outcome(c, seat, choose, rewards, done)
+            with profiling.span("rollout.store"):
+                nd = self._stage_outcome(c, seat, choose, rewards, done)
             reset_choose = reset_choose | nd
             done_this_round = done_this_round | nd
             score_sum = score_sum + torch.where(nd, score.float(), 0.0).sum()
             score_n = score_n + nd.sum(dtype=torch.int32)
 
-        self._deferred_critic(train_state, c, rnn_c0, masks0,
-                              torch.stack(chose_l, 1), torch.stack(zero_l, 1),
-                              done_this_round)
+        with profiling.span("rollout.act"):
+            self._deferred_critic(train_state, c, rnn_c0, masks0,
+                                  torch.stack(chose_l, 1),
+                                  torch.stack(zero_l, 1), done_this_round)
 
         masks_insert = c["masks"]
-        c["env_states"] = self.envs.masked_reset(c["env_states"], reset_choose,
-                                                 decks)
-        fresh_obs, fresh_share, fresh_avail, _, _, _ = self.envs.observe(
-            c["env_states"])
+        with profiling.span("rollout.env"):
+            c["env_states"] = self.envs.masked_reset(c["env_states"],
+                                                     reset_choose, decks)
+            fresh_obs, fresh_share, fresh_avail, _, _, _ = self.envs.observe(
+                c["env_states"])
         if not cfg.use_centralized_V:
             fresh_share = fresh_obs
         rc1 = reset_choose[:, None]
@@ -326,36 +347,43 @@ class HanabiRunner:
         rnn_c0, masks0 = c["rnn_critic"], c["masks"]
         for seat in range(M):
             choose = (c["use_avail"] == 1).any(1)
-            actions, logp, rnn = self._act(train_state, c, seat)
+            with profiling.span("rollout.act"):
+                actions, logp, rnn = self._act(train_state, c, seat)
             # the seat's one copy to the host
-            env_actions = torch.where(choose, actions[:, 0].long(),
-                                      -1).cpu().numpy()
+            with profiling.span("rollout.copy"):
+                profiling.count("host_copies")
+                env_actions = torch.where(choose, actions[:, 0].long(),
+                                          -1).cpu().numpy()
             choose_np = env_actions >= 0
             if not choose_np.any():      # every game ended this round
                 reset_choose[:] = True
                 break
             chose[:, seat] = choose_np
-            self._stage_choice(c, seat, choose, actions, logp, rnn)
+            with profiling.span("rollout.store"):
+                self._stage_choice(c, seat, choose, actions, logp, rnn)
 
-            obs, share, rewards, done, _, avail, score = self.envs.step(
-                env_actions)
+            with profiling.span("rollout.env"):
+                obs, share, rewards, done, _, avail, score = self.envs.step(
+                    env_actions)
             if not cfg.use_centralized_V:
                 share = obs
             true_delta += int(choose_np.sum())
             c["use_obs"], c["use_share"], c["use_avail"], rewards_t, done_t = \
-                upload(self.device, obs, share, avail, rewards, done)
-            self._stage_outcome(c, seat, choose, rewards_t, done_t > 0)
+                _upload(self.device, obs, share, avail, rewards, done)
+            with profiling.span("rollout.store"):
+                self._stage_outcome(c, seat, choose, rewards_t, done_t > 0)
 
             nd = done & choose_np
             reset_choose |= nd
             done_at[nd] = seat
             scores.extend(score[nd].tolist())
 
-        chose_t, zeroed_t, ended_t = upload(
+        chose_t, zeroed_t, ended_t = _upload(
             self.device, chose, done_at[:, None] < np.arange(M)[None, :],
             done_at < M)
-        self._deferred_critic(train_state, c, rnn_c0, masks0, chose_t > 0,
-                              zeroed_t > 0, ended_t > 0)
+        with profiling.span("rollout.act"):
+            self._deferred_critic(train_state, c, rnn_c0, masks0,
+                                  chose_t > 0, zeroed_t > 0, ended_t > 0)
         return c, {"reset_choose": reset_choose, "scores": scores,
                    "true_delta": true_delta}
 
@@ -364,11 +392,12 @@ class HanabiRunner:
         `reset_choose`, their masks back to 1."""
         if not reset_choose.any():
             return carry
-        obs, share, avail, _ = self.envs.reset(reset_choose)
+        with profiling.span("rollout.env"):
+            obs, share, avail, _ = self.envs.reset(reset_choose)
         if not self.cfg.use_centralized_V:
             share = obs
-        obs, share, avail, rc = upload(self.device, obs, share, avail,
-                                       reset_choose)
+        obs, share, avail, rc = _upload(self.device, obs, share, avail,
+                                        reset_choose)
         rc = rc > 0
         c = dict(carry)
         c["use_obs"] = torch.where(rc[:, None], obs, c["use_obs"])
@@ -398,14 +427,15 @@ class HanabiRunner:
         cfg, N, M = self.cfg, self.N, self.num_agents
         buf = buf_lib.RolloutBuffer(**dbuf)
         flat = lambda x: x.reshape(N * M, *x.shape[2:])
-        next_values = self.algo.get_values(
-            train_state, flat(buf.share_obs[-1]),
-            flat(buf.rnn_states_critic[-1]), flat(buf.masks[-1])
-        ).reshape(N, M, 1)
-        buf = buf.compute_returns(
-            next_values, train_state.vnorm, gamma=cfg.gamma,
-            gae_lambda=cfg.gae_lambda, use_gae=cfg.use_gae,
-            use_proper_time_limits=cfg.use_proper_time_limits)
+        with profiling.span("update.returns"):
+            next_values = self.algo.get_values(
+                train_state, flat(buf.share_obs[-1]),
+                flat(buf.rnn_states_critic[-1]), flat(buf.masks[-1])
+            ).reshape(N, M, 1)
+            buf = buf.compute_returns(
+                next_values, train_state.vnorm, gamma=cfg.gamma,
+                gae_lambda=cfg.gae_lambda, use_gae=cfg.use_gae,
+                use_proper_time_limits=cfg.use_proper_time_limits)
         return self.algo.train(train_state, buf, self.generator)
 
     def _deferred_train(self, train_state, carry: dict, dbuf: dict, phase):
@@ -430,14 +460,14 @@ class HanabiRunner:
         """One episode of device rounds: the first round, then (with
         `do_train`) the deferred training on the previous episode's
         buffer, then the T−1 remaining rounds, each written into `dbuf` (in
-        place). `decks[t]` deals the games that round t resets; `timer` (a
-        `utils.profiling.PhaseTimer`) times the "rollout" and "update"
-        phases. Returns (train_state, carry, dbuf, metrics): the training
+        place). `decks[t]` deals the games that round t resets; `timer` (an
+        object whose `phase(name)` is a context; None: none) marks the
+        "rollout" and "update" phases. Returns (train_state, carry, dbuf, metrics): the training
         metrics and the episode's _score_sum, _score_n and _true_delta, all
         0-dim tensors on the device."""
         T = self.cfg.episode_length
         deck = lambda t: None if decks is None else decks[t]
-        phase = (timer or PhaseTimer()).phase
+        phase = _no_phase if timer is None else timer.phase
         with phase("rollout"):
             carry, aux = self._device_round(train_state, carry, deck(0))
         score_sum, score_n = aux["score_sum"], aux["score_n"]
@@ -447,10 +477,12 @@ class HanabiRunner:
             train_state, metrics = self._deferred_train(train_state, carry,
                                                         dbuf, phase)
         with phase("rollout"):
-            self._write_slot(dbuf, 0, carry, aux["masks_insert"])
+            with profiling.span("rollout.store"):
+                self._write_slot(dbuf, 0, carry, aux["masks_insert"])
             for step in range(1, T):
                 carry, aux = self._device_round(train_state, carry, deck(step))
-                self._write_slot(dbuf, step, carry, aux["masks_insert"])
+                with profiling.span("rollout.store"):
+                    self._write_slot(dbuf, step, carry, aux["masks_insert"])
                 score_sum = score_sum + aux["score_sum"]
                 score_n = score_n + aux["score_n"]
                 true_delta = true_delta + aux["true_delta"]
@@ -464,7 +496,7 @@ class HanabiRunner:
         round, then at step 0 (with `do_train`) the deferred training, the
         choose-insert and the masked reset. As `_device_episode`, but
         _score_sum, _score_n and _true_delta are host numbers."""
-        phase = (timer or PhaseTimer()).phase
+        phase = _no_phase if timer is None else timer.phase
         scores, true_delta, metrics = [], 0, {}
         for step in range(self.cfg.episode_length):
             with phase("rollout"):
@@ -475,7 +507,8 @@ class HanabiRunner:
                 train_state, metrics = self._deferred_train(
                     train_state, carry, dbuf, phase)
             with phase("rollout"):
-                self._write_slot(dbuf, step, carry, carry["masks"])
+                with profiling.span("rollout.store"):
+                    self._write_slot(dbuf, step, carry, carry["masks"])
                 carry = self._host_reset(carry, aux["reset_choose"])
         metrics.update(_score_sum=float(np.sum(scores)), _score_n=len(scores),
                        _true_delta=true_delta)

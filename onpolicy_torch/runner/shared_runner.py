@@ -13,7 +13,9 @@ next episode. `rollout` takes optional per-step injections (the actions
 and the reset states), and `eval_episode` optional initial worlds, so a
 test can hold them in lockstep with another implementation. The host
 loop, checkpoints, eval schedule, `episodes_per_call` and the profiler
-trace are `base_runner.BaseRunner`'s.
+trace are `base_runner.BaseRunner`'s. The rollout's layers are marked
+by `utils.profiling` spans: `rollout.act`, `rollout.env`,
+`rollout.store` and `rollout.returns`.
 
 It trains the shared-policy algorithms rmappo, mappo, ippo and MAT (mat,
 mat_dec; `algorithms/mat.py`). MAT's rollout step goes through
@@ -47,6 +49,7 @@ from onpolicy_torch.algorithms.mappo import MAPPO
 from onpolicy_torch.algorithms.mat import MAT
 from onpolicy_torch.envs.mpe.world import WorldState
 from onpolicy_torch.runner.base_runner import BaseRunner
+from onpolicy_torch.utils import profiling
 from onpolicy_torch.utils import spaces as sp
 
 
@@ -159,36 +162,43 @@ class SharedRunner(BaseRunner):
             inj = inject[t] if inject is not None else {}
             obs = c["obs"]
             share_obs = self._share_obs(obs)
-            actions, logp, rnn_a, values, rnn_c = self._act(
-                train_state, c, share_obs, inj.get("actions"))
+            with profiling.span("rollout.act"):
+                actions, logp, rnn_a, values, rnn_c = self._act(
+                    train_state, c, share_obs, inj.get("actions"))
             actions_env = unflat(actions)
-            env_states, obs2, rewards, dones = self.envs.step(
-                c["env_states"], actions_env, inj.get("reset_states"))
-            staged.append({
-                "share_obs": share_obs, "obs": obs,
-                "rnn_states": c["rnn_actor"],
-                "rnn_states_critic": c["rnn_critic"],
-                "actions": actions_env, "action_log_probs": unflat(logp),
-                "value_preds": values, "rewards": rewards,
-                "masks": c["masks"], "active_masks": torch.ones_like(c["masks"]),
-            })
-            c = {"env_states": env_states, "obs": torch.stack(obs2, 1),
-                 "rnn_actor": unflat(rnn_a), "rnn_critic": rnn_c,
-                 "masks": 1.0 - dones[..., None].float()}
+            with profiling.span("rollout.env"):
+                env_states, obs2, rewards, dones = self.envs.step(
+                    c["env_states"], actions_env, inj.get("reset_states"))
+            with profiling.span("rollout.store"):
+                staged.append({
+                    "share_obs": share_obs, "obs": obs,
+                    "rnn_states": c["rnn_actor"],
+                    "rnn_states_critic": c["rnn_critic"],
+                    "actions": actions_env, "action_log_probs": unflat(logp),
+                    "value_preds": values, "rewards": rewards,
+                    "masks": c["masks"],
+                    "active_masks": torch.ones_like(c["masks"]),
+                })
+                c = {"env_states": env_states, "obs": torch.stack(obs2, 1),
+                     "rnn_actor": unflat(rnn_a), "rnn_critic": rnn_c,
+                     "masks": 1.0 - dones[..., None].float()}
 
-        traj = {k: torch.stack([s[k] for s in staged]) for k in staged[0]}
-        last = {"share_obs": self._share_obs(c["obs"]), "obs": c["obs"],
-                "rnn_states": c["rnn_actor"], "rnn_states_critic": c["rnn_critic"],
-                "masks": c["masks"], "active_masks": torch.ones_like(c["masks"])}
-        traj, last = self._gather_episode(traj, last)
-        buf = buf_lib.from_rollout(traj, last)
-        next_values, _ = self._values(train_state, last["share_obs"],
-                                      last["rnn_states_critic"],
-                                      last["masks"], last["obs"])
-        buf = buf.compute_returns(
-            next_values, train_state.vnorm, gamma=cfg.gamma,
-            gae_lambda=cfg.gae_lambda, use_gae=cfg.use_gae,
-            use_proper_time_limits=cfg.use_proper_time_limits)
+        with profiling.span("rollout.store"):
+            traj = {k: torch.stack([s[k] for s in staged]) for k in staged[0]}
+            last = {"share_obs": self._share_obs(c["obs"]), "obs": c["obs"],
+                    "rnn_states": c["rnn_actor"],
+                    "rnn_states_critic": c["rnn_critic"], "masks": c["masks"],
+                    "active_masks": torch.ones_like(c["masks"])}
+            traj, last = self._gather_episode(traj, last)
+            buf = buf_lib.from_rollout(traj, last)
+        with profiling.span("rollout.returns"):
+            next_values, _ = self._values(train_state, last["share_obs"],
+                                          last["rnn_states_critic"],
+                                          last["masks"], last["obs"])
+            buf = buf.compute_returns(
+                next_values, train_state.vnorm, gamma=cfg.gamma,
+                gae_lambda=cfg.gae_lambda, use_gae=cfg.use_gae,
+                use_proper_time_limits=cfg.use_proper_time_limits)
         return c, buf
 
     def episode(self, train_state, carry):

@@ -50,12 +50,12 @@ import contextlib
 import json
 import subprocess
 import sys
+import time
 
 import torch
 
 from onpolicy_torch.scripts import train_football, train_hanabi, train_smac
 from onpolicy_torch.scripts.train_mpe import CONFIGS
-from onpolicy_torch.utils.profiling import PhaseTimer
 
 # the GRU kernels: every forward kernel (gru_fwd_kernel, its _mma twin,
 # the wide variant's step kernel gru_fwd_wide_step) and every backward
@@ -75,19 +75,32 @@ def _is_kernel(ev) -> bool:
     return str(getattr(ev, "device_type", "")).endswith("CUDA")
 
 
-class _CardTimer(PhaseTimer):
-    """A PhaseTimer whose phases start and end with the card's queue
-    drained, so each phase holds its own device work."""
+class _CardTimer:
+    """Host ms per named phase, each phase starting and ending with the
+    card's queue drained, so it holds its own device work."""
+
+    def __init__(self):
+        self._ms = {}
 
     @contextlib.contextmanager
     def phase(self, name):
         torch.cuda.synchronize()
-        with super().phase(name):
-            yield
-            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        yield
+        torch.cuda.synchronize()
+        self._ms[name] = (self._ms.get(name, 0.0)
+                          + (time.perf_counter() - t0) * 1e3)
 
     def milliseconds(self, name) -> float:
-        return self._acc.get(name, 0.0) * 1e3
+        return self._ms.get(name, 0.0)
+
+
+class _NoTimer:
+    """Phases that are not timed."""
+
+    @staticmethod
+    def phase(name):
+        return contextlib.nullcontext()
 
 
 def _shared_episodes(config):
@@ -202,7 +215,7 @@ def main(argv=None):
     cfg, episode = make(args.config)
     try:
         for _ in range(args.warmup):
-            episode(PhaseTimer())
+            episode(_NoTimer)
         torch.cuda.synchronize()
 
         rollout_ms, update_ms = [], []
@@ -215,7 +228,7 @@ def main(argv=None):
         acts = [torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as prof:
-            episode(PhaseTimer())
+            episode(_NoTimer)
             torch.cuda.synchronize()
     finally:
         getattr(episode, "close", lambda: None)()
