@@ -122,7 +122,10 @@ class HanabiGame:
 @functools.lru_cache(maxsize=None)
 def _tables(game: HanabiGame, device: torch.device) -> dict:
     """The game's constant tensors on `device`: move tables, the base
-    deck, and the index tables of the discards section of `encode`."""
+    deck, and the index tables of `encode` (discards section, last move's
+    type). The step and observation chains read their constants only
+    from here, so that they copy nothing from the host (a CUDA graph
+    captures them)."""
     mtype, slot, target, color, rank = (
         torch.as_tensor(t, dtype=torch.long, device=device)
         for t in game.move_tables())
@@ -135,7 +138,10 @@ def _tables(game: HanabiGame, device: torch.device) -> dict:
             "rank": rank,
             "base_deck": torch.as_tensor(game.base_deck(), device=device),
             "disc_c": as_long(dc), "disc_r": as_long(dr), "disc_j": as_long(dj),
-            "rank_counts": as_long(RANK_COUNTS[:game.ranks]).int()}
+            "rank_counts": as_long(RANK_COUNTS[:game.ranks]).int(),
+            # the encoder's one-hot position of each move-type code:
+            # play, discard, reveal-color, reveal-rank
+            "type_order": as_long([1, 0, 2, 3])}
 
 
 @dataclass
@@ -498,11 +504,9 @@ def encode(game: HanabiGame, s: HanabiState, player: torch.Tensor
     # --- last action ---
     rel = lambda a: torch.where(a >= 0, (a.long() - player + P) % P, -1)
     parts.append(_one_hot_or_zero(rel(s.last_acting), P))
-    # one-hot order play, discard, reveal-color, reveal-rank
-    order = torch.as_tensor([1, 0, 2, 3], device=dev)
     lt = s.last_type.long()
-    type_pos = torch.where((lt >= 0) & (lt <= 3), order[torch.clamp(lt, 0, 3)],
-                           -1)
+    type_pos = torch.where((lt >= 0) & (lt <= 3),
+                           t["type_order"][torch.clamp(lt, 0, 3)], -1)
     parts.append(_one_hot_or_zero(type_pos, 4))
     parts.append(_one_hot_or_zero(rel(s.last_target), P))
     parts.append(_one_hot_or_zero(s.last_color, C))

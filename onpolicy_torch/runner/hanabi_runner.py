@@ -311,10 +311,8 @@ class HanabiRunner:
 
         masks_insert = c["masks"]
         with profiling.span("rollout.env"):
-            c["env_states"] = self.envs.masked_reset(c["env_states"],
-                                                     reset_choose, decks)
-            fresh_obs, fresh_share, fresh_avail, _, _, _ = self.envs.observe(
-                c["env_states"])
+            (c["env_states"], fresh_obs, fresh_share, fresh_avail, _, _,
+             _) = self.envs.reset_observe(c["env_states"], reset_choose, decks)
         if not cfg.use_centralized_V:
             fresh_share = fresh_obs
         rc1 = reset_choose[:, None]
