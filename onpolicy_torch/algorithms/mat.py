@@ -15,7 +15,8 @@ only under `use_valuenorm` (JAX `mat.py:75, 121`), whatever `use_popart`
 says. Box action spaces decode with the transformer's gaussian head; their
 log-probs and entropies are per action dimension. Over a data mesh
 (`mesh`) each rank trains on its share of every minibatch's env steps
-and the gradients are summed, as in `algorithms/mappo.py`.
+and the gradients are summed, as in `algorithms/mappo.py`, whose
+`update.*` profiling spans `train` and `_update` share.
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ from onpolicy_torch.models import transformer as tfm
 from onpolicy_torch.ops import losses, schedules, valuenorm as vn
 from onpolicy_torch.parallel import distributed
 from onpolicy_torch.parallel import mesh as mesh_lib
+from onpolicy_torch.utils import profiling
 from onpolicy_torch.utils import spaces as sp
 from onpolicy_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -157,24 +159,28 @@ class MAT:
                        "dist_entropy": ent, "ratio": ratio}
 
     def _update(self, state: MATTrainState, mb: dict):
-        vnorm = state.vnorm
-        if self.cfg.use_valuenorm:
-            vnorm = vn.update(vnorm, mb["returns"].reshape(-1, 1))
-        params = tree_map(lambda x: x.detach().requires_grad_(True),
-                          self.shards.params(state)["params"])
-        leaves = tree_leaves(params)
-        with torch.enable_grad(), distributed.global_batch(self.mesh):
-            total, aux = self._loss(params, vnorm,
-                                    distributed.share_rows(mb, self.mesh,
-                                                           False))
+        with profiling.span("update.forward", device=True):
+            vnorm = state.vnorm
+            if self.cfg.use_valuenorm:
+                vnorm = vn.update(vnorm, mb["returns"].reshape(-1, 1))
+            params = tree_map(lambda x: x.detach().requires_grad_(True),
+                              self.shards.params(state)["params"])
+            leaves = tree_leaves(params)
+            with torch.enable_grad(), distributed.global_batch(self.mesh):
+                total, aux = self._loss(params, vnorm,
+                                        distributed.share_rows(mb, self.mesh,
+                                                               False))
+        with profiling.span("update.backward", device=True), \
+                torch.enable_grad():
             grads = torch.autograd.grad(total, leaves, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for g, p in zip(grads, leaves)]
+            grads = [torch.zeros_like(p) if g is None else g
+                     for g, p in zip(grads, leaves)]
         grads, aux = distributed.sum_over_ranks(grads, aux, self.mesh)
-        aux["grad_norm"] = losses.global_grad_norm(grads)
-        new_params, opt_state = self.tx.update(
-            tree_unflatten(params, grads), state.opt_state, state.params,
-            self.shards.cut_grads("params"))
+        with profiling.span("update.optimizer", device=True):
+            aux["grad_norm"] = losses.global_grad_norm(grads)
+            new_params, opt_state = self.tx.update(
+                tree_unflatten(params, grads), state.opt_state, state.params,
+                self.shards.cut_grads("params"))
         return state.replace(params=new_params, opt_state=opt_state,
                              vnorm=vnorm), aux
 
@@ -187,12 +193,17 @@ class MAT:
         steps from `generator`, or takes `perms[epoch]`. Metrics are 0-dim
         tensors, means over all updates."""
         cfg = self.cfg
-        adv = losses.normalize_advantages(
-            buf.advantages,
-            buf.active_masks[:-1] if cfg.use_policy_active_masks else None)
-        sample = lambda epoch: buf_lib.transformer_minibatches(
-            buf, adv, generator, cfg.num_mini_batch,
-            None if perms is None else perms[epoch])
+
+        def sample(epoch):
+            with profiling.span("update.minibatch"):
+                return buf_lib.transformer_minibatches(
+                    buf, adv, generator, cfg.num_mini_batch,
+                    None if perms is None else perms[epoch])
+
+        with profiling.span("update.minibatch"):
+            adv = losses.normalize_advantages(
+                buf.advantages, buf.active_masks[:-1]
+                if cfg.use_policy_active_masks else None)
         # one minibatch is permutation-free: build it once for all epochs
         mbs = sample(0) if cfg.num_mini_batch == 1 else None
         history = []

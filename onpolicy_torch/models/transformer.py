@@ -24,7 +24,9 @@ bias.
 Decoding: `autoregressive_act` loops over the agents (rollout; each
 agent's one-hot, or for Box actions its continuous action, feeds the next
 slot), `parallel_act` teacher-forces the shifted actions in one decoder
-pass (training). Attention is plain PyTorch, as the JAX package computes
+pass (training). While `torch.profiler` records, the agent loop is the
+device span `act.decode` (`utils/profiling.py`; the draws inside it) and
+every decoder pass adds 1 to the counter `mat_decode_passes`. Attention is plain PyTorch, as the JAX package computes
 it in plain jnp.
 
 Box actions (JAX `transformer.py:136, 287-294, 340`): the decoder gives
@@ -42,6 +44,7 @@ import torch.nn.functional as F
 
 from onpolicy_torch.models import common as cm
 from onpolicy_torch.ops import distributions as D
+from onpolicy_torch.utils import profiling
 
 GAIN = 0.01
 
@@ -222,6 +225,7 @@ def mat_init(mcfg: MATConfig, obs_dim, generator: torch.Generator, device,
 
 
 def _decode(mcfg, params, shifted, obs_rep, obs):
+    profiling.count("mat_decode_passes")
     return decoder_apply(params["decoder"], shifted, obs_rep, obs,
                          mcfg.n_head, mcfg.dec_actor, mcfg.share_actor)
 
@@ -249,33 +253,35 @@ def autoregressive_act(mcfg: MATConfig, params, obs,
     else:
         std = torch.sigmoid(params["decoder"]["log_std"]) * 0.5
     acts, lps = [], []
-    for i in range(M):
-        out = _decode(mcfg, params, shifted, obs_rep, obs)[:, i]
-        if discrete:
-            dist = D.Categorical.create(
-                out, None if available_actions is None
-                else available_actions[:, i])
-            if actions is not None:
-                a = actions[:, i].long()
+    with profiling.span("act.decode", device=True):
+        for i in range(M):
+            out = _decode(mcfg, params, shifted, obs_rep, obs)[:, i]
+            if discrete:
+                dist = D.Categorical.create(
+                    out, None if available_actions is None
+                    else available_actions[:, i])
+                if actions is not None:
+                    a = actions[:, i].long()
+                else:
+                    a = dist.mode() if deterministic \
+                        else dist.sample(generator)
+                lps.append(dist.log_prob(a))
+                slot = F.one_hot(a[:, 0], A).float()
             else:
-                a = dist.mode() if deterministic else dist.sample(generator)
-            lps.append(dist.log_prob(a))
-            slot = F.one_hot(a[:, 0], A).float()
-        else:
-            if actions is not None:
-                a = actions[:, i]
-            elif deterministic:
-                a = out
-            else:
-                dist = D.DiagGaussian(out, std.log().expand_as(out))
-                a = dist.sample(generator,
-                                None if noise is None else noise[:, i])
-            lps.append(_box_log_prob(a, out, std))
-            slot = a
-        acts.append(a.float())
-        if i + 1 < M:
-            shifted = shifted.clone()
-            shifted[:, i + 1, 1 if discrete else 0:] = slot
+                if actions is not None:
+                    a = actions[:, i]
+                elif deterministic:
+                    a = out
+                else:
+                    dist = D.DiagGaussian(out, std.log().expand_as(out))
+                    a = dist.sample(generator,
+                                    None if noise is None else noise[:, i])
+                lps.append(_box_log_prob(a, out, std))
+                slot = a
+            acts.append(a.float())
+            if i + 1 < M:
+                shifted = shifted.clone()
+                shifted[:, i + 1, 1 if discrete else 0:] = slot
     return torch.stack(acts, 1), torch.stack(lps, 1), v_loc
 
 

@@ -223,7 +223,7 @@ def share_rows(mb: dict, mesh, sequences: bool) -> dict:
 def sum_over_ranks(grads: list, aux: dict, mesh):
     """The gradients and the loss terms (each rank's part) summed over the
     ranks in one all-reduce; → (grads, aux detached)."""
-    with profiling.span("update.allreduce"):
+    with profiling.span("update.allreduce", device=True):
         aux = {k: v.detach() for k, v in aux.items()}
         if mesh is None:
             return grads, aux

@@ -140,12 +140,13 @@ class BaseRunner:
     def _gather_episode(self, traj: dict, last: dict):
         """This rank's staged steps [T, N, ...] and last slot [N, ...] →
         the whole episode's, every rank's envs in rank order (one
-        collective)."""
+        collective: the device span `rollout.gather`)."""
         if self.mesh is None:
             return traj, last
         both = {**{("t", k): v for k, v in traj.items()},
                 **{("l", k): v[None] for k, v in last.items()}}
-        out = distributed.gather_rows(both, 1, self.mesh)
+        with profiling.span("rollout.gather", device=True):
+            out = distributed.gather_rows(both, 1, self.mesh)
         return ({k: out["t", k] for k in traj},
                 {k: out["l", k][0] for k in last})
 

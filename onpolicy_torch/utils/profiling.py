@@ -6,8 +6,9 @@ card, the device around a chosen stretch of training (a Chrome trace,
 viewable in Perfetto or chrome://tracing).
 
 `span(name)` marks a layer of the program (the runners' act, env step,
-host copies and buffer writes; the update's minibatch gather, forward,
-backward, all-reduce and optimizer) and `count(name, n)` adds to a named
+host copies, buffer writes and the episode's gather over ranks; MAT's
+autoregressive decode; the update's minibatch gather, forward, backward,
+all-reduce and optimizer) and `count(name, n)` adds to a named
 counter. Both do something only while `torch.profiler` records; else a
 span is one flag test and a shared no-op context. While it records, a
 span opens a `record_function` of its name, which the profiler's timeline

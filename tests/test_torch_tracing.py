@@ -7,9 +7,15 @@ on the CPU.
 * On, under `torch.profiler`: records nest, counters add, `take` clears,
   and a span's times lie on the clock of the profiler's own events.
 * The sites: a small MPE rollout and update record every `rollout.*` and
-  `update.*` span they pass; a Hanabi device round records its env step;
-  a C++-engine host episode records its copies and counts each one.
+  `update.*` span they pass, under MAT too, whose decode records
+  `act.decode` and counts its decoder passes; two gloo ranks record the
+  episode's gather and the gradients' all-reduce; a Hanabi device round
+  records its env step; a C++-engine host episode records its copies and
+  counts each one.
 """
+import multiprocessing as mp
+import queue
+
 import numpy as np
 import pytest
 import torch
@@ -127,6 +133,78 @@ def test_mpe_rollout_and_update_record_their_spans():
     assert count("update.forward") == count("update.optimizer") == 2
     assert all(s.parent == -1 for s in log["spans"])
     assert log["counters"] == {}
+
+
+MAT = ["--algorithm_name", "mat", "--scenario_name", "simple_spread",
+       "--num_agents", "3", "--num_landmarks", "3", "--n_rollout_threads", "2",
+       "--episode_length", "10", "--num_env_steps", "20", "--n_embd", "8",
+       "--ppo_epoch", "2", "--num_mini_batch", "2", "--device", "cpu"]
+
+
+def test_mat_rollout_and_update_record_their_spans_and_decoder_passes():
+    runner = SharedRunner(config_from_args(MAT))
+    state, carry = runner.init()
+    carry, buf = runner.rollout(state, carry)
+    runner.algo.train(state, buf, runner.generator)
+    assert profiling.take() == {"spans": [], "counters": {}}
+    with _profile():
+        carry, buf = runner.rollout(state, carry)
+        runner.algo.train(state, buf, runner.generator)
+    log = profiling.take()
+    assert _names(log) == {
+        "rollout.act", "act.decode", "rollout.env", "rollout.store",
+        "rollout.returns", "update.minibatch", "update.forward",
+        "update.backward", "update.allreduce", "update.optimizer"}
+    spans = log["spans"]
+    count = lambda name: sum(s.name == name for s in spans)
+    assert count("act.decode") == count("rollout.act") == 10
+    assert all(spans[s.parent].name == "rollout.act"
+               for s in spans if s.name == "act.decode")
+    # 2 epochs x 2 minibatches; the advantages, then each epoch's draw
+    assert count("update.forward") == count("update.optimizer") == 4
+    assert count("update.minibatch") == 1 + 2
+    # T x M autoregressive passes, one teacher-forced pass an update
+    assert log["counters"] == {"mat_decode_passes": 10 * 3 + 2 * 2}
+
+
+def _traced_rank(rank, store, out):
+    """One of two gloo ranks: a traced MPE rollout and update over the
+    (2,) mesh -> (rank, its spans' names and parents' names)."""
+    from onpolicy_torch.parallel import distributed
+    torch.set_num_threads(1)
+    distributed.initialize(rank, 2, rank, 2, "gloo", "cpu",
+                           store=torch.distributed.FileStore(store, 2))
+    runner = SharedRunner(config_from_args(MPE + ["--mesh_shape", "2"]))
+    state, carry = runner.init()
+    with _profile():
+        carry, buf = runner.rollout(state, carry)
+        runner.algo.train(state, buf, runner.generator)
+    spans = profiling.take()["spans"]
+    distributed.shutdown()
+    out.put((rank, [(s.name, spans[s.parent].name if s.parent >= 0
+                     else None) for s in spans]))
+
+
+def test_two_ranks_record_the_gather_and_the_allreduce(tmp_path):
+    spawn = mp.get_context("spawn")
+    out = spawn.Queue()
+    procs = [spawn.Process(target=_traced_rank, daemon=True,
+                           args=(r, str(tmp_path / "store"), out))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    try:
+        got = dict(out.get(timeout=240) for _ in procs)
+    except queue.Empty:
+        got = {}
+    for p in procs:
+        p.join(30)
+        if p.is_alive():
+            p.kill()
+    assert set(got) == {0, 1}
+    for spans in got.values():
+        assert spans.count(("rollout.gather", "rollout.store")) == 1
+        assert spans.count(("update.allreduce", None)) == 2
 
 
 def test_hanabi_device_round_records_its_env_step():
