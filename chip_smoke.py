@@ -59,7 +59,13 @@ Phases, each of which fails the run (non-zero exit) if it fails:
               each held against the plain version and timed in turns
               (old, wide, wide, old), with each wide kernel's device ms;
               then the SMAC shape T=10 B=2,560 H=64 in f32, and the
-              data-parallel ranks' T=10 B=480 and B=128.
+              data-parallel ranks' T=10 B=480 and B=128. Then the
+              LayerNorm kernels (csrc/layer_norm.cu, built on first use)
+              at `LN_SHAPES`, each held to its plain twin (y, the saved
+              mean and rstd, dx; dscale and dbias to float64 sums) and
+              timed beside its bytes bound, the twins, the decomposed
+              form the port ran before them and `F.layer_norm`
+              (yardstick only).
   5. train:   one episode at 8 rollout threads on the card against the
               CPU path from the same state (rMAPPO in f32, rMAPPO and
               MAPPO with the critic dedup in bf16 and in f32, HAPPO with
@@ -100,7 +106,10 @@ Phases, each of which fails the run (non-zero exit) if it fails:
               the C++ engine), the flagship with PopArt for 3 and
               `world_comm` (the flagship's flags on simple_world_comm,
               separated policies) for 5. Each run's kernel launches are asserted
-              (derived beside `TRAIN_RUNS`), and the wide forward's step
+              (derived beside `TRAIN_RUNS`; an f32 run must launch the
+              LayerNorm kernels both ways, and the `kernels` line's
+              LayerNorm rows carry each run's and rank's counts), and
+              the wide forward's step
               launches (T a forward) where it runs; every parameter on
               the card; every logged metric finite; env-steps/s printed
               for each. Last, `profile_episode.py --config
@@ -1306,6 +1315,127 @@ def time_shape(torch, cg, shape, card, stream_dtype=None):
     return res
 
 
+# phase 4's LayerNorm shapes (rows, width): t16k's feature, hidden and GRU
+# norms and MAT's embedding width over its 1,228,800 update rows; f1000's
+# hidden width and its actor and critic feature widths over 200,000 rows;
+# MAT's decode at act time (49,152 slots)
+LN_SHAPES = ((1_228_800, 18), (1_228_800, 54), (1_228_800, 64),
+             (200_000, 512), (200_000, 660), (200_000, 785), (49_152, 64))
+
+
+def ln_bounds_ms(N, D):
+    """Least times in ms at 3.35 TB/s: the forward reads x and writes y,
+    the backward reads x, dy and scale and writes dx (f32)."""
+    return (8 * N * D / HBM_BYTES_S * 1e3,
+            (12 * N * D + 4 * D) / HBM_BYTES_S * 1e3)
+
+
+def ln_param_grads_err(torch, got, x, dy, mean, rstd):
+    """The larger error of the kernels' dscale and dbias against float64
+    sums of the same terms (over x's normalised by the kernel's mean and
+    rstd), each as a share of its limit: 1e-6 of the sum of the terms'
+    magnitudes, the f32 rounding of sums of that many terms (as
+    tests/test_torch_layer_norm.py holds them)."""
+    D = x.shape[-1]
+    xh = ((x.double() - mean.double()[..., None])
+          * rstd.double()[..., None]).reshape(-1, D)
+    d = dy.double().reshape(-1, D)
+    share = 0.0
+    for g, terms in zip(got, (d * xh, d)):
+        err = float((g.double() - terms.sum(0)).abs().max())
+        share = max(share, err / (1e-6 * float(terms.abs().sum(0).max())))
+    return share
+
+
+def time_layer_norm(torch, card):
+    """The LayerNorm kernels (`ops/cuda_layer_norm.py`) at `LN_SHAPES`:
+    each held to its plain twin (y, the saved mean and rstd, and dx against
+    the twin's backward on the twin's own statistics; dscale and dbias
+    against float64 sums, `ln_param_grads_err`), then CUDA-event ms and
+    device ms of the forward and the backward (with its reduction), beside
+    the bytes bound, the plain twins' ms, the decomposed form's (the port's
+    LayerNorm before the kernels: forward, and autograd's backward) and
+    `F.layer_norm`'s (yardstick only, never called by the port). Returns
+    the `kernels` line's rows."""
+    import torch.nn.functional as F
+    from onpolicy_torch.models import common as cm
+    from onpolicy_torch.ops import cuda_layer_norm as cln
+    rows = []
+    eps = cm.LN_EPS
+    for N, D in LN_SHAPES:
+        g = torch.Generator(device="cuda").manual_seed(N + D)
+        x = torch.randn(N, D, device="cuda", generator=g) * 1.5 + 0.5
+        dy = torch.randn(N, D, device="cuda", generator=g)
+        scale = 1.0 + 0.3 * torch.randn(D, device="cuda", generator=g)
+        bias = 0.1 * torch.randn(D, device="cuda", generator=g)
+        y, mean, rstd = cln.layer_norm_fwd(x, scale, bias, eps)
+        ry, rmean, rrstd = cln.layer_norm_fwd_ref(x, scale, bias, eps)
+        dx, ds, db = cln.layer_norm_bwd(x, scale, dy, mean, rstd)
+        rdx, rds, rdb = cln.layer_norm_bwd_ref(x, scale, dy, rmean, rrstd)
+        errs = {"fwd": max(max_err(y, ry), max_err(mean, rmean),
+                           max_err(rstd, rrstd)),
+                "bwd": max(max_err(dx, rdx),
+                           max_err(ds, rds, float(rds.abs().max())),
+                           max_err(db, rdb, float(rdb.abs().max())))}
+        at = f"N={N} D={D}"
+        assert_close(torch, f"layernorm y {at}", y, ry, 1e-5, 1e-5)
+        assert_close(torch, f"layernorm mean {at}", mean, rmean, 1e-5, 1e-5)
+        assert_close(torch, f"layernorm rstd {at}", rstd, rrstd, 1e-5, 1e-5)
+        assert_close(torch, f"layernorm dx {at}", dx, rdx, 1e-4, 1e-5)
+        share = ln_param_grads_err(torch, (ds, db), x, dy, mean, rstd)
+        if share > 1.0:
+            raise AssertionError(f"layernorm dscale / dbias {at}: {share:.3f}"
+                                 " of the limit from float64 sums")
+        fwd = lambda: cln.layer_norm_fwd(x, scale, bias, eps)
+        bwd = lambda: cln.layer_norm_bwd(x, scale, dy, mean, rstd)
+        xs = [t.detach().requires_grad_(True) for t in (x, scale, bias)]
+        with torch.no_grad():
+            lib_fwd = time_ms(torch, lambda: F.layer_norm(x, (D,), scale, bias,
+                                                          eps))
+        ly = F.layer_norm(xs[0], (D,), xs[1], xs[2], eps)
+        lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
+            ly, xs, dy, retain_graph=True))
+        p = {"scale": xs[1], "bias": xs[2]}
+        decomposed = lambda: cm.layer_norm_apply(p, xs[0])
+        real_rule = cln.served_by_kernels
+        cln.served_by_kernels = lambda device, dtype: False
+        try:
+            with torch.no_grad():
+                dec_fwd = time_ms(torch, decomposed, iters=5)
+            dy_ = decomposed()
+            dec_bwd = time_ms(torch, lambda: torch.autograd.grad(
+                dy_, xs, dy, retain_graph=True), iters=5)
+        finally:
+            cln.served_by_kernels = real_rule
+        bound = dict(zip(("fwd", "bwd"), ln_bounds_ms(N, D)))
+        times = {
+            "fwd": (time_ms(torch, fwd), device_ms(torch, fwd, ("ln_fwd",)),
+                    time_ms(torch, lambda: cln.layer_norm_fwd_ref(
+                        x, scale, bias, eps), iters=5), lib_fwd, dec_fwd),
+            "bwd": (time_ms(torch, bwd), device_ms(torch, bwd, ("ln_bwd",)),
+                    time_ms(torch, lambda: cln.layer_norm_bwd_ref(
+                        x, scale, dy, mean, rstd), iters=5), lib_bwd, dec_bwd)}
+        pl = cln.plan(D)
+        for d, name in (("fwd", "ln_fwd"), ("bwd", "ln_bwd")):
+            ms, dev, plain, lib, dec = times[d]
+            rows.append({
+                "name": name, "route": "cuda",
+                "source": "onpolicy_torch/csrc/layer_norm.cu",
+                "replaces": "decomposed ops (models/common.layer_norm_apply);"
+                            " no TPU kernel",
+                "streams": "f32", "shape": {"N": N, "D": D},
+                "variant": f"{pl.name} L={pl.lanes} V={pl.vec} C={pl.chunks}",
+                "max_abs_err": errs[d], "ms": ms, "device_ms": dev,
+                "plain_ms": plain, "decomposed_ms": dec,
+                "bound_ms": bound[d], "bound_by": "bytes",
+                "library_ms": lib})
+            if d == "bwd":
+                rows[-1]["param_grads_of_limit"] = share
+            log(f"  layernorm {d} N={N} D={D} [{card}]: "
+                + json.dumps(rows[-1]))
+    return rows
+
+
 def compare_forwards(torch, cg, shape, card):
     """The CUDA-core forward against the one the shape takes (the
     tensor-core one at H=64, the wide one at H=512) on the same inputs,
@@ -1786,9 +1916,12 @@ def check_host_against_cpu(torch, cg, name, config, episode_length=40,
 def train_main_path(torch, cg, name, script, config, extra, episodes,
                     fwd_per_episode, bwd_per_episode, evaluate=False):
     """`scripts/<script>.main` with its `CONFIGS[config]` and the `extra`
-    flags for `episodes` episodes, the launch counts set to 0 just before
-    and read just after. Every logged metric must be finite, and each GRU
-    kernel launched its given count a trained episode: every episode of
+    flags for `episodes` episodes, the launch counts (GRU and LayerNorm)
+    set to 0 just before and read just after. Every logged metric must be
+    finite; a run in f32 (no `--use_bf16`) must have launched the LayerNorm
+    kernels both ways (every model's LayerNorms run there; under bf16 they
+    keep the decomposed ops); and each GRU kernel launched its given count
+    a trained episode: every episode of
     train_mpe (an eval logged each episode with `--use_eval`), all but the
     first of train_hanabi (training is deferred one episode, and the first
     is not logged). Where the forward is the wide one it launches its step
@@ -1797,8 +1930,10 @@ def train_main_path(torch, cg, name, script, config, extra, episodes,
     run saved is evaluated by `scripts/eval_hanabi.main` with
     scripts/eval_hanabi_forward.sh's flags (the C++ engine) over 8 games.
     Returns (fwd launches, bwd launches, env-steps/s over the run,
-    env-steps/s of the last episode)."""
+    env-steps/s of the last episode, LayerNorm launches {"fwd", "bwd"})."""
     import importlib
+
+    from onpolicy_torch.ops import cuda_layer_norm as cln
     module = importlib.import_module(f"onpolicy_torch.scripts.{script}")
     hanabi = script == "train_hanabi"
     argv = module.CONFIGS[config] + list(extra) + [
@@ -1814,11 +1949,14 @@ def train_main_path(torch, cg, name, script, config, extra, episodes,
         cg.BWD_LAUNCHES = 0
         cg.FWD_STEP_LAUNCHES = 0
         cg.WIDE_LAUNCHES = dict.fromkeys(cg.WIDE_LAUNCHES, 0)
+        cln.FWD_LAUNCHES = 0
+        cln.BWD_LAUNCHES = 0
         t0 = time.perf_counter()
         state, history = module.main(argv)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         fwd, bwd = cg.FWD_LAUNCHES, cg.BWD_LAUNCHES
+        ln = {"fwd": cln.FWD_LAUNCHES, "bwd": cln.BWD_LAUNCHES}
         fwd_steps = cg.FWD_STEP_LAUNCHES
         pieces = dict(cg.WIDE_LAUNCHES)
         if evaluate:
@@ -1867,6 +2005,10 @@ def train_main_path(torch, cg, name, script, config, extra, episodes,
             if isinstance(v, float) and not math.isfinite(v):
                 raise AssertionError(f"{name} episode {r['episode']}: "
                                      f"{k}={v}")
+    if "--use_bf16" not in argv and not (ln["fwd"] and ln["bwd"]):
+        raise AssertionError(f"{name}: an f32 run on the card launched the "
+                             f"LayerNorm kernels fwd {ln['fwd']} bwd "
+                             f"{ln['bwd']}")
     want = (fwd_per_episode * trained, bwd_per_episode * trained)
     if (fwd, bwd) != want:
         raise AssertionError(f"{name}: launches fwd={fwd} bwd={bwd}, "
@@ -1900,6 +2042,7 @@ def train_main_path(torch, cg, name, script, config, extra, episodes,
                 f"{[round(r[reward], 4) for r in history]}")
     log(f"  {name}: {threads} threads, {episodes} episodes, wall "
         f"{wall:.2f} s, launches fwd {fwd} bwd {bwd}"
+        + f", LayerNorm launches fwd {ln['fwd']} bwd {ln['bwd']}"
         + (f" (wide pieces {pieces}, wide forward steps {fwd_steps})"
            if any(pieces.values()) else "")
         + ", env-steps/s "
@@ -1907,7 +2050,7 @@ def train_main_path(torch, cg, name, script, config, extra, episodes,
         + (f"{last_rate:.1f} in the last episode, " if last_rate else "")
         + f"mean {reward} {mean_rew:.4f}"
         + (f", eval returns {evals}" if evals else "") + more)
-    return fwd, bwd, history[-1]["fps"], last_rate
+    return fwd, bwd, history[-1]["fps"], last_rate, ln
 
 
 # ---------------------------------------------------------------------------
@@ -1917,9 +2060,10 @@ def train_main_path(torch, cg, name, script, config, extra, episodes,
 def dp_rank_main(out_dir, script, argv) -> int:
     """One rank of phase 6 (`chip_smoke.py --dp-rank OUT SCRIPT -- ARGV`,
     under torchrun or alone): `scripts/<script>.main(ARGV)` with the GRU
-    launch counts from 0; writes OUT/rank<r>.pt with the rank, the world
-    size, the backend, its launches (the wide forward's steps and the
-    wide backward's pieces too), its logged rows and its trained
+    and LayerNorm launch counts from 0; writes OUT/rank<r>.pt with the
+    rank, the world size, the backend, its launches (the wide forward's
+    steps and the wide backward's pieces too; the LayerNorm kernels'
+    `ln_fwd`, `ln_bwd`), its logged rows and its trained
     parameters, which must lie on the device ARGV names. On a model axis
     the parameters are the kept blocks gathered after the run (on every
     rank), and the record adds the kept parameter and moment leaves, the
@@ -1931,6 +2075,7 @@ def dp_rank_main(out_dir, script, argv) -> int:
     import torch
     sys.path.insert(0, str(ROOT))
     from onpolicy_torch.ops import cuda_gru as cg
+    from onpolicy_torch.ops import cuda_layer_norm as cln
     from onpolicy_torch.parallel import distributed
     from onpolicy_torch.parallel import mesh as mesh_lib
     from onpolicy_torch.utils.tree import tree_leaves
@@ -1964,13 +2109,16 @@ def dp_rank_main(out_dir, script, argv) -> int:
     cg.BWD_LAUNCHES = 0
     cg.FWD_STEP_LAUNCHES = 0
     cg.WIDE_LAUNCHES = dict.fromkeys(cg.WIDE_LAUNCHES, 0)
+    cln.FWD_LAUNCHES = 0
+    cln.BWD_LAUNCHES = 0
     t0 = time.perf_counter()
     state, history = module.main(argv)
     sync()
     wall = time.perf_counter() - t0
     launches = {"fwd": cg.FWD_LAUNCHES, "bwd": cg.BWD_LAUNCHES,
                 "fwd_steps": cg.FWD_STEP_LAUNCHES,
-                "wide": dict(cg.WIDE_LAUNCHES), "gathers": dict(gathers)}
+                "wide": dict(cg.WIDE_LAUNCHES), "gathers": dict(gathers),
+                "ln_fwd": cln.FWD_LAUNCHES, "ln_bwd": cln.BWD_LAUNCHES}
     states = state if isinstance(state, tuple) else (state,)
     trainers = trainers[-len(states):]
     kept = {}
@@ -2176,14 +2324,19 @@ def check_model_axis(torch, label, ranks, M):
     return len(sharded), len(first["dims"]), share
 
 
-def check_launches(label, ranks, want):
+def check_launches(label, ranks, want, on_card):
     """Every rank's launch counts (`fwd`, `bwd`, `fwd_steps`, `wide`) as
-    `want` gives them."""
+    `want` gives them; on the card (every run here is f32) each rank
+    launched the LayerNorm kernels both ways."""
     for r in ranks:
         got = {k: r[k] for k in want}
         if got != want:
             raise AssertionError(f"{label} rank {r['rank']}: launches {got}, "
                                  f"want {want}")
+        if on_card and not (r["ln_fwd"] and r["ln_bwd"]):
+            raise AssertionError(f"{label} rank {r['rank']}: LayerNorm "
+                                 f"launches fwd {r['ln_fwd']} bwd "
+                                 f"{r['ln_bwd']}")
 
 
 def data_parallel_phase(torch, card, device="cuda"):
@@ -2299,7 +2452,7 @@ def data_parallel_phase(torch, card, device="cuda"):
         per = lambda n: n * episodes if on_card else 0
         flat_launches = {"fwd": per(20), "bwd": per(20), "fwd_steps": 0,
                          "wide": dict.fromkeys(("gates", "carry", "dw"), 0)}
-        check_launches("(a)", g2, flat_launches)
+        check_launches("(a)", g2, flat_launches, on_card)
         rate = g2[0]["rows"][-1]["fps"]
         log(f"  (a) train_mpe flagship, torchrun 2 ranks gloo on one card "
             f"(64 threads a rank): parameters {err:.2e} (checkpoint "
@@ -2319,7 +2472,7 @@ def data_parallel_phase(torch, card, device="cuda"):
             raise AssertionError(f"(c): parameters {serr:.3e} of their norm")
         sworst = check_rows("(c)", s2[0]["rows"], s1["rows"])
         smac_launches = {"fwd": per(10), "bwd": per(10)}
-        check_launches("(c)", s2, smac_launches)
+        check_launches("(c)", s2, smac_launches, on_card)
         log(f"  (c) train_smac 3s5z stand-in, T=40, torchrun 2 ranks x 4 "
             f"envs gloo against 1 process x 8: parameters {serr:.2e} of "
             f"their norm, metrics within {sworst:.2f} of the limit, ranks "
@@ -2348,7 +2501,7 @@ def data_parallel_phase(torch, card, device="cuda"):
                 torch, label, ranks, ck[name], base, ck[ref])
             n_sharded, n_leaves, share = check_model_axis(torch, label, ranks,
                                                           mesh[1])
-            check_launches(label, ranks, want)
+            check_launches(label, ranks, want, on_card)
             if name == "d12":
                 # the same rows and sums as (a); only the layout differs
                 same = all(torch.equal(a, b) for a, b in zip(
@@ -2381,7 +2534,7 @@ def data_parallel_phase(torch, card, device="cuda"):
             raise AssertionError(f"(f): parameters {ferr:.3e} of their norm")
         fworst = check_rows("(f)", f2[0]["rows"], s1["rows"])
         f_sharded, f_leaves, f_share = check_model_axis(torch, "(f)", f2, 2)
-        check_launches("(f)", f2, smac_launches)
+        check_launches("(f)", f2, smac_launches, on_card)
         g = f2[0]["gathers"]
         log(f"  (f) train_smac 3s5z stand-in, T=40, torchrun 2 ranks x 4 "
             f"envs gloo at --mesh_shape 1,2 against 1 process x 8: "
@@ -2395,7 +2548,8 @@ def data_parallel_phase(torch, card, device="cuda"):
             f"{g['ms'] / episodes:.3f} ms [{card}]  ok")
         log(f"  phase 6 wall {wall:.1f} s")
     by_rank = lambda run, name: {f"{run} rank {r['rank']}": {
-        "fwd": r["fwd"], "bwd": r["bwd"]} for r in rec[name]}
+        "fwd": r["fwd"], "bwd": r["bwd"], "ln_fwd": r["ln_fwd"],
+        "ln_bwd": r["ln_bwd"]} for r in rec[name]}
     return {"flagship": {**by_rank("dp flagship", "gloo2"),
                          **by_rank("dp 1,2 flagship", "d12")},
             "flagship22": by_rank("dp 2,2 flagship", "d22"),
@@ -2682,6 +2836,7 @@ def main() -> int:
     t_dp_smac = time_shape(torch, cg, DP_SMAC, card)
     t_dp22 = time_shape(torch, cg, DP22_FLAGSHIP, card)
     t_dp_wide = time_shape(torch, cg, DP_WIDE, card)
+    ln_rows = time_layer_norm(torch, card)
 
     log("== 5. main path: train_mpe, train_hanabi, train_smac and "
         "train_football configurations")
@@ -2737,10 +2892,11 @@ def main() -> int:
         check_host_against_cpu(torch, cg, name, config)
     # each run's launches go to the kernel rows of its GRU shape
     launches = {"f32": {}, "bf16": {}, "hanabi": {}, "smac": {}}
+    ln_launches = {}
     for name, script, config, extra, episodes, fwd_pe, bwd_pe in TRAIN_RUNS:
-        fwd, bwd, _, _ = train_main_path(torch, cg, name, script, config,
-                                         extra, episodes, fwd_pe, bwd_pe,
-                                         evaluate=name == "hanabi_forward")
+        fwd, bwd, _, _, ln_launches[name] = train_main_path(
+            torch, cg, name, script, config, extra, episodes, fwd_pe, bwd_pe,
+            evaluate=name == "hanabi_forward")
         shape = ("bf16" if config.startswith("bench")
                  else "hanabi" if script == "train_hanabi"
                  else "smac" if script in HOST_SCRIPTS else "f32")
@@ -2792,6 +2948,16 @@ def main() -> int:
             (t_dp_wide, "wide", "dp 1,2 flagship H=512 rank", DP_WIDE)):
         kernels += kernel_rows(times, dp[group], row_errs(case, "f32"),
                                shape, "f32")
+    # the LayerNorm rows carry every run's launches of their kernel (at the
+    # run's own widths and rows, not the row's shape)
+    for group in dp.values():
+        ln_launches.update({k: {"fwd": n["ln_fwd"], "bwd": n["ln_bwd"]}
+                            for k, n in group.items()})
+    for row in ln_rows:
+        d = "fwd" if row["name"] == "ln_fwd" else "bwd"
+        row["launches"] = sum(n[d] for n in ln_launches.values())
+        row["launches_by_run"] = {k: n[d] for k, n in ln_launches.items()}
+    kernels += ln_rows
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -12,6 +12,8 @@ import math
 
 import torch
 
+from onpolicy_torch.ops import cuda_layer_norm as cln
+from onpolicy_torch.utils import profiling
 from onpolicy_torch.utils.tree import tree_map
 
 LN_EPS = 1e-5  # torch nn.LayerNorm default
@@ -59,9 +61,15 @@ def layer_norm_init(dim: int, device):
 
 
 def layer_norm_apply(p, x):
-    """Biased variance, as `jnp.var` (`common.py:57-61`). The two moments
-    are taken in f32 and rounded to x's type, as `jnp.mean` and `jnp.var`
-    do for bf16; on f32 the casts are the identity."""
+    """Biased variance, as `jnp.var` (`common.py:57-61`). On the card an
+    f32 x runs on the fused kernels (`ops/cuda_layer_norm.LayerNorm`);
+    elsewhere, as decomposed ops: the two moments are taken in f32 and
+    rounded to x's type, as `jnp.mean` and `jnp.var` do for bf16; on f32
+    the casts are the identity."""
+    if cln.served_by_kernels(x.device, x.dtype):
+        return cln.LayerNorm.apply(x, p["scale"], p["bias"], LN_EPS)
+    if x.device.type == "cuda":
+        profiling.count("layer_norm_plain")
     xf = x.float()
     mean = xf.mean(-1, keepdim=True)
     var = (xf - mean).square().mean(-1, keepdim=True)

@@ -71,27 +71,29 @@ def _nvcc() -> str:
     cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
     found = shutil.which("nvcc") or os.path.join(cuda_home, "bin", "nvcc")
     if not os.path.exists(found):
-        raise RuntimeError("nvcc not found: the GRU kernels are built with "
+        raise RuntimeError("nvcc not found: the CUDA kernels are built with "
                            "the CUDA toolkit on the machine with the card")
     return found
 
 
-def library_path() -> Path:
+def library_path(source: Path = SOURCE) -> Path:
     """Build target, named by the source's content hash: a changed source
     builds anew, an unchanged one is reused."""
-    tag = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"libgru_seq_{tag}.so"
+    tag = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{source.stem}_{tag}.so"
 
 
-def build() -> Path:
-    """Compile `csrc/gru_seq.cu` unless the library for this source exists.
-    Writes the compiler's register/shared-memory report beside it."""
-    out = library_path()
+def build(source: Path = SOURCE) -> Path:
+    """Compile `source` (default `csrc/gru_seq.cu`; ops/cuda_layer_norm.py
+    builds `csrc/layer_norm.cu` the same way) unless the library for this
+    source exists. Writes the compiler's register/shared-memory report
+    beside it."""
+    out = library_path(source)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
                          capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
