@@ -48,8 +48,8 @@ state `init_state` gives is cut): each update gathers the full
 parameters over the model group, takes the full gradient, clips it by
 its global norm and applies Adam to the blocks. PopArt rescales the
 gathered head, which is then cut. `train` and `evaluate_full_logp` take
-the state as it is kept; the rollout-time API (`get_values`, `act`, the
-networks' `forward`) the gathered one (`shards.gathered`).
+the state as it is kept; the rollout-time API (`get_actions`,
+`get_values`, `act`) the gathered one (`shards.gathered`).
 """
 from __future__ import annotations
 
@@ -87,9 +87,11 @@ class MAPPO:
     popart_rescales_head = True
 
     def __init__(self, cfg, obs_space, share_obs_space, act_space,
-                 total_updates: int = 1, mesh=None):
+                 total_updates: int = 1, num_agents: int = None, mesh=None):
         self.cfg = cfg
         self.mesh = mesh
+        self.num_agents = num_agents if num_agents is not None \
+            else cfg.num_agents
         self.act_space = act_space
         self.actor = actor_critic.Actor(cfg, obs_space, act_space)
         self.critic = actor_critic.Critic(cfg, share_obs_space)
@@ -125,20 +127,60 @@ class MAPPO:
             critic_opt_state=self.critic_tx.init(critic_params),
             vnorm=vnorm))
 
-    # ---- rollout-time API (flat [B, ...] batches) --------------------
-    def get_values(self, state: TrainState, share_obs, rnn_critic, masks):
-        values, _ = self.critic.forward(state.critic_params, share_obs,
-                                        rnn_critic, masks)
-        return values
+    # ---- rollout-time API (algorithms/__init__.py) -------------------
+    @staticmethod
+    def _flat_rows(x, masks, *by):
+        """Rows of the leading shape of `masks` [..., 1] → [-1, *by, ...]."""
+        return None if x is None else x.reshape(-1, *by,
+                                                *x.shape[masks.dim() - 1:])
+
+    def _actor(self, state, obs, rnn_actor, masks, generator,
+               available_actions, deterministic, actions=None):
+        rows = lambda x: self._flat_rows(x, masks)
+        out = self.actor.forward(
+            state.actor_params, rows(obs), rows(rnn_actor), rows(masks),
+            generator, rows(available_actions), actions=rows(actions),
+            deterministic=deterministic)
+        return tuple(y.reshape(*masks.shape[:-1], *y.shape[1:]) for y in out)
+
+    def _values(self, critic_params, share_obs, rnn_critic, masks):
+        """→ (values, rnn_critic). With `use_critic_dedup` share_obs is the
+        same across an env's `num_agents` consecutive rows: the critic
+        runs once per env (`Critic.forward_dedup`, on agent 0's row of
+        the [N, M, M·D] view, which is not copied) and the rnn states pass
+        through."""
+        if self.cfg.use_critic_dedup:
+            values = self.critic.forward_dedup(critic_params, *(
+                self._flat_rows(x, masks, self.num_agents)
+                for x in (share_obs, rnn_critic, masks)))
+            return values.reshape(masks.shape), rnn_critic
+        values, rnn = self.critic.forward(critic_params, *(
+            self._flat_rows(x, masks) for x in (share_obs, rnn_critic, masks)))
+        return values.reshape(masks.shape), rnn.reshape(rnn_critic.shape)
+
+    def get_actions(self, state: TrainState, share_obs, obs, rnn_actor,
+                    rnn_critic, masks, generator, available_actions=None,
+                    deterministic=False, actions=None):
+        """The actor, then the critic; given `actions`, they are taken
+        instead of the draws."""
+        actions, log_probs, rnn_actor = self._actor(
+            state, obs, rnn_actor, masks, generator, available_actions,
+            deterministic, actions)
+        values, rnn_critic = self._values(state.critic_params, share_obs,
+                                          rnn_critic, masks)
+        return values, actions, log_probs, rnn_actor, rnn_critic
+
+    def get_values(self, state: TrainState, share_obs, rnn_critic, masks,
+                   obs=None):
+        return self._values(state.critic_params, share_obs, rnn_critic,
+                            masks)
 
     def act(self, state: TrainState, obs, rnn_actor, masks, generator=None,
-            available_actions=None, deterministic=True):
-        """→ (actions, new rnn states); the mode of each head unless
-        `deterministic` is false (then a draw from `generator`)."""
-        actions, _, rnn_actor = self.actor.forward(
-            state.actor_params, obs, rnn_actor, masks, generator,
-            available_actions, deterministic=deterministic)
-        return actions, rnn_actor
+            available_actions=None, deterministic=True, share_obs=None):
+        """The actor alone: each head's mode, or under `deterministic`
+        false a draw from `generator`."""
+        return self._actor(state, obs, rnn_actor, masks, generator,
+                           available_actions, deterministic)
 
     # ---- training ----------------------------------------------------
     def _sample_minibatches(self, buf, adv, generator, perm=None,
@@ -161,19 +203,6 @@ class MAPPO:
         of the rnn states)."""
         return distributed.share_rows(mb, self.mesh, self.cfg.is_recurrent)
 
-    def _critic_flat(self, cp, mb):
-        """Values of flat rows [B, 1]. With `use_critic_dedup` the rows are
-        [T·N, M] in order (the one-minibatch sampler keeps them so) and go
-        through `Critic.forward_dedup`."""
-        args = (mb["share_obs"], mb["rnn_states_critic"], mb["masks"])
-        if not self.cfg.use_critic_dedup:
-            values, _ = self.critic.forward(cp, *args)
-            return values
-        M = self.cfg.num_agents
-        B = mb["share_obs"].shape[0]
-        by_env = lambda x: x.reshape(B // M, M, *x.shape[1:])
-        return self.critic.forward_dedup(cp, *map(by_env, args)).reshape(B, 1)
-
     def _loss(self, ap, cp, vnorm, mb):
         cfg = self.cfg
         active = mb["active_masks"] if cfg.use_policy_active_masks else None
@@ -187,7 +216,8 @@ class MAPPO:
             logp, entropy = self.actor.evaluate(
                 ap, mb["obs"], mb["rnn_states"], mb["actions"], mb["masks"],
                 mb.get("available_actions"), active)
-            values = self._critic_flat(cp, mb)
+            values, _ = self._values(cp, mb["share_obs"],
+                                     mb["rnn_states_critic"], mb["masks"])
         pol_loss, ratio = losses.ppo_policy_loss(
             logp, mb["old_action_log_probs"], mb["advantages"],
             mb["active_masks"], clip_param=cfg.clip_param,

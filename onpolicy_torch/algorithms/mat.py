@@ -6,17 +6,17 @@ optimizer over all its parameters (clip → Adam(lr, eps) [→ weight decay],
 `ops/schedules.py`), the joint loss policy − entropy·coef + value·coef,
 always the transformer sampler (agent axis kept intact), ValueNorm for
 the targets, and linear lr decay counted per update. It has the
-get_actions / get_values / act / train interface the shared runner calls
-(rnn-state arguments pass through untouched,
-`transformer_policy.py:117-119`). The critic is the encoder's value head;
-it reads obs, or the centralized state under `encode_state`
-(`critic_reads`). MAT has no PopArt branch: it normalizes its targets
-only under `use_valuenorm` (JAX `mat.py:75, 121`), whatever `use_popart`
-says. Box action spaces decode with the transformer's gaussian head; their
-log-probs and entropies are per action dimension. Over a data mesh
-(`mesh`) each rank trains on its share of every minibatch's env steps
-and the gradients are summed, as in `algorithms/mappo.py`, whose
-`update.*` profiling spans `train` and `_update` share.
+trainers' rollout-time interface (`algorithms/__init__.py`; rnn-state
+arguments pass through untouched, `transformer_policy.py:117-119`). The
+critic is the encoder's value head; it reads obs, or the centralized
+state under `encode_state` (`critic_reads`). MAT has no PopArt branch: it
+normalizes its targets only under `use_valuenorm` (JAX `mat.py:75, 121`),
+whatever `use_popart` says. Box action spaces decode with the
+transformer's gaussian head; their log-probs and entropies are per action
+dimension. Over a data mesh (`mesh`) each rank trains on its share of
+every minibatch's env steps and the gradients are summed, as in
+`algorithms/mappo.py`, whose `update.*` profiling spans `train` and
+`_update` share.
 """
 from __future__ import annotations
 
@@ -93,46 +93,42 @@ class MAT:
         return self.shards.cut(MATTrainState(
             params=params, opt_state=self.tx.init(params), vnorm=vnorm))
 
-    # ---- rollout API (flat [B·M, ...] like the reference policy) -----
+    # ---- rollout-time API (algorithms/__init__.py) -------------------
     def _fold(self, x):
-        return None if x is None else x.reshape(
-            x.shape[0] // self.num_agents, self.num_agents, *x.shape[1:])
-
-    @staticmethod
-    def _flat(x):
-        return x.reshape(-1, *x.shape[2:])
+        """Rows [..., D] → [N, M, D] (an env's M agents consecutive)."""
+        return None if x is None else x.reshape(-1, self.num_agents,
+                                                x.shape[-1])
 
     def get_actions(self, state: MATTrainState, share_obs, obs, rnn_actor,
                     rnn_critic, masks, generator, available_actions=None,
                     deterministic=False, actions=None):
-        """→ (values, actions, log_probs, rnn_actor, rnn_critic), flat.
-        Given `actions` (flat, drawn elsewhere), they are taken instead of
-        the draws."""
+        """One autoregressive decode; given `actions` (drawn elsewhere),
+        they are taken instead of the draws. Under encode_state the
+        encoder reads `share_obs`."""
         enc_in = self._fold(share_obs) if self.cfg.encode_state else None
         acts, logp, values = tfm.autoregressive_act(
             self.mcfg, state.params, self._fold(obs), generator,
             self._fold(available_actions), deterministic, enc_in=enc_in,
             actions=self._fold(actions))
-        return (self._flat(values), self._flat(acts), self._flat(logp),
-                rnn_actor, rnn_critic)
+        rows = lambda y: y.reshape(*obs.shape[:-1], y.shape[-1])
+        return rows(values), rows(acts), rows(logp), rnn_actor, rnn_critic
 
-    def get_values(self, state: MATTrainState, obs, rnn_critic, masks):
-        """The encoder's value head over `obs` — the runner passes what
-        `critic_reads` names (the reference zeroes and ignores the
-        centralized state, ma_transformer.py:237-239)."""
-        return self._flat(tfm.get_values(self.mcfg, state.params,
-                                         self._fold(obs)))
+    def get_values(self, state: MATTrainState, share_obs, rnn_critic, masks,
+                   obs=None):
+        """The encoder's value head over what `critic_reads` names (the
+        reference zeroes and ignores the centralized state,
+        ma_transformer.py:237-239)."""
+        x = share_obs if self.critic_reads == "share_obs" else obs
+        values = tfm.get_values(self.mcfg, state.params, self._fold(x))
+        return values.reshape(*x.shape[:-1], 1), rnn_critic
 
     def act(self, state: MATTrainState, obs, rnn_actor, masks,
             generator=None, available_actions=None, deterministic=True,
             share_obs=None):
-        """→ (actions, rnn_actor). Under encode_state the encoder reads
-        `share_obs`."""
-        enc_in = self._fold(share_obs) if self.cfg.encode_state else None
-        acts, _, _ = tfm.autoregressive_act(
-            self.mcfg, state.params, self._fold(obs), generator,
-            self._fold(available_actions), deterministic, enc_in=enc_in)
-        return self._flat(acts), rnn_actor
+        _, acts, logp, rnn_actor, _ = self.get_actions(
+            state, share_obs, obs, rnn_actor, None, masks, generator,
+            available_actions, deterministic)
+        return acts, logp, rnn_actor
 
     # ---- training ----------------------------------------------------
     def _loss(self, params, vnorm, mb):

@@ -11,10 +11,11 @@ one buffer step: at step 0 of the next episode the previous episode's
 tail slot is patched with the fresh round, rewards shift one step, and
 GAE + PPO run.
 
-The actor runs per seat on the whole [N] fleet (its action feeds the
-next seat's observation; rows that do not act are discarded), and the
-critic once per round on the staged [N·M] rows. Policy, staging, buffer
-and update live on the run's device. Two round loops over two engines:
+The actor runs per seat on the whole [N] fleet (the trainer's `act`: its
+action feeds the next seat's observation; rows that do not act are
+discarded), and the critic once per round on the staged [N·M] rows (its
+`get_values`). Policy, staging, buffer and update live on the run's
+device. Two round loops over two engines:
   * the host seat loop `_host_round` (no collect flag, as JAX's default):
     the engine's numpy protocol, one copy of the actions to the host and
     one of the observations back a seat, the masked reset after the
@@ -189,8 +190,8 @@ class HanabiRunner:
     # ---- one seat round --------------------------------------------------
     def _act(self, train_state, c: dict, seat: int):
         """The actor on the whole fleet for `seat` → (actions, logp, rnn)."""
-        return self.algo.actor.forward(
-            train_state.actor_params, c["use_obs"], c["rnn"][:, seat],
+        return self.algo.act(
+            train_state, c["use_obs"], c["rnn"][:, seat],
             c["masks"][:, seat], self.generator, c["use_avail"],
             deterministic=self.det_collect)
 
@@ -245,13 +246,8 @@ class HanabiRunner:
         and state, the future seats blanked at a game's end (`zeroed`)
         value 0, the games that ended zero critic states, the rest keep
         their staging."""
-        N, M = self.N, self.num_agents
-        L, H = rnn_c0.shape[2:]
-        v_all, rnn_c_all = self.algo.critic.forward(
-            train_state.critic_params, c["share_obs"].reshape(N * M, -1),
-            rnn_c0.reshape(N * M, L, H), masks0.reshape(N * M, 1))
-        v_all = v_all.reshape(N, M, 1)
-        rnn_c_all = rnn_c_all.reshape(N, M, L, H)
+        v_all, rnn_c_all = self.algo.get_values(
+            train_state, c["share_obs"], rnn_c0, masks0)
         c["values"] = torch.where(
             zeroed[..., None], 0.0,
             torch.where(chose[..., None], v_all, c["values"]))
@@ -422,14 +418,14 @@ class HanabiRunner:
         dbuf["available_actions"][step] = c["avail"]
 
     def _compute_and_train(self, train_state, dbuf: dict):
-        cfg, N, M = self.cfg, self.N, self.num_agents
+        cfg = self.cfg
         buf = buf_lib.RolloutBuffer(**dbuf)
-        flat = lambda x: x.reshape(N * M, *x.shape[2:])
         with profiling.span("update.returns"):
+            # [0]: a name for the critic's next states would keep them alive
+            # through train, at its memory peak
             next_values = self.algo.get_values(
-                train_state, flat(buf.share_obs[-1]),
-                flat(buf.rnn_states_critic[-1]), flat(buf.masks[-1])
-            ).reshape(N, M, 1)
+                train_state, buf.share_obs[-1], buf.rnn_states_critic[-1],
+                buf.masks[-1])[0]
             buf = buf.compute_returns(
                 next_values, train_state.vnorm, gamma=cfg.gamma,
                 gae_lambda=cfg.gae_lambda, use_gae=cfg.use_gae,
@@ -615,7 +611,7 @@ class HanabiRunner:
             rnn = torch.zeros(N, L, H, device=self.device)
             for _ in range(max_steps):
                 choose = (avail == 1).any(1)
-                actions, rnn_out = self.algo.act(
+                actions, _, rnn_out = self.algo.act(
                     train_state, obs, rnn, masks, available_actions=avail,
                     deterministic=True)
                 env_actions = torch.where(choose, actions[:, 0].long(), -1)
@@ -650,9 +646,9 @@ class HanabiRunner:
                 rnn = torch.zeros_like(rnn)
                 continue
             obs_t, avail_t = upload(self.device, obs, avail)
-            actions, rnn = self.algo.act(train_state, obs_t, rnn, masks,
-                                         available_actions=avail_t,
-                                         deterministic=True)
+            actions, _, rnn = self.algo.act(train_state, obs_t, rnn, masks,
+                                            available_actions=avail_t,
+                                            deterministic=True)
             env_actions = np.full(N, -1, np.int64)
             env_actions[choose] = actions[:, 0].cpu().numpy()[choose]
             obs, _, _, done, _, avail, score = env.step(env_actions)

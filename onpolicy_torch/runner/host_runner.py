@@ -50,9 +50,10 @@ the rollout, `run` before an eval (on every rank; the eval env is rank
 writes it, and a restore cuts each rank's blocks.
 
 `HostSharedRunner` trains rMAPPO / MAPPO / IPPO (`algorithms/mappo.py`)
-and MAT / MAT-dec (`algorithms/mat.py`, its bootstrap reading what
-`critic_reads` names); `runner/host_separated_runner.py` trains per-agent
-policies (HAPPO, HATRPO, separated MAPPO) over the same loop.
+and MAT / MAT-dec (`algorithms/mat.py`) through the trainers' rollout-time
+interface (`algorithms/__init__.py`); `runner/host_separated_runner.py`
+trains per-agent policies (HAPPO, HATRPO, separated MAPPO) over the same
+loop.
 """
 from __future__ import annotations
 
@@ -63,8 +64,7 @@ import numpy as np
 import torch
 
 from onpolicy_torch import buffer as buf_lib
-from onpolicy_torch.algorithms.mappo import MAPPO
-from onpolicy_torch.algorithms.mat import MAT
+from onpolicy_torch.algorithms import HAPPO, MAT, make_trainer, trainer_class
 from onpolicy_torch.parallel import distributed
 from onpolicy_torch.parallel import mesh as mesh_lib
 from onpolicy_torch.runner import host_mesh, host_resume
@@ -176,10 +176,6 @@ class HostRunner:
         """`state` through each trainer's `StateShards.<method>`."""
         algos = getattr(self, "algos", None) or [self.algo]
         return mesh_lib.each_state([a.shards for a in algos], state, method)
-
-    def _flat(self, x):
-        return None if x is None else x.reshape(self.N * self.num_agents,
-                                                *x.shape[2:])
 
     # ------------------------------------------------------------------
     def _observe(self, out, N, M):
@@ -447,49 +443,29 @@ class HostSharedRunner(HostRunner):
 
     def _make_algos(self, obs_space, share_space):
         cfg = self.cfg
-        self.is_mat = cfg.algorithm_name in ("mat", "mat_dec")
-        if cfg.algorithm_name in ("happo", "hatrpo"):
-            raise ValueError(f"{cfg.algorithm_name} trains through "
+        Algo = trainer_class(cfg)
+        if issubclass(Algo, HAPPO):
+            raise ValueError(f"{Algo.__name__} updates one agent at a time: "
+                             "it trains through "
                              "runner/host_separated_runner.py")
-        if self.is_mat:
-            self.algo = MAT(cfg, obs_space, share_space, self.act_space,
-                            total_updates=self.episodes,
-                            num_agents=self.num_agents, mesh=self.mesh)
-        else:
-            self.algo = MAPPO(cfg, obs_space, share_space, self.act_space,
-                              total_updates=self.episodes, mesh=self.mesh)
+        self.algo = make_trainer(cfg, obs_space, share_space, self.act_space,
+                                 total_updates=self.episodes,
+                                 num_agents=self.num_agents, mesh=self.mesh)
+        self.is_mat = isinstance(self.algo, MAT)
 
     def _init_state(self):
         return self.algo.init_state(self.init_generator, self.device)
 
     def _act(self, state, x, rnn_a, rnn_c, given):
-        N, M, f = self.N, self.num_agents, self._flat
-        if self.is_mat:
-            values, actions, logp, ra, rc = self.algo.get_actions(
-                state, f(x["share_obs"]), f(x["obs"]), f(rnn_a), f(rnn_c),
-                f(x["masks"]), self.draws,
-                f(x.get("available_actions")), actions=f(given))
-        else:
-            actions, logp, ra = self.algo.actor.forward(
-                state.actor_params, f(x["obs"]), f(rnn_a), f(x["masks"]),
-                self.draws, f(x.get("available_actions")),
-                actions=f(given))
-            values, rc = self.algo.critic.forward(
-                state.critic_params, f(x["share_obs"]), f(rnn_c),
-                f(x["masks"]))
-        unflat = lambda y: y.reshape(N, M, *y.shape[1:])
-        return (unflat(values), unflat(actions), unflat(logp), unflat(ra),
-                unflat(rc))
+        return self.algo.get_actions(
+            state, x["share_obs"], x["obs"], rnn_a, rnn_c, x["masks"],
+            self.draws, x.get("available_actions"), actions=given)
 
     def _bootstrap(self, state, buf):
-        N, M = buf.n_rollout_threads, self.num_agents
-        f = lambda x: x.reshape(N * M, *x.shape[2:])
-        reads = self.algo.critic_reads if self.is_mat else "share_obs"
-        critic_in = getattr(buf, reads)[-1]
-        v = self.algo.get_values(state, f(critic_in),
-                                 f(buf.rnn_states_critic[-1]),
-                                 f(buf.masks[-1]))
-        return v.reshape(N, M, 1), state.vnorm
+        values, _ = self.algo.get_values(
+            state, buf.share_obs[-1], buf.rnn_states_critic[-1],
+            buf.masks[-1], buf.obs[-1])
+        return values, state.vnorm
 
     def update(self, state, buf):
         return self.algo.train(state, buf, self.generator)
@@ -501,9 +477,7 @@ class HostSharedRunner(HostRunner):
         return out
 
     def _eval_act(self, state, obs, rnn, masks, avail):
-        N, M = obs.shape[:2]
-        f = lambda y: None if y is None else y.reshape(N * M, *y.shape[2:])
-        actions, rnn = self.algo.act(state, f(obs), f(rnn), f(masks),
-                                     available_actions=f(avail),
-                                     deterministic=True)
-        return actions.reshape(N, M, -1), rnn.reshape(N, M, *rnn.shape[1:])
+        actions, _, rnn = self.algo.act(state, obs, rnn, masks,
+                                        available_actions=avail,
+                                        deterministic=True)
+        return actions, rnn

@@ -6,8 +6,8 @@ Port of `onpolicy_tpu/runner/host_separated_runner.py` (the reference's
 135-183`): the host loop of `runner/host_runner.HostRunner` (staged
 rollout, masks, evaluation, checkpoints, `run`) with one trainer an
 agent. The agents share obs and action spaces (the SMAC case); each has
-its own parameters, optimizers and normalizer. A rollout step runs each
-agent's actor and critic on its column of the fleet.
+its own parameters, optimizers and normalizer. A rollout step is each
+agent's `get_actions` on its column of the fleet.
 
 The update (JAX's `_train`, `:83-110` there) trains each agent on its
 slice [T, N, 1, ...] of the whole [T, N, M] buffer. HAPPO and HATRPO go
@@ -28,22 +28,22 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from onpolicy_torch.algorithms.happo import HAPPO
-from onpolicy_torch.algorithms.hatrpo import HATRPO
-from onpolicy_torch.algorithms.mappo import MAPPO
+from onpolicy_torch.algorithms import HAPPO, MAPPO, trainer_class
 from onpolicy_torch.runner.host_runner import HostRunner
 
 
 class HostSeparatedRunner(HostRunner):
     def _make_algos(self, obs_space, share_space):
         cfg = self.cfg
-        Algo = {"happo": HAPPO, "hatrpo": HATRPO}.get(cfg.algorithm_name,
-                                                      MAPPO)
+        Algo = trainer_class(cfg)
+        if not issubclass(Algo, MAPPO):
+            raise ValueError(f"{Algo.__name__} trains through "
+                             "runner/host_runner.HostSharedRunner")
         self.algos: List[MAPPO] = [
             Algo(cfg, obs_space, share_space, self.act_space,
-                 total_updates=self.episodes, mesh=self.mesh)
+                 total_updates=self.episodes, num_agents=1, mesh=self.mesh)
             for _ in range(self.num_agents)]
-        self.is_happo = cfg.algorithm_name in ("happo", "hatrpo")
+        self.is_happo = issubclass(Algo, HAPPO)
         self.order_rng = np.random.default_rng(cfg.seed)
 
     def _init_state(self):
@@ -69,25 +69,19 @@ class HostSeparatedRunner(HostRunner):
         return bad
 
     def _act(self, states, x, rnn_a, rnn_c, given):
-        outs = []
-        avail = x.get("available_actions")
-        for i, algo in enumerate(self.algos):
-            actions, logp, ra = algo.actor.forward(
-                states[i].actor_params, x["obs"][:, i], rnn_a[:, i],
-                x["masks"][:, i], self.draws,
-                None if avail is None else avail[:, i],
-                actions=None if given is None else given[:, i])
-            values, rc = algo.critic.forward(
-                states[i].critic_params, x["share_obs"][:, i], rnn_c[:, i],
-                x["masks"][:, i])
-            outs.append((values, actions, logp, ra, rc))
+        agent = lambda y, i: None if y is None else y[:, i]
+        outs = [algo.get_actions(
+            states[i], x["share_obs"][:, i], x["obs"][:, i], rnn_a[:, i],
+            rnn_c[:, i], x["masks"][:, i], self.draws,
+            agent(x.get("available_actions"), i), actions=agent(given, i))
+            for i, algo in enumerate(self.algos)]
         return tuple(torch.stack(col, 1) for col in zip(*outs))
 
     def _bootstrap(self, states, buf):
         next_values = torch.stack([
             algo.get_values(states[i], buf.share_obs[-1][:, i],
                             buf.rnn_states_critic[-1][:, i],
-                            buf.masks[-1][:, i])
+                            buf.masks[-1][:, i])[0]
             for i, algo in enumerate(self.algos)], 1)
         return next_values, states[0].vnorm
 
@@ -128,5 +122,5 @@ class HostSeparatedRunner(HostRunner):
                          available_actions=None if avail is None
                          else avail[:, i], deterministic=True)
                 for i, algo in enumerate(self.algos)]
-        return (torch.stack([a for a, _ in outs], 1),
-                torch.stack([r for _, r in outs], 1))
+        return (torch.stack([a for a, _, _ in outs], 1),
+                torch.stack([r for _, _, r in outs], 1))

@@ -36,9 +36,7 @@ import numpy as np
 import torch
 
 from onpolicy_torch import buffer as buf_lib
-from onpolicy_torch.algorithms.happo import HAPPO
-from onpolicy_torch.algorithms.hatrpo import HATRPO
-from onpolicy_torch.algorithms.mappo import MAPPO
+from onpolicy_torch.algorithms import HAPPO, MAPPO, trainer_class
 from onpolicy_torch.envs.mpe.world import WorldState
 from onpolicy_torch.runner.base_runner import BaseRunner
 from onpolicy_torch.utils import spaces as sp
@@ -48,16 +46,18 @@ class SeparatedRunner(BaseRunner):
     def __init__(self, cfg, vec_env=None, eval_env=None):
         super().__init__(cfg, vec_env, eval_env)
         cfg = self.cfg
-        Algo = {"happo": HAPPO, "hatrpo": HATRPO}.get(cfg.algorithm_name,
-                                                      MAPPO)
-        self.is_happo = cfg.algorithm_name in ("happo", "hatrpo")
+        Algo = trainer_class(cfg)
+        if not issubclass(Algo, MAPPO):
+            raise ValueError(f"{Algo.__name__} trains through the shared "
+                             "runner (runner/shared_runner.py)")
+        self.is_happo = issubclass(Algo, HAPPO)
         obs_spaces = self.envs.observation_space
         share_space = sp.Box((sum(sp.obs_shape(s)[0] for s in obs_spaces),))
         self.algos: List[MAPPO] = [
             Algo(cfg, obs_spaces[i],
                  share_space if cfg.use_centralized_V else obs_spaces[i],
                  self.envs.action_space[i], total_updates=self.episodes,
-                 mesh=self.mesh)
+                 num_agents=1, mesh=self.mesh)
             for i in range(self.num_agents)]
         self.max_heads = max(sp.action_storage_dim(s)
                              for s in self.envs.action_space)
@@ -111,13 +111,11 @@ class SeparatedRunner(BaseRunner):
             given = inj.get("actions")
             env_actions, rnn_a, rnn_c = [], [], []
             for i, algo in enumerate(self.algos):
-                st, so = states[i], self._share_obs(c["obs"], i)
-                actions, logp, ra = algo.actor.forward(
-                    st.actor_params, c["obs"][i], c["rnn_actor"][i],
-                    c["masks"], self.draws,
+                so = self._share_obs(c["obs"], i)
+                values, actions, logp, ra, rc = algo.get_actions(
+                    states[i], so, c["obs"][i], c["rnn_actor"][i],
+                    c["rnn_critic"][i], c["masks"], self.draws,
                     actions=None if given is None else given[i])
-                values, rc = algo.critic.forward(
-                    st.critic_params, so, c["rnn_critic"][i], c["masks"])
                 env_actions.append(self._pad(actions))
                 rnn_a.append(ra)
                 rnn_c.append(rc)
@@ -155,9 +153,9 @@ class SeparatedRunner(BaseRunner):
             mine = lambda d: {k: v for (j, k), v in d.items() if j == i}
             buf = buf_lib.from_rollout(mine(traj), mine(last))
             last_i = {k: v[:, 0] for k, v in mine(last).items()}
-            next_value = algo.get_values(states[i], last_i["share_obs"],
-                                         last_i["rnn_states_critic"],
-                                         last_i["masks"])
+            next_value, _ = algo.get_values(states[i], last_i["share_obs"],
+                                            last_i["rnn_states_critic"],
+                                            last_i["masks"])
             bufs.append(buf.compute_returns(
                 next_value[:, None], states[i].vnorm, gamma=cfg.gamma,
                 gae_lambda=cfg.gae_lambda, use_gae=cfg.use_gae,
@@ -221,8 +219,8 @@ class SeparatedRunner(BaseRunner):
         for _ in range(cfg.episode_length):
             env_actions = []
             for i, algo in enumerate(self.algos):
-                actions, rnn[i] = algo.act(states[i], obs[i], rnn[i], masks,
-                                           deterministic=True)
+                actions, _, rnn[i] = algo.act(states[i], obs[i], rnn[i],
+                                              masks, deterministic=True)
                 env_actions.append(self._pad(actions))
             env_states, obs, rewards, dones = env.step(
                 env_states, torch.stack(env_actions, 1))

@@ -18,16 +18,13 @@ by `utils.profiling` spans: `rollout.act`, `rollout.env`,
 `rollout.store` and `rollout.returns`.
 
 It trains the shared-policy algorithms rmappo, mappo, ippo and MAT (mat,
-mat_dec; `algorithms/mat.py`). MAT's rollout step goes through
-`MAT.get_actions` (actions, log-probs and values from one autoregressive
-decode; the injected draw is each agent's action), its bootstrap value
-through `get_values` over what `critic_reads` names, and its eval
-through `act`; the rnn states pass through it untouched. With
-`use_critic_dedup` (feed-forward mappo, centralized V) the critic runs on
-one row per env in the rollout step and in the bootstrap, since
-share_obs is the same for every agent of an env, and the value is
-broadcast to the agents. Eval (`eval_episode`) takes each head's mode for
-one episode of the eval env.
+mat_dec; `algorithms/mat.py`), and acts only through the trainer's
+rollout-time interface (`algorithms/__init__.py`) on the [N, M, ...]
+carry: `get_actions` a rollout step (an injected draw is each agent's
+action), `get_values` the bootstrap value, and `act` the eval
+(`eval_episode`: each head's mode for one episode of the eval env). What
+the critic reads, and whether it runs once per env (`use_critic_dedup`),
+is the trainer's business.
 
 Over a data mesh each rank steps and acts for its block of the envs
 (`base_runner`); the staged steps and the last slot are gathered into
@@ -45,8 +42,7 @@ from typing import Optional, Sequence
 import torch
 
 from onpolicy_torch import buffer as buf_lib
-from onpolicy_torch.algorithms.mappo import MAPPO
-from onpolicy_torch.algorithms.mat import MAT
+from onpolicy_torch.algorithms import HAPPO, MAT, make_trainer, trainer_class
 from onpolicy_torch.envs.mpe.world import WorldState
 from onpolicy_torch.runner.base_runner import BaseRunner
 from onpolicy_torch.utils import profiling
@@ -57,9 +53,10 @@ class SharedRunner(BaseRunner):
     def __init__(self, cfg, vec_env=None, eval_env=None):
         super().__init__(cfg, vec_env, eval_env)
         cfg = self.cfg
-        if cfg.algorithm_name in ("happo", "hatrpo"):
-            raise ValueError(f"{cfg.algorithm_name} trains through the "
-                             "separated runner "
+        Algo = trainer_class(cfg)
+        if issubclass(Algo, HAPPO):
+            raise ValueError(f"{Algo.__name__} updates one agent at a time: "
+                             "it trains through the separated runner "
                              "(runner/separated_runner.py)")
         if len({sp.obs_shape(s) for s in self.envs.observation_space}) != 1 \
                 or len(set(self.envs.action_space)) != 1:
@@ -70,15 +67,10 @@ class SharedRunner(BaseRunner):
         share_obs_space = (self.envs.share_observation_space[0]
                            if cfg.use_centralized_V else obs_space)
         self.act_space = self.envs.action_space[0]
-        self.is_mat = cfg.algorithm_name in ("mat", "mat_dec")
-        if self.is_mat:
-            self.algo = MAT(cfg, obs_space, share_obs_space, self.act_space,
-                            total_updates=self.episodes,
-                            num_agents=self.num_agents, mesh=self.mesh)
-        else:
-            self.algo = MAPPO(cfg, obs_space, share_obs_space,
-                              self.act_space, total_updates=self.episodes,
-                              mesh=self.mesh)
+        self.algo = make_trainer(cfg, obs_space, share_obs_space,
+                                 self.act_space, total_updates=self.episodes,
+                                 num_agents=self.num_agents, mesh=self.mesh)
+        self.is_mat = isinstance(self.algo, MAT)
 
     # ------------------------------------------------------------------
     def init(self):
@@ -104,48 +96,6 @@ class SharedRunner(BaseRunner):
         N, M, D = obs.shape
         return obs.reshape(N, 1, M * D).expand(N, M, M * D)
 
-    def _values(self, train_state, share_obs, rnn_critic, masks, obs=None):
-        """Critic values [N, M, 1] and its next rnn states [N, M, L, H].
-        With `use_critic_dedup` they come from `Critic.forward_dedup` (one
-        critic row per env) and the rnn states pass through. MAT's value
-        head reads `obs` or `share_obs`, as its `critic_reads` says."""
-        N, M = share_obs.shape[0], self.num_agents
-        if self.is_mat:
-            critic_in = share_obs if self.algo.critic_reads == "share_obs" \
-                else obs
-            v = self.algo.get_values(
-                train_state, critic_in.reshape(N * M, -1), None, None)
-            return v.reshape(N, M, 1), rnn_critic
-        critic, params = self.algo.critic, train_state.critic_params
-        if self.cfg.use_critic_dedup:
-            return critic.forward_dedup(params, share_obs, rnn_critic,
-                                        masks), rnn_critic
-        flat = lambda x: x.reshape(N * M, *x.shape[2:])
-        v, rnn = critic.forward(params, flat(share_obs), flat(rnn_critic),
-                                flat(masks))
-        return v.reshape(N, M, 1), rnn.reshape(rnn_critic.shape)
-
-    def _act(self, train_state, c, share_obs, given):
-        """One rollout step's policy: → (actions [N·M, heads], log-probs,
-        next actor rnn states [N·M, L, H], values [N, M, 1], next critic
-        rnn states [N, M, L, H]); `given` [N, M, heads] replaces the
-        draws."""
-        N, M = self.N, self.num_agents
-        flat = lambda x: None if x is None else x.reshape(N * M, *x.shape[2:])
-        if self.is_mat:
-            values, actions, logp, rnn_a, _ = self.algo.get_actions(
-                train_state, flat(share_obs), flat(c["obs"]),
-                flat(c["rnn_actor"]), flat(c["rnn_critic"]), flat(c["masks"]),
-                self.draws, actions=flat(given))
-            return actions, logp, rnn_a, values.reshape(N, M, 1), \
-                c["rnn_critic"]
-        actions, logp, rnn_a = self.algo.actor.forward(
-            train_state.actor_params, flat(c["obs"]), flat(c["rnn_actor"]),
-            flat(c["masks"]), self.draws, actions=flat(given))
-        values, rnn_c = self._values(train_state, share_obs, c["rnn_critic"],
-                                     c["masks"])
-        return actions, logp, rnn_a, values, rnn_c
-
     # ---- one training episode ----------------------------------------
     @torch.no_grad()
     def rollout(self, train_state, carry, inject: Optional[Sequence[dict]] = None):
@@ -154,8 +104,6 @@ class SharedRunner(BaseRunner):
         (a `WorldState` of N worlds) for the envs that finish at step t.
         → (carry after the last step, buffer with returns/advantages)."""
         cfg = self.cfg
-        N, M = self.N, self.num_agents
-        unflat = lambda x: x.reshape(N, M, *x.shape[1:])
         staged = []
         c = carry
         for t in range(cfg.episode_length):
@@ -163,24 +111,25 @@ class SharedRunner(BaseRunner):
             obs = c["obs"]
             share_obs = self._share_obs(obs)
             with profiling.span("rollout.act"):
-                actions, logp, rnn_a, values, rnn_c = self._act(
-                    train_state, c, share_obs, inj.get("actions"))
-            actions_env = unflat(actions)
+                values, actions, logp, rnn_a, rnn_c = self.algo.get_actions(
+                    train_state, share_obs, obs, c["rnn_actor"],
+                    c["rnn_critic"], c["masks"], self.draws,
+                    actions=inj.get("actions"))
             with profiling.span("rollout.env"):
                 env_states, obs2, rewards, dones = self.envs.step(
-                    c["env_states"], actions_env, inj.get("reset_states"))
+                    c["env_states"], actions, inj.get("reset_states"))
             with profiling.span("rollout.store"):
                 staged.append({
                     "share_obs": share_obs, "obs": obs,
                     "rnn_states": c["rnn_actor"],
                     "rnn_states_critic": c["rnn_critic"],
-                    "actions": actions_env, "action_log_probs": unflat(logp),
+                    "actions": actions, "action_log_probs": logp,
                     "value_preds": values, "rewards": rewards,
                     "masks": c["masks"],
                     "active_masks": torch.ones_like(c["masks"]),
                 })
                 c = {"env_states": env_states, "obs": torch.stack(obs2, 1),
-                     "rnn_actor": unflat(rnn_a), "rnn_critic": rnn_c,
+                     "rnn_actor": rnn_a, "rnn_critic": rnn_c,
                      "masks": 1.0 - dones[..., None].float()}
 
         with profiling.span("rollout.store"):
@@ -192,9 +141,9 @@ class SharedRunner(BaseRunner):
             traj, last = self._gather_episode(traj, last)
             buf = buf_lib.from_rollout(traj, last)
         with profiling.span("rollout.returns"):
-            next_values, _ = self._values(train_state, last["share_obs"],
-                                          last["rnn_states_critic"],
-                                          last["masks"], last["obs"])
+            next_values, _ = self.algo.get_values(
+                train_state, last["share_obs"], last["rnn_states_critic"],
+                last["masks"], last["obs"])
             buf = buf.compute_returns(
                 next_values, train_state.vnorm, gamma=cfg.gamma,
                 gae_lambda=cfg.gae_lambda, use_gae=cfg.use_gae,
@@ -222,7 +171,6 @@ class SharedRunner(BaseRunner):
         agents of the episode's return (JAX `_eval_episode`)."""
         cfg, env = self.cfg, self.eval_envs
         N, M = env.n_envs, self.num_agents
-        flat = lambda x: x.reshape(N * M, *x.shape[2:])
         if init_states is None:
             env_states, obs = env.reset()
         else:
@@ -233,14 +181,11 @@ class SharedRunner(BaseRunner):
         masks = torch.ones(N, M, 1, device=self.device)
         total = torch.zeros(N, M, 1, device=self.device)
         for _ in range(cfg.episode_length):
-            kw = {"share_obs": flat(self._share_obs(obs))} if self.is_mat \
-                else {}
-            actions, rnn = self.algo.act(train_state, flat(obs), flat(rnn),
-                                         flat(masks), deterministic=True,
-                                         **kw)
-            env_states, obs, rewards, dones = env.step(
-                env_states, actions.reshape(N, M, -1))
-            obs, rnn = torch.stack(obs, 1), rnn.reshape(N, M, *rnn.shape[1:])
+            actions, _, rnn = self.algo.act(
+                train_state, obs, rnn, masks, deterministic=True,
+                share_obs=self._share_obs(obs))
+            env_states, obs, rewards, dones = env.step(env_states, actions)
+            obs = torch.stack(obs, 1)
             masks = 1.0 - dones[..., None].float()
             total = total + rewards
         return total.mean()

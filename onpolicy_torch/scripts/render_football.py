@@ -85,8 +85,9 @@ def render_episodes(algo, state, env, cfg, save_videos=False,
         masks = torch.ones(M, 1, device=device)
         frames, ep_rew, done, actions_ep = [], 0.0, False, []
         while not done:
-            actions, rnn = algo.act(state, torch.as_tensor(obs, device=device),
-                                    rnn, masks, deterministic=True)
+            actions, _, rnn = algo.act(
+                state, torch.as_tensor(obs, device=device), rnn, masks,
+                deterministic=True)
             obs, rew, dones, infos = env.step(actions.cpu().numpy())
             ep_rew += float(rew.mean())
             done = bool(np.all(dones))

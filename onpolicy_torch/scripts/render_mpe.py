@@ -68,8 +68,8 @@ def render_episodes(runner, state, frame=render_frame, reset=None,
         masks = torch.ones(M, 1, device=device)
         ep_rew, actions_ep = 0.0, []
         for _ in range(cfg.episode_length):
-            actions, rnn = algo.act(state, torch.stack(obs, 1)[0], rnn,
-                                    masks, deterministic=True)
+            actions, _, rnn = algo.act(state, torch.stack(obs, 1)[0], rnn,
+                                       masks, deterministic=True)
             noise = env.draw_noise(1, runner.generator, env_state.agent_pos)
             env_state, obs, rewards, _ = env.step(env_state, actions[None],
                                                   noise)

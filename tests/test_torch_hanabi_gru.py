@@ -123,5 +123,5 @@ def test_hanabi_device_train_state_carries_across():
     for got, want in ((t_logp, j_logp), (t_h, j_h)):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **FWD)
     j_v = jm.get_values(js, share, h, masks)
-    t_v = tm.get_values(ts, *map(torch.tensor, (share, h, masks)))
+    t_v, _ = tm.get_values(ts, *map(torch.tensor, (share, h, masks)))
     np.testing.assert_allclose(t_v.numpy(), np.asarray(j_v), **FWD)
